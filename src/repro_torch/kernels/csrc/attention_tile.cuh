@@ -8,8 +8,11 @@
 // max(l, 1e-30). Inputs are f32 or bf16; every tile is widened to f32 as it
 // lands in shared memory, so all arithmetic is f32 on the CUDA cores.
 //
-// Layouts are the serving model's own: K/V caches (B, S, KVH, HD) and the
-// query rows of one KV head, gathered by the caller into sm.q.
+// Layouts are the serving model's own: K/V caches (B, S, KVH, HD) or shared
+// pools (NB, BS, KVH, HD) read through a (B, MB) block table, and the query
+// rows of one KV head, gathered by the caller into sm.q. Where a cache row
+// lives is the one thing the two layouts differ in, so the tile body is
+// templated on a row-addressing type (DenseRows, PagedRows) and written once.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -56,6 +59,7 @@ struct Smem {
   float l[kRows];           // running sum
   float alpha[kRows];       // exp(m_old - m_new) of the current tile
   int qpos[kRows];          // absolute position of each query row
+  long off[2][kTileS];      // paged: element offsets of a tile's rows (double buffer)
 };
 
 // Keys a block must visit, as an inclusive range [lo, hi] of cache rows.
@@ -65,6 +69,9 @@ struct Smem {
 // met a visible key its running max is finite and a masked key adds
 // exp(-1e30 - m) == 0. When some row sees no key at all, the reference gives
 // it the uniform average over all S keys, so the whole cache is visited.
+// S counts logical rows: MB * BS for a paged pool, so the paged kernels may
+// skip pages only when every row sees a key, and otherwise walk every table
+// entry, null block and unmapped pages included, as the reference does.
 __device__ __forceinline__ void key_range(int pmin, int pmax, int S, int window,
                                           int* lo, int* hi) {
   const bool every_row_sees_a_key =
@@ -78,13 +85,60 @@ __device__ __forceinline__ void key_range(int pmin, int pmax, int S, int window,
   }
 }
 
+// Row addressing of one KV head. A layout descriptor says where logical
+// cache row j (0 <= j < S) lives, as an element offset from the head's base
+// pointer (k or v + h * HD for a pool, the slot's row 0 of the head for a
+// dense cache).
+//
+// Dense cache (B, S, KVH, HD): row j is j * stride, stride = KVH * HD.
+struct DenseRows {
+  static constexpr bool kPaged = false;
+  long stride;
+};
+
+// Paged pool (NB, BS, KVH, HD) through the slot's table row (MB entries):
+// logical row j is pool[table[j / BS], j % BS]. The physical id is clamped
+// to [0, NB - 1], as the reference's gather clamps, so a bad table entry
+// reads a wrong page, never stray memory. The physical row is resolved per
+// key, so any block size works and one kTileS-key tile may span several
+// pages. attend_tiles resolves a tile's 64 rows once, into shared memory,
+// while the tile before it computes (see there).
+struct PagedRows {
+  static constexpr bool kPaged = true;
+  long stride;
+  const int* table;
+  int bs;
+  int nb;
+  __device__ __forceinline__ int page(int j) const { return __ldg(table + j / bs); }
+  __device__ __forceinline__ long offset(int blk, int j) const {
+    return ((long)min(max(blk, 0), nb - 1) * bs + j % bs) * stride;
+  }
+};
+
+// The rows of one tile as load_tile reads them: row(j) points at logical
+// row j. Dense: computed from the stride. Paged: looked up in the tile's
+// staged offsets (off[j - s0], filled by attend_tiles).
+template <typename T>
+struct DenseTile {
+  const T* base;
+  long stride;
+  __device__ __forceinline__ const T* row(int j) const { return base + (long)j * stride; }
+};
+template <typename T>
+struct StagedTile {
+  const T* base;
+  const long* off;
+  int s0;
+  __device__ __forceinline__ const T* row(int j) const { return base + off[j - s0]; }
+};
+
 // Copy K or V rows [s0, s0 + kTileS) of one KV head into shared memory as
 // f32, 16 bytes per load, neighbouring threads on neighbouring addresses.
 // Every load of the tile is issued before the first store, so a thread has
 // all its loads in flight at once. Rows at or past S are zero-filled.
-template <typename T, int HD, int STRIDE>
-__device__ __forceinline__ void load_tile(float (*dst)[STRIDE], const T* __restrict__ src,
-                                          int s0, int S, long row_stride) {
+template <typename T, int HD, int STRIDE, typename Tile>
+__device__ __forceinline__ void load_tile(float (*dst)[STRIDE], const Tile& rows, int s0,
+                                          int S) {
   constexpr int VW = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int VPR = HD / VW;        // loads per row
   constexpr int kIters = kTileS * VPR / kThreads;
@@ -95,8 +149,7 @@ __device__ __forceinline__ void load_tile(float (*dst)[STRIDE], const T* __restr
     const int i = threadIdx.x + it * kThreads;
     const int r = i / VPR;
     raw[it] = s0 + r < S
-                  ? __ldg(reinterpret_cast<const uint4*>(src + (long)(s0 + r) * row_stride +
-                                                         (i % VPR) * VW))
+                  ? __ldg(reinterpret_cast<const uint4*>(rows.row(s0 + r) + (i % VPR) * VW))
                   : make_uint4(0u, 0u, 0u, 0u);
   }
 #pragma unroll
@@ -110,8 +163,15 @@ __device__ __forceinline__ void load_tile(float (*dst)[STRIDE], const T* __restr
 
 // Online softmax of the block's `nrows` query rows (staged in sm.q, with
 // sm.qpos, sm.m = -1e30 and sm.l = 0 set, and a __syncthreads() behind them)
-// over key tiles [t_begin, t_end). kbase/vbase point at row 0 of this KV
-// head; consecutive cache rows are row_stride elements apart.
+// over key tiles [t_begin, t_end) of logical rows [0, S). kbase/vbase point
+// at this KV head's row 0 (dense) or its pool column (paged); rows
+// (DenseRows or PagedRows) places each logical row.
+//
+// Paged, the 64 row offsets of a tile are staged in sm.off before its loads:
+// one table read and one division per row and tile, shared by the K and V
+// loads of every thread. The table reads of tile t + 1 are issued at the
+// top of tile t and stored after its p @ V, so their latency hides behind
+// the tile's compute; the two halves of sm.off alternate between tiles.
 //
 // Thread roles per tile:
 //   load    thread -> 16-byte pieces tid + kThreads * it of the K and V tiles
@@ -120,9 +180,9 @@ __device__ __forceinline__ void load_tile(float (*dst)[STRIDE], const T* __restr
 //   p @ V   thread -> dim d = tid % HD, rows tid / HD + (kThreads / HD) i
 // On return acc[i] holds the unnormalised output of row
 // tid / HD + (kThreads / HD) * i, dim tid % HD.
-template <typename T, int HD>
+template <typename T, int HD, typename Rows>
 __device__ __forceinline__ void attend_tiles(Smem<HD>& sm, const T* __restrict__ kbase,
-                                             const T* __restrict__ vbase, long row_stride,
+                                             const T* __restrict__ vbase, const Rows& rows,
                                              int S, int nrows, int t_begin, int t_end,
                                              int window, float scale,
                                              float (&acc)[kRows * HD / kThreads]) {
@@ -141,11 +201,27 @@ __device__ __forceinline__ void attend_tiles(Smem<HD>& sm, const T* __restrict__
   const int n_srows = nrows > sr ? (nrows - sr + kSStep - 1) / kSStep : 0;
   const int n_orows = nrows > orow ? (nrows - orow + kOStep - 1) / kOStep : 0;
 
+  if constexpr (Rows::kPaged) {
+    const int j = t_begin * kTileS + tid;
+    if (t_begin < t_end && tid < kTileS && j < S) {
+      sm.off[t_begin & 1][tid] = rows.offset(rows.page(j), j);
+    }
+    __syncthreads();
+  }
+
   for (int t = t_begin; t < t_end; ++t) {
     const int s0 = t * kTileS;
     const int jmax = min(kTileS, S - s0);  // keys of this tile inside the cache
-    load_tile<T, HD, HD + 1>(sm.k, kbase, s0, S, row_stride);
-    load_tile<T, HD, HD>(sm.v, vbase, s0, S, row_stride);
+    int next_page = 0;  // paged: page of this thread's row of tile t + 1
+    if constexpr (Rows::kPaged) {
+      const int jn = s0 + kTileS + tid;
+      if (t + 1 < t_end && tid < kTileS && jn < S) next_page = rows.page(jn);
+      load_tile<T, HD, HD + 1>(sm.k, StagedTile<T>{kbase, sm.off[t & 1], s0}, s0, S);
+      load_tile<T, HD, HD>(sm.v, StagedTile<T>{vbase, sm.off[t & 1], s0}, s0, S);
+    } else {
+      load_tile<T, HD, HD + 1>(sm.k, DenseTile<T>{kbase, rows.stride}, s0, S);
+      load_tile<T, HD, HD>(sm.v, DenseTile<T>{vbase, rows.stride}, s0, S);
+    }
     __syncthreads();
 
     // scores: q . k * scale, masked to -1e30; q rows read 4 dims at a time
@@ -232,7 +308,13 @@ __device__ __forceinline__ void attend_tiles(Smem<HD>& sm, const T* __restrict__
         }
       }
     }
-    __syncthreads();  // the next tile overwrites k, v and p
+    if constexpr (Rows::kPaged) {
+      const int jn = s0 + kTileS + tid;
+      if (t + 1 < t_end && tid < kTileS && jn < S) {
+        sm.off[(t + 1) & 1][tid] = rows.offset(next_page, jn);
+      }
+    }
+    __syncthreads();  // the next tile overwrites k, v and p, and reads off
   }
 }
 

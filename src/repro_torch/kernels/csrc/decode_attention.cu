@@ -1,22 +1,25 @@
 // Flash decode for Hopper (sm_90a): one query token per slot against a dense
-// KV cache, every slot at its own position.
+// KV cache or a paged KV pool, every slot at its own position.
 //
-// Replaces the TPU kernel decode_attention_pallas (_decode_kernel) in
+// Replaces the TPU kernels decode_attention_pallas (_decode_kernel) and
+// paged_decode_attention_pallas (_paged_decode_kernel) in
 // src/repro/kernels/decode_attention/kernel.py. Same function: for slot b,
 // KV head h and the G query heads of its group,
 //   out = softmax(q . k[kv] / sqrt(HD), kv <= pos[b] [and kv > pos[b] - window]) @ v
-// with f32 accumulation and the -1e30 finite mask.
+// with f32 accumulation and the -1e30 finite mask. Paged, kv is a logical row
+// of the slot, read from pool[table[b, kv / BS], kv % BS].
 //
 // What bounds it on the H100: bytes. Each (b, h) reads its K and V rows up to
 // pos[b] once and does 4 * G * HD flops per key row of 2 * HD elements, i.e.
 // G / 2 flops per byte in f32 (G in bf16) -- far below the card's 20 f32
 // flops per byte (67 TFLOP/s over 3.35 TB/s), so the floor is
-// (K/V bytes up to pos) / 3.35 TB/s.
+// (K/V bytes up to pos, plus the table when paged) / 3.35 TB/s.
 //
 // Design against that bound:
 //  * Only the tiles holding visible keys are read: a block starts at the
 //    window's first tile and stops at the tile holding pos[b] (exact, see
-//    key_range in attention_tile.cuh). Ragged slots read only their prefix.
+//    key_range in attention_tile.cuh). Ragged slots read only their prefix;
+//    paged, the pages past pos are never touched.
 //  * The TPU walks S sequentially in one grid row; here S is split
 //    (flash-decoding): grid (nsplit, KVH, B), each block runs the online
 //    softmax over its share of the visible tiles and writes a partial
@@ -24,22 +27,37 @@
 //    for 132 SMs; the wrapper picks nsplit so about two blocks land on every
 //    SM. A second, small kernel merges the partials:
 //      M = max_i m_i,  out = sum_i e^{m_i - M} acc_i / max(sum_i e^{m_i - M} l_i, 1e-30).
+//    Paged, the splits are taken over the logical key range, as dense.
 //  * All G query heads of a KV head share one pass over its K/V tiles.
 //  * Tiles land in shared memory through 16-byte coalesced loads and are
 //    widened to f32 there; all arithmetic is f32 FMAs on the CUDA cores
 //    (no tensor cores: at G <= 16 rows the product is too skinny to pay).
+//    Paged, each tile's 64 rows are found through the table once, into
+//    shared memory, while the tile before computes (attend_tiles), so a
+//    64-key tile may span several pages of any block size.
 #include "attention_tile.cuh"
 
 using namespace attn;
 
 namespace {
 
-template <typename T, int HD>
+// Where the K/V rows come from. Dense: table == nullptr, S cache rows per
+// slot. Paged: S = MB * BS logical rows per slot through table (B, MB) into
+// pools of NB blocks of BS rows.
+struct Layout {
+  const int* table;
+  int S;
+  int mb;
+  int bs;
+  int nb;
+};
+
+template <typename T, int HD, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ pos,
-                      float* __restrict__ part_ml, float* __restrict__ part_acc,
-                      int S, int KVH, int G, int window, float scale) {
+                      float* __restrict__ part_ml, float* __restrict__ part_acc, Layout lay,
+                      int KVH, int G, int window, float scale) {
   extern __shared__ float4 smem_raw[];
   Smem<HD>& sm = *reinterpret_cast<Smem<HD>*>(smem_raw);
   const int split = blockIdx.x;
@@ -48,6 +66,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int p = pos[b];
+  const int S = lay.S;
 
   // q is (B, 1, KVH * G, HD): the G heads of group h are contiguous
   const T* qb = q + ((long)b * KVH + h) * G * HD;
@@ -72,9 +91,18 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float acc[kRows * HD / kThreads];
 #pragma unroll
   for (int i = 0; i < kRows * HD / kThreads; ++i) acc[i] = 0.f;
-  const long head0 = (long)b * S * KVH * HD + (long)h * HD;
-  attend_tiles<T, HD>(sm, k + head0, v + head0, (long)KVH * HD, S, G, t_begin, t_end,
-                      window, scale, acc);
+  const long stride = (long)KVH * HD;
+  if constexpr (PAGED) {
+    const int* tb = lay.table + (long)b * lay.mb;
+    const PagedRows rows{stride, tb, lay.bs, lay.nb};
+    attend_tiles<T, HD>(sm, k + (long)h * HD, v + (long)h * HD, rows, S, G, t_begin, t_end,
+                        window, scale, acc);
+  } else {
+    const long head0 = (long)b * S * stride + (long)h * HD;
+    const DenseRows rows{stride};
+    attend_tiles<T, HD>(sm, k + head0, v + head0, rows, S, G, t_begin, t_end, window, scale,
+                        acc);
+  }
   __syncthreads();
 
   // partials of slot (b, h, split): rows padded to kRows
@@ -116,22 +144,22 @@ decode_combine_kernel(const float* __restrict__ part_ml, const float* __restrict
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool PAGED>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* pos, void* out,
-                   void* part_ml, void* part_acc, int B, int S, int KVH, int G, int window,
-                   int nsplit, float scale, cudaStream_t stream) {
+                   void* part_ml, void* part_acc, int B, const Layout& lay, int KVH, int G,
+                   int window, int nsplit, float scale, cudaStream_t stream) {
   const int smem = (int)sizeof(Smem<HD>);
   static bool smem_set = false;  // one opt-in per instantiation
   if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        decode_partial_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t e = cudaFuncSetAttribute(decode_partial_kernel<T, HD, PAGED>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     smem_set = true;
   }
-  decode_partial_kernel<T, HD><<<dim3(nsplit, KVH, B), kThreads, smem, stream>>>(
+  decode_partial_kernel<T, HD, PAGED><<<dim3(nsplit, KVH, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(pos), static_cast<float*>(part_ml),
-      static_cast<float*>(part_acc), S, KVH, G, window, scale);
+      static_cast<float*>(part_acc), lay, KVH, G, window, scale);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   decode_combine_kernel<T, HD><<<dim3(KVH, B), kThreads, 0, stream>>>(
@@ -140,47 +168,62 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pos,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_hd(int HD, const void* q, const void* k, const void* v, const void* pos,
-                      void* out, void* part_ml, void* part_acc, int B, int S, int KVH, int G,
-                      int window, int nsplit, float scale, cudaStream_t stream) {
-  switch (HD) {
-    case 32:
-      return launch<T, 32>(q, k, v, pos, out, part_ml, part_acc, B, S, KVH, G, window, nsplit,
-                           scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, pos, out, part_ml, part_acc, B, S, KVH, G, window, nsplit,
-                           scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, pos, out, part_ml, part_acc, B, S, KVH, G, window, nsplit,
-                            scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+template <bool PAGED>
+int dispatch(int dtype, int HD, const void* q, const void* k, const void* v, const void* pos,
+             void* out, void* part_ml, void* part_acc, int B, const Layout& lay, int KVH,
+             int G, int window, int nsplit, float scale, void* stream) {
+  if (B < 1 || lay.S < 1 || KVH < 1 || G < 1 || G > kRows || nsplit < 1) {
+    return (int)cudaErrorInvalidValue;
   }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DECODE_CASE(TYPE, DIM)                                                              \
+  return (int)launch<TYPE, DIM, PAGED>(q, k, v, pos, out, part_ml, part_acc, B, lay, KVH, G, \
+                                       window, nsplit, scale, st)
+  if (dtype == 0) {
+    switch (HD) {
+      case 32: DECODE_CASE(float, 32);
+      case 64: DECODE_CASE(float, 64);
+      case 128: DECODE_CASE(float, 128);
+    }
+  } else if (dtype == 1) {
+    switch (HD) {
+      case 32: DECODE_CASE(__nv_bfloat16, 32);
+      case 64: DECODE_CASE(__nv_bfloat16, 64);
+      case 128: DECODE_CASE(__nv_bfloat16, 128);
+    }
+  }
+#undef DECODE_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
+// Plain C entry points, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
 // part_ml: (B, KVH, nsplit, 16, 2) f32, part_acc: (B, KVH, nsplit, 16, HD) f32
-// scratch. window <= 0 means no sliding window. Returns the cudaError_t of
-// the launches (0 on success); the kernels run asynchronously on `stream`.
+// scratch. window <= 0 means no sliding window. Each returns the cudaError_t
+// of its launches (0 on success); the kernels run asynchronously on `stream`.
+
+// Dense: q and out (B, 1, KVH * G, HD); k and v (B, S, KVH, HD); pos (B,).
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* pos, void* out, void* part_ml,
                                        void* part_acc, int B, int S, int KVH, int G, int HD,
                                        int window, int nsplit, float scale, int dtype,
                                        void* stream) {
-  if (B < 1 || S < 1 || KVH < 1 || G < 1 || G > kRows || nsplit < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return (int)launch_hd<float>(HD, q, k, v, pos, out, part_ml, part_acc, B, S, KVH, G, window,
-                                 nsplit, scale, st);
-  }
-  if (dtype == 1) {
-    return (int)launch_hd<__nv_bfloat16>(HD, q, k, v, pos, out, part_ml, part_acc, B, S, KVH, G,
-                                         window, nsplit, scale, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  const Layout lay{nullptr, S, 0, 0, 0};
+  return dispatch<false>(dtype, HD, q, k, v, pos, out, part_ml, part_acc, B, lay, KVH, G,
+                         window, nsplit, scale, stream);
+}
+
+// Paged: k_pool and v_pool (NB, BS, KVH, HD); table (B, MB) int32 physical
+// block ids (clamped to [0, NB - 1] on read); q, out and pos as dense.
+extern "C" int paged_decode_attention_launch(const void* q, const void* k_pool,
+                                             const void* v_pool, const void* table,
+                                             const void* pos, void* out, void* part_ml,
+                                             void* part_acc, int B, int MB, int BS, int NB,
+                                             int KVH, int G, int HD, int window, int nsplit,
+                                             float scale, int dtype, void* stream) {
+  if (table == nullptr || MB < 1 || BS < 1 || NB < 1) return (int)cudaErrorInvalidValue;
+  const Layout lay{static_cast<const int*>(table), MB * BS, MB, BS, NB};
+  return dispatch<true>(dtype, HD, q, k_pool, v_pool, pos, out, part_ml, part_acc, B, lay,
+                        KVH, G, window, nsplit, scale, stream);
 }

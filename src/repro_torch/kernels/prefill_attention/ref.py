@@ -1,9 +1,11 @@
-"""Plain PyTorch version of chunked flash prefill (GQA, causal/windowed,
-per-slot offsets) — the counterpart of ``prefill_attention_reference`` in
-the JAX package, and the oracle the CUDA kernel is held against."""
+"""Plain PyTorch versions of chunked flash prefill (GQA, causal/windowed,
+per-slot offsets) over a dense cache and over a paged pool — the
+counterparts of ``prefill_attention_reference`` and
+``paged_prefill_attention_reference`` in the JAX package, and the oracles
+the CUDA kernels are held against."""
 import torch
 
-from repro_torch.kernels.runtime import pos_vector, scale_for
+from repro_torch.kernels.runtime import gather_pages, pos_vector, scale_for
 
 NEG_INF = -1e30
 
@@ -33,3 +35,21 @@ def prefill_attention_reference(
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkcgs,bskd->bkcgd", w, v.float())
     return out.to(q.dtype)
+
+
+def paged_prefill_attention_reference(
+    q: torch.Tensor,  # (B, KVH, C, G, hd)
+    k_pool: torch.Tensor,  # (num_blocks, block_size, KVH, hd)
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, max_blocks)
+    pos,
+    *,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Gather each slot's logical view (ids clamped) and run the dense
+    version; masking by ``pos + i`` hides the null block and unmapped
+    pages."""
+    return prefill_attention_reference(
+        q, gather_pages(k_pool, block_tables), gather_pages(v_pool, block_tables), pos,
+        window=window,
+    )

@@ -6,7 +6,9 @@ Three concerns live here:
   names another device; a missing GPU raises instead of quietly running on
   the CPU.
 * ``pos_vector`` — normalizes ()/(B,)/python-int positions to one (B,)
-  int32 tensor on the kernels' device.
+  int32 tensor on the kernels' device; ``gather_pages`` — the logical
+  view of a paged pool through a block table (the plain paged versions'
+  first step).
 * the kernel build. Every ``csrc/<name>.cu`` is compiled by ``nvcc`` for
   ``sm_90a`` into a shared library with a plain C interface under
   ``build/kernels/`` at the repo root, keyed by a hash of its sources and
@@ -56,6 +58,19 @@ def pos_vector(pos, b: int, device) -> torch.Tensor:
     """Normalize ()/(B,)/python-int positions to a (B,) int32 tensor."""
     p = torch.as_tensor(pos, dtype=torch.int32, device=device)
     return p.broadcast_to((b,)).contiguous()
+
+
+def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+    """Each slot's logical KV view of a shared pool.
+
+    pool: (num_blocks, block_size, ...); block_tables: (B, max_blocks).
+    Returns (B, max_blocks * block_size, ...): logical position p of slot b
+    is row p of the view, so masking by ``pos`` works as on a dense cache.
+    Table entries are clamped to [0, num_blocks - 1], as the JAX gather
+    ``pool[block_tables]`` clamps (torch indexing would raise instead)."""
+    ids = block_tables.long().clamp(0, pool.shape[0] - 1)
+    g = pool[ids]  # (B, MB, BS, ...)
+    return g.reshape((g.shape[0], g.shape[1] * g.shape[2]) + g.shape[3:])
 
 
 # ------------------------------------------------------------------ build
@@ -160,6 +175,24 @@ def check_kernel_inputs(op: str, tensors: dict) -> torch.dtype:
     if hd not in HEAD_DIMS:
         raise ValueError(f"{op}: head_dim {hd} not in {HEAD_DIMS}")
     return next(iter(dtypes))
+
+
+def check_block_table(op: str, block_tables: torch.Tensor, b: int,
+                      device: torch.device) -> None:
+    """Reject a block table the paged launchers do not take: not a
+    contiguous (B, max_blocks) int32 tensor on the inputs' device."""
+    if block_tables.device != device:
+        raise ValueError(
+            f"{op}: block_tables lies on {block_tables.device}, the inputs on {device}"
+        )
+    if block_tables.dtype != torch.int32:
+        raise TypeError(f"{op}: block_tables must be int32, got {block_tables.dtype}")
+    if block_tables.ndim != 2 or block_tables.shape[0] != b or block_tables.shape[1] < 1:
+        raise ValueError(
+            f"{op}: block_tables must be ({b}, max_blocks), got {tuple(block_tables.shape)}"
+        )
+    if not block_tables.is_contiguous():
+        raise ValueError(f"{op}: block_tables must be contiguous")
 
 
 def check_launch(op: str, err: int) -> None:

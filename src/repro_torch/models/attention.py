@@ -1,23 +1,33 @@
-"""GQA attention (± QKV bias, ± sliding window) over a dense KV cache.
+"""GQA attention (± QKV bias, ± sliding window) over a dense KV cache or a
+paged KV pool.
 
 Counterpart of the serving part of ``repro.models.attention``. The serving
 cache paths (decode tick + parallel prefill chunk) dispatch through
 ``cached_attend`` on ``ArchConfig.attn_backend``: ``"plain"`` runs the
-masked-softmax ``decode_attend`` below (the reference semantics),
-``"kernel"`` runs the hand-written CUDA kernels in
-``repro_torch.kernels.decode_attention`` (one query token) and
-``repro_torch.kernels.prefill_attention`` (a (B, C) chunk slab).
+masked-softmax ``decode_attend`` below (the reference semantics; over the
+``gather_pages`` view when paged), ``"kernel"`` runs the hand-written CUDA
+kernels in ``repro_torch.kernels.decode_attention`` (one query token) and
+``repro_torch.kernels.prefill_attention`` (a (B, C) chunk slab), dense or
+paged.
 
-Shapes: x (B, C, d); q (B, C, H, hd); caches (B, max_seq, KVH, hd) written
-at per-slot positions.
+Shapes: x (B, C, d); q (B, C, H, hd); dense caches (B, max_seq, KVH, hd)
+written at per-slot positions; paged pools (num_blocks, block_size, KVH,
+hd) written through a (B, max_blocks) block table. Every write is in place
+(``index_put_``), where the JAX functions return new arrays.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.decode_attention.ops import decode_attention
-from repro_torch.kernels.prefill_attention.ops import prefill_attention
-from repro_torch.kernels.runtime import pos_vector, scale_for
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention,
+    paged_decode_attention,
+)
+from repro_torch.kernels.prefill_attention.ops import (
+    paged_prefill_attention,
+    prefill_attention,
+)
+from repro_torch.kernels.runtime import gather_pages, pos_vector, scale_for
 from repro_torch.models.layers import dense_init, matmul
 
 NEG_INF = -1e30
@@ -79,23 +89,75 @@ def decode_attend(q, k_cache, v_cache, pos, *, sliding_window=None):
 
 def cached_attend(q, k_cache, v_cache, pos, *, sliding_window=None,
                   backend: str = "kernel", block_tables=None):
-    """GQA chunk-of-queries attention against the dense cache, dispatching
-    on the serving attention backend (``ArchConfig.attn_backend``):
+    """GQA chunk-of-queries attention against the cache, dispatching on the
+    serving attention backend (``ArchConfig.attn_backend``). Dense caches
+    are (B, S, KVH, hd); with ``block_tables`` (B, max_blocks) int32 the
+    caches are the shared (num_blocks, block_size, KVH, hd) pools.
 
-      * ``"plain"``  — ``decode_attend`` (the reference semantics).
-      * ``"kernel"`` — ``decode_attention`` for a C == 1 query,
-        ``prefill_attention`` for C > 1: the CUDA kernels on CUDA tensors,
-        their plain versions on CPU tensors.
-
-    The paged cache (``block_tables``) belongs to a later slice of the port
-    and raises here."""
-    if block_tables is not None:
-        raise NotImplementedError(
-            "paged KV caches (block_tables) are not ported yet: dense caches only"
-        )
+      * ``"plain"``  — ``decode_attend`` (the reference semantics), over
+        the ``gather_pages`` view of the pools when paged.
+      * ``"kernel"`` — ``decode_attention`` / ``paged_decode_attention``
+        for a C == 1 query, ``prefill_attention`` /
+        ``paged_prefill_attention`` for C > 1: the CUDA kernels on CUDA
+        tensors (the paged ones walk the table themselves; no view is
+        built), their plain versions on CPU tensors."""
     if backend == "kernel":
-        op = decode_attention if q.shape[1] == 1 else prefill_attention
-        return op(q, k_cache, v_cache, pos, window=sliding_window)
+        decode = q.shape[1] == 1
+        if block_tables is None:
+            op = decode_attention if decode else prefill_attention
+            return op(q, k_cache, v_cache, pos, window=sliding_window)
+        op = paged_decode_attention if decode else paged_prefill_attention
+        return op(q, k_cache, v_cache, block_tables, pos, window=sliding_window)
     if backend == "plain":
+        if block_tables is not None:
+            k_cache = gather_pages(k_cache, block_tables)
+            v_cache = gather_pages(v_cache, block_tables)
         return decode_attend(q, k_cache, v_cache, pos, sliding_window=sliding_window)
     raise ValueError(f"unknown attention backend {backend!r}")
+
+
+# --------------------------------------------------------- paged KV cache
+def _physical(block_tables, blk, nb):
+    """Physical ids of table columns ``blk`` (already within the table);
+    an id outside the pool is routed to the null block 0, where the JAX
+    scatter drops it — block 0 is never read unmasked, so the two agree on
+    every row attention can see."""
+    bidx = torch.gather(block_tables.long(), 1, blk)
+    return torch.where((bidx >= 0) & (bidx < nb), bidx, 0)
+
+
+def paged_cache_write(pool, new, pos, block_tables, live=None):
+    """Write one token per slot into the shared block pool, IN PLACE.
+
+    pool: (num_blocks, block_size, ...); new: (B, 1, ...); pos: (B,) logical
+    positions; block_tables: (B, max_blocks). The table column
+    ``pos // block_size`` is clamped to the table width (a dead slot's
+    stale pos can point past it; JAX ``mode="clip"``), and dead slots
+    (``live == False``) are then routed to the null block 0, so the write
+    is unconditional. Live slots own disjoint blocks, so lanes collide only
+    in block 0, which is never read. Returns the pool."""
+    bs, mb = pool.shape[1], block_tables.shape[1]
+    pos = pos.long()
+    blk = torch.div(pos, bs, rounding_mode="floor").clamp(0, mb - 1)
+    bidx = _physical(block_tables, blk[:, None], pool.shape[0])[:, 0]
+    if live is not None:
+        bidx = torch.where(live, bidx, 0)
+    pool.index_put_((bidx, torch.remainder(pos, bs)), new[:, 0].to(pool.dtype))
+    return pool
+
+
+def paged_cache_write_slab(pool, new, pos, block_tables, valid):
+    """Write a whole (B, C) prefill chunk into the shared block pool, IN
+    PLACE: chunk token i of slot b lands at logical position ``pos[b] + i``.
+    valid: (B, C) — invalid lanes (prompt shorter than the chunk, slots not
+    being prefilled) are routed to the null block 0, like dead slots in
+    ``paged_cache_write``; table columns are clamped to the table width.
+    Chunk tokens of one slot occupy distinct (block, row) pairs, so lanes
+    collide only in block 0. Returns the pool."""
+    bs, mb = pool.shape[1], block_tables.shape[1]
+    c = new.shape[1]
+    tgt = pos.long()[:, None] + torch.arange(c, device=pool.device)[None, :]  # (B, C)
+    blk = torch.div(tgt, bs, rounding_mode="floor").clamp(0, mb - 1)
+    bidx = torch.where(valid, _physical(block_tables, blk, pool.shape[0]), 0)
+    pool.index_put_((bidx, torch.remainder(tgt, bs)), new.to(pool.dtype))
+    return pool

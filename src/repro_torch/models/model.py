@@ -8,10 +8,13 @@ device (the JAX package's ``dense_init`` law, other random numbers) or from
 the JAX params through ``repro_torch.convert``.
 
 Serving entry points, counterparts of the JAX ones:
-  * ``init_cache`` / ``reset_slot_state`` — dense per-slot K/V stripes,
-    one (k, v) pair of (B, max_seq, KVH, hd) tensors per layer.
+  * ``init_cache`` / ``reset_slot_state`` — one (k, v) pair per layer:
+    dense per-slot stripes (B, max_seq, KVH, hd), or, given a
+    ``PagingSpec``, shared pools (num_blocks, block_size, KVH, hd) that
+    slots address through a (B, max_blocks) block table.
   * ``decode_step``  — one token per slot against the caches at ``pos``.
   * ``prefill_step`` — a (B, C) prompt chunk, all C tokens in parallel.
+  Both take ``block_tables=`` for the paged pools.
 
 Both steps update the caches IN PLACE (and return them, as the JAX
 functions return new ones). Multi-task personalization lives in
@@ -121,10 +124,16 @@ class TransformerLM(nn.Module):
         return logits
 
     # ------------------------------------------------------------- caches
-    def init_cache(self, batch_size: int, max_seq: int) -> list:
-        """One (k, v) pair of zero (B, max_seq, KVH, hd) stripes per layer."""
+    def init_cache(self, batch_size: int, max_seq: int, paging=None) -> list:
+        """One (k, v) pair of zeros per layer: dense (B, max_seq, KVH, hd)
+        stripes, or with ``paging`` (a ``repro_torch.serve.paging.
+        PagingSpec``) shared (num_blocks, block_size, KVH, hd) pools."""
         c = self.cfg
-        shape = (batch_size, max_seq, c.num_kv_heads, c.head_dim)
+        if paging is not None:
+            lead = (paging.num_blocks, paging.block_size)
+        else:
+            lead = (batch_size, max_seq)
+        shape = lead + (c.num_kv_heads, c.head_dim)
         return [
             (torch.zeros(shape, dtype=self.dtype, device=self.device),
              torch.zeros(shape, dtype=self.dtype, device=self.device))
@@ -132,10 +141,16 @@ class TransformerLM(nn.Module):
         ]
 
     @torch.no_grad()
-    def reset_slot_state(self, caches, reset):
+    def reset_slot_state(self, caches, reset, paging=None):
         """Zero the K/V stripes of (re)admitted slots, in place, as the JAX
         model restores them to the ``init_cache`` value. reset: (B,) bool
-        (host array or tensor). Only the reset rows are touched."""
+        (host array or tensor). Only the reset rows are touched.
+
+        Paged pools (``paging`` given) need no clearing, as in JAX: a new
+        request rewrites every position it can read and reads are masked by
+        ``kv_idx <= pos``, so stale bytes in recycled blocks are never seen."""
+        if paging is not None:
+            return caches
         rows = np.flatnonzero(torch.as_tensor(reset).cpu().numpy())
         if rows.size == 0:
             return caches
@@ -179,10 +194,11 @@ class TransformerLM(nn.Module):
         return cls._cache_write_slab(cache, new, pos, live[:, None])
 
     # -------------------------------------------------------------- blocks
-    def _make_attend(self, pos):
+    def _make_attend(self, pos, block_tables=None):
         c = self.cfg
         return lambda q, kc, vc: attn_lib.cached_attend(
             q, kc, vc, pos, sliding_window=c.sliding_window, backend=c.attn_backend,
+            block_tables=block_tables,
         )
 
     def _attn_block(self, p: _Block, x, cache, pos, write, attend):
@@ -205,39 +221,50 @@ class TransformerLM(nn.Module):
 
     # ------------------------------------------------------------- serving
     @torch.no_grad()
-    def decode_step(self, batch, caches, pos, live=None):
+    def decode_step(self, batch, caches, pos, live=None, block_tables=None):
         """One-token decode. batch: {'tokens': (B, 1) [, 'task_ids': (B,)]};
         pos: () or (B,) per-slot positions; live: optional (B,) bool — dead
         slots run through the math on their padding token but their cache
-        rows are left untouched. Returns (logits (B, 1, V) f32, caches)."""
+        rows are left untouched (paged: their write goes to the null block
+        0). block_tables: optional (B, max_blocks) int32 — the caches are
+        then the shared pools of ``init_cache(..., paging=spec)``. Returns
+        (logits (B, 1, V) f32, caches)."""
         x = self._embed(batch)
         pos = pos_vector(pos, x.shape[0], x.device)
-        attend = self._make_attend(pos)
+        attend = self._make_attend(pos, block_tables)
+        if block_tables is None:
+            def write(cc, new):
+                self._cache_write(cc, new, pos, live)
+        else:
+            def write(cc, new):
+                attn_lib.paged_cache_write(cc, new, pos, block_tables, live)
         for p, cache in zip(self.layers, caches):
-            x = self._attn_block(
-                p, x, cache, pos,
-                lambda cc, new: self._cache_write(cc, new, pos, live), attend,
-            )
+            x = self._attn_block(p, x, cache, pos, write, attend)
         return self._logits(x, batch), caches
 
     @torch.no_grad()
-    def prefill_step(self, batch, caches, positions, valid):
+    def prefill_step(self, batch, caches, positions, valid, block_tables=None):
         """Multi-token prefill: a whole (B, C) prompt chunk, all C tokens in
         parallel, against the caches at per-slot offsets. positions: (B,)
         position of each slot's first chunk token; valid: (B, C)
         contiguous-prefix mask of real prompt tokens (all-False rows ride
-        along untouched). Returns (logits (B, 1, V) after each slot's LAST
-        valid token, caches) — the lm head runs on one hidden state per slot
-        (all-False rows give logits the caller discards)."""
+        along untouched; paged, their lanes write the null block 0).
+        block_tables: optional (B, max_blocks) int32 for paged pools.
+        Returns (logits (B, 1, V) after each slot's LAST valid token,
+        caches) — the lm head runs on one hidden state per slot (all-False
+        rows give logits the caller discards)."""
         x = self._embed(batch)
         b = x.shape[0]
         pos = pos_vector(positions, b, x.device)
-        attend = self._make_attend(pos)
+        attend = self._make_attend(pos, block_tables)
+        if block_tables is None:
+            def write(cc, new):
+                self._cache_write_slab(cc, new, pos, valid)
+        else:
+            def write(cc, new):
+                attn_lib.paged_cache_write_slab(cc, new, pos, block_tables, valid)
         for p, cache in zip(self.layers, caches):
-            x = self._attn_block(
-                p, x, cache, pos,
-                lambda cc, new: self._cache_write_slab(cc, new, pos, valid), attend,
-            )
+            x = self._attn_block(p, x, cache, pos, write, attend)
         idx = (valid.sum(dim=1) - 1).clamp(min=0)  # in [0, C-1]
         x_last = x[torch.arange(b, device=x.device), idx][:, None, :]  # (B, 1, d)
         return self._logits(x_last, batch), caches

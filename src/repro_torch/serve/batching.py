@@ -1,13 +1,14 @@
 """Serving executor: wires scheduler decisions into the serving step pair.
 
-Counterpart of ``repro.serve.batching`` for the dense KV cache.
-``ContinuousBatcher`` is the EXECUTOR layer of the serving core:
+Counterpart of ``repro.serve.batching`` for the dense and the paged KV
+cache. ``ContinuousBatcher`` is the EXECUTOR layer of the serving core:
 
   * ``repro_torch.serve.slots.SlotMap`` — slot/position/live bookkeeping,
   * ``repro_torch.serve.scheduler.Scheduler`` — queue, admission policies
     (fifo/sjf/priority), the per-tick prefill token budget, deadlines,
   * this module — the only layer that touches device state: the per-layer
-    K/V caches and the two functions from ``repro_torch.serve.step``.
+    K/V caches, the ``BlockAllocator`` + block tables (paged mode), and the
+    functions from ``repro_torch.serve.step``.
 
 Two execution regimes, selected by ``chunk_budget``:
 
@@ -32,11 +33,28 @@ and ``done`` False.
 seconds spent in the decode and (unchunked) prefill dispatches, each ending
 in the copy of its results to the host (which waits for the device).
 
+Paged mode (pass a ``repro_torch.serve.paging.PagingSpec``): admission
+reserves ``ceil((len(prompt) + max_new) / block_size)`` blocks for the
+request's lifetime (allocator backpressure queues requests that cannot get
+them; ``admission_waits`` counts the rounds that stopped on blocks) and
+every retirement path — finish, cancel, timeout — returns them. The
+(num_slots, max_blocks) int32 table goes to the device in one copy per
+dispatch, shared by every layer.
+
+``prefix_cache=True`` (paged mode) puts a
+``repro_torch.serve.paging.RadixPrefixCache`` in front of admission: a
+request whose prompt shares a cached prefix aliases those blocks
+(refcounted) instead of recomputing them, prefill starts at
+``cached_tokens``, a partially shared boundary block is copy-on-written in
+one step (``serve.step.make_cow_copy``, counted by ``cow_copies``), a
+prompt's full blocks are registered once its prefill completes, and
+retirement releases (decrefs) instead of freeing. Greedy outputs equal the
+no-sharing path's.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: the paged cache (``paging``), the prefix cache
-(``prefix_cache``), graph-mixed task adapters (``adapters``), fault
-injection (``faults``) and preemptive swap-out (``preempt``) — later
-slices of the port.
+ignored: graph-mixed task adapters (``adapters``), fault injection
+(``faults``) and preemptive swap-out (``preempt``) — later slices of the
+port.
 """
 from __future__ import annotations
 
@@ -46,13 +64,12 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.serve.paging import BlockAllocator, RadixPrefixCache
 from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.slots import SlotMap
-from repro_torch.serve.step import make_serve_step
+from repro_torch.serve.step import make_cow_copy, make_serve_step
 
 _LATER_SLICES = {
-    "paging": "the paged KV cache",
-    "prefix_cache": "the prefix cache",
     "adapters": "graph-mixed task adapters",
     "faults": "fault injection",
     "preempt": "preemptive swap-out",
@@ -98,6 +115,7 @@ class Request:
     # bookkeeping stamped by the scheduler/executor
     submit_time: float | None = None
     prompt_done: int = 0  # prompt tokens already written to the cache
+    cached_tokens: int = 0  # prompt tokens served from the prefix cache
     _arrival: int = 0
 
     @property
@@ -126,15 +144,14 @@ class ContinuousBatcher:
         faults=None,
         preempt: bool = False,
     ):
-        refuse_unported(paging=paging is not None, prefix_cache=prefix_cache,
-                        adapters=adapters is not None, faults=faults is not None,
+        refuse_unported(adapters=adapters is not None, faults=faults is not None,
                         preempt=preempt)
         self.model = model
         self.device = model.device
         self.num_slots = num_slots
         self.max_seq = max_seq
-        self.slot_capacity = max_seq
         self.prefill_chunk = prefill_chunk
+        self.paging = paging
         self.on_token = on_token
         self.sample_fn = sample_fn
         # dead/free lanes carry the task id num_tasks, one past the task
@@ -142,16 +159,45 @@ class ContinuousBatcher:
         self._null_task = model.cfg.num_tasks
         self.scheduler = Scheduler(policy=policy, chunk_budget=chunk_budget, now_fn=now_fn)
         self.slots = SlotMap(num_slots)
-        self.caches = model.init_cache(num_slots, max_seq)
+        if paging is not None:
+            # a slot's logical length is bounded by BOTH max_seq and its
+            # block-table capacity
+            self.slot_capacity = min(max_seq, paging.tokens_per_slot)
+            self.allocator = BlockAllocator(paging)
+            self.block_tables = np.zeros((num_slots, paging.max_blocks_per_slot), np.int32)
+            self.slot_blocks: list[list[int]] = [[] for _ in range(num_slots)]
+        else:
+            self.slot_capacity = max_seq
+        self.prefix = None
+        self._cow_fn = None
+        if prefix_cache:
+            if paging is None:
+                raise ValueError(
+                    "prefix_cache=True requires a paged cache layout (pass a "
+                    "PagingSpec) — dense per-slot stripes cannot alias blocks "
+                    "between slots"
+                )
+            # the port's model is attention-only (pattern ("attn",)): no
+            # recurrent state lives outside the KV blocks
+            self.prefix = RadixPrefixCache(self.allocator)
+            self._cow_fn = make_cow_copy(paging)
+            # sjf orders by UNCACHED prompt tokens: a long prompt with a
+            # resident prefix is a short job
+            self.scheduler.cost_fn = lambda r: (
+                len(r.tokens) - self.prefix.match(r.task_id, r.tokens).tokens
+            )
+        self.caches = model.init_cache(num_slots, max_seq, paging)
         self.finished: list[Request] = []
         self.ticks = 0
         self.decode_dispatches = 0
         self.prefill_dispatches = 0
         self.mixed_dispatches = 0  # fused prefill+decode (chunk_budget mode)
+        self.cow_copies = 0  # copy-on-write steps (prefix-cache mode)
+        self.admission_waits = 0  # admission rounds stopped on KV blocks (paged)
         self.prefill_tokens = 0  # prompt tokens computed
         self.decode_s = self.prefill_s = 0.0
         self._needs_reset: set[int] = set()  # fresh slots awaiting reset
-        self._tick_fn, self._prefill_fn = make_serve_step(model, prefill_mode)
+        self._tick_fn, self._prefill_fn = make_serve_step(model, prefill_mode, paging)
 
     # --------------------------------------------------- bookkeeping views
     @property
@@ -164,6 +210,11 @@ class ContinuousBatcher:
 
     def _dev(self, arr) -> torch.Tensor:
         return torch.as_tensor(arr, device=self.device)
+
+    def _block_tables(self):
+        """The slots' block tables on the device (one host-to-device copy
+        per dispatch, read by every layer), or None (dense)."""
+        return self._dev(self.block_tables) if self.paging is not None else None
 
     # ------------------------------------------------------------- plumbing
     def submit(self, req: Request):
@@ -184,16 +235,95 @@ class ContinuousBatcher:
             )
         total = n + req.max_new
         if total > self.slot_capacity:
+            detail = (
+                f"max_seq={self.max_seq}"
+                if self.paging is None
+                else f"min(max_seq={self.max_seq}, {self.paging.max_blocks_per_slot} "
+                f"blocks x {self.paging.block_size})"
+            )
             raise ValueError(
                 f"request {req.uid}: prompt ({n}) + max_new ({req.max_new}) "
                 f"= {total} tokens exceeds the per-slot capacity "
-                f"{self.slot_capacity} (max_seq={self.max_seq}); it would be "
-                "silently truncated"
+                f"{self.slot_capacity} ({detail}); it would be silently truncated"
             )
+        if self.paging is not None:
+            needed = self.paging.blocks_for(total)
+            if needed > self.paging.num_blocks - 1:
+                raise ValueError(
+                    f"request {req.uid}: needs {needed} KV blocks but the pool "
+                    f"only has {self.paging.num_blocks - 1} allocatable blocks — "
+                    "it could never be admitted"
+                )
         self.scheduler.submit(req)
 
+    # ------------------------------------------------------ paged blocks
+    def _set_table(self, s: int, blocks: list[int]) -> None:
+        self.slot_blocks[s] = list(blocks)
+        self.block_tables[s, :] = 0
+        self.block_tables[s, : len(blocks)] = blocks
+
+    def _free_slot_blocks(self, s: int):
+        if self.paging is not None and self.slot_blocks[s]:
+            if self.prefix is not None:
+                # decref, not free: blocks registered in the prefix trie
+                # stay resident (cached-idle, LRU-evictable) for future
+                # hits; unregistered ones return to the free list
+                self.prefix.release(self.slot_blocks[s])
+            else:
+                self.allocator.free(self.slot_blocks[s])
+            self.slot_blocks[s] = []
+            self.block_tables[s, :] = 0
+
+    def _register_prefix(self, s: int, req: Request):
+        """Insert a COMPLETELY prefilled prompt's full blocks into the
+        prefix trie (only final KV values are ever aliasable)."""
+        if self.prefix is not None and req.prefill_remaining == 0:
+            self.prefix.insert(req.task_id, req.tokens, self.slot_blocks[s])
+
     def _try_bind(self, s: int, req: Request) -> bool:
-        self.slots.bind(s, req)
+        """Scheduler placement callback: reserve the request's blocks for
+        its whole lifetime and bind the slot — or report backpressure
+        (False stops admission for this round)."""
+        if self.paging is None:
+            self.slots.bind(s, req)
+            return True
+        needed = self.paging.blocks_for(len(req.tokens) + req.max_new)
+        if self.prefix is not None:
+            bound = self._bind_prefix(s, req, needed)
+        elif self.allocator.can_alloc(needed):
+            self._set_table(s, self.allocator.alloc(needed))
+            self.slots.bind(s, req)
+            bound = True
+        else:
+            bound = False  # wait for finishing requests' blocks
+        if not bound:
+            self.admission_waits += 1
+        return bound
+
+    def _bind_prefix(self, s: int, req: Request, needed: int) -> bool:
+        """Prefix-cache admission: alias the cached chain, copy-on-write
+        the partially shared boundary block, bind at ``cached_tokens``."""
+        admit = self.prefix.admit(req.task_id, req.tokens, needed)
+        if admit is None:
+            return False  # truly out of live + unreclaimable memory
+        if admit.cow is not None:
+            # the boundary block is only partially shared: copy the shared
+            # rows into the slot's private block. The source stays pinned
+            # (increfed) across the copy; the pin drops whatever happens
+            src, dst, rows = admit.cow
+            try:
+                self.caches = self._cow_fn(self.caches, src, dst, rows)
+                self.cow_copies += 1
+            except BaseException:
+                self.prefix.release(list(admit.blocks))
+                raise
+            finally:
+                self.prefix.release([src])
+        self._set_table(s, admit.blocks)
+        # prefill resumes after the cached prefix
+        req.prompt_done = admit.cached_tokens
+        req.cached_tokens = admit.cached_tokens
+        self.slots.bind(s, req, pos=admit.cached_tokens)
         return True
 
     # ------------------------------------------------------------- emission
@@ -221,19 +351,23 @@ class ContinuousBatcher:
                 req.done = True
                 req.truncated = len(req.out) < req.max_new
                 self.finished.append(req)
+                # blocks before the binding: an unbound slot must never
+                # still hold blocks
+                self._free_slot_blocks(s)
                 self.slots.release(s)  # state cleared on re-admission
 
     # --------------------------------------------------- retirement paths
     def cancel(self, uid) -> bool:
         """Cancel a request by uid, queued or mid-flight. Frees its slot
-        immediately; the request lands in ``finished`` with
-        ``cancelled=True`` and never emits another token. Returns False if
-        no such request is queued or in flight."""
+        and paged blocks immediately; the request lands in ``finished``
+        with ``cancelled=True`` and never emits another token. Returns
+        False if no such request is queued or in flight."""
         req = self.scheduler.cancel(uid)
         if req is None:
             s = self.slots.slot_of(uid)
             if s is None:
                 return False
+            self._free_slot_blocks(s)
             req = self.slots.release(s)
         req.cancelled = True
         self.finished.append(req)
@@ -241,7 +375,7 @@ class ContinuousBatcher:
 
     def _retire_expired(self):
         """Release requests past their ``timeout_s`` deadline — queued or
-        mid-flight."""
+        mid-flight — freeing slots and paged blocks."""
         if not any(
             r.timeout_s is not None
             for r in self.scheduler.queue + self.slots.reqs
@@ -255,6 +389,7 @@ class ContinuousBatcher:
             req.timed_out = True
             self.finished.append(req)
         for s, req in dead_live:
+            self._free_slot_blocks(s)
             self.slots.release(s)
             req.timed_out = True
             self.finished.append(req)
@@ -262,7 +397,9 @@ class ContinuousBatcher:
     # ------------------------------------------------- legacy (gulp) prefill
     def _admit(self):
         """Fill free slots in scheduler policy order, then (unchunked mode)
-        prefill ALL newly admitted prompts together in chunked dispatches."""
+        prefill ALL newly admitted prompts together in chunked dispatches.
+        Paged mode reserves each request's blocks here; when they cannot
+        be had, admission stops until finishing requests release blocks."""
         admitted = self.scheduler.admit(self.slots.free_slots(), self._try_bind)
         newly = [s for s, _ in admitted]
         self._needs_reset |= set(newly)
@@ -273,7 +410,9 @@ class ContinuousBatcher:
     def _prefill_full(self, targets: list[int]):
         """Run every target slot's prompt to completion in (num_slots, C)
         dispatches, emitting each request's first generated token the
-        dispatch its prefill completes."""
+        dispatch its prefill completes. Each slot prefills from its own
+        cursor (``prompt_done``: 0, or ``cached_tokens`` after a prefix
+        hit), so a resident prefix costs no dispatch."""
         task_ids = self._dev(self.slots.task_ids(self._null_task))
         c = self.prefill_chunk
         while True:
@@ -297,7 +436,7 @@ class ContinuousBatcher:
             t0 = time.perf_counter()
             last, self.caches, positions = self._prefill_fn(
                 self._dev(tokens), task_ids, self.caches, self._dev(self.pos),
-                self._dev(valid), reset,
+                self._dev(valid), reset, self._block_tables(),
             )
             greedy, rows = self._host_results(last)
             positions = positions.cpu().numpy()
@@ -315,9 +454,14 @@ class ContinuousBatcher:
                 if req.prefill_remaining == 0:
                     completed.append((s, req))
             # the logits after each prompt's LAST token give the first
-            # generated token: emit it the dispatch it appears
+            # generated token: emit it the dispatch it appears (prefix
+            # matching is capped at len(prompt) - 1, so every completing
+            # slot computed at least its last prompt token here)
             for s, req in completed:
-                if self.slots.reqs[s] is req and not req.out:
+                if self.slots.reqs[s] is not req:  # cancelled
+                    continue
+                self._register_prefix(s, req)
+                if not req.out:
                     self._emit(req, row=None if rows is None else rows[s],
                                greedy=greedy[s])
 
@@ -333,7 +477,7 @@ class ContinuousBatcher:
         t0 = time.perf_counter()
         next_tok, step_logits, self.caches = self._tick_fn(
             self._dev(tokens), self._dev(self.slots.task_ids(self._null_task)),
-            self.caches, self._dev(self.pos), self._dev(live),
+            self.caches, self._dev(self.pos), self._dev(live), self._block_tables(),
         )
         greedy = next_tok.cpu().numpy()
         rows = step_logits.cpu().numpy() if self.sample_fn is not None else None
@@ -376,6 +520,7 @@ class ContinuousBatcher:
         last, self.caches, positions = self._prefill_fn(
             self._dev(tokens), self._dev(self.slots.task_ids(self._null_task)),
             self.caches, self._dev(self.pos), self._dev(valid), reset,
+            self._block_tables(),
         )
         greedy, rows = self._host_results(last)
         positions = positions.cpu().numpy()
@@ -391,6 +536,9 @@ class ContinuousBatcher:
             req.prompt_done += n
             if req.prefill_remaining == 0:
                 completed.append((s, req))
+        for s, req in completed:
+            if self.slots.reqs[s] is req:  # not cancelled mid-round
+                self._register_prefix(s, req)
         for s, req in completed + decoding:
             if self.slots.reqs[s] is req:  # not cancelled mid-round
                 self._emit(req, row=None if rows is None else rows[s], greedy=greedy[s])

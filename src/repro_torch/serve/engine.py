@@ -10,13 +10,22 @@ and submits one ``Request`` per row: admission prefills the prompts in
 list of B 1-D prompts of different lengths (ragged batches served through
 the same path).
 
+Pass ``paging`` (a ``repro_torch.serve.paging.PagingSpec``) to serve from
+the paged block pool, and ``prefix_cache=True`` to put the radix prefix
+cache in front of admission. With ``num_slots`` below the batch size the
+requests run in admission waves, so later waves alias the prompt blocks
+that earlier waves registered inside the same ``generate`` call;
+``last_prefix_stats`` then holds that call's hit ratio, hit and lookup
+tokens, ``cow_copies`` and computed ``prefill_tokens`` (None without the
+prefix cache).
+
 Sampling (``temperature > 0``) draws token ``t`` of request ``uid`` with a
 ``torch.Generator`` seeded from ``(seed, uid, t)``: a request's stream is a
 pure function of its own logits, stable under scheduler reordering and slot
 placement. It does not reproduce the JAX engine's PRNG bits.
 
-``last_stats`` holds the dispatch counts and host seconds of the last
-``generate`` call.
+``last_stats`` holds the dispatch counts, host seconds and (paged)
+admission waits of the last ``generate`` call.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.serve.batching import ContinuousBatcher, Request, refuse_unported
+from repro_torch.serve.paging import PagingSpec
 
 
 def _request_generator(seed: int, uid: int, token_index: int) -> torch.Generator:
@@ -55,18 +65,20 @@ class ServeEngine:
     # None sizes the batcher at one slot per prompt row; fewer slots serve
     # the batch in admission waves
     num_slots: int | None = None
-    # later slices of the port; setting any of them raises
-    paging: object = None
-    adapters: object = None
+    paging: PagingSpec | None = None
+    # paged only: serve through the radix prefix cache (refcounted block
+    # sharing + copy-on-write; see repro_torch.serve.paging)
     prefix_cache: bool = False
+    # later slices of the port; setting any of them raises
+    adapters: object = None
     faults: object = None
     preempt: bool = False
 
     def __post_init__(self):
-        refuse_unported(paging=self.paging is not None, prefix_cache=self.prefix_cache,
-                        adapters=self.adapters is not None,
+        refuse_unported(adapters=self.adapters is not None,
                         faults=self.faults is not None, preempt=self.preempt)
         self.last_stats = None
+        self.last_prefix_stats = None
 
     def generate(self, prompt_batch: dict, num_tokens: int, seed: int = 0,
                  temperature: float = 0.0, request_ids=None, on_token=None) -> np.ndarray:
@@ -111,7 +123,8 @@ class ServeEngine:
         batcher = ContinuousBatcher(
             self.model, num_slots=slots, max_seq=self.max_seq,
             prefill_chunk=self.prefill_chunk, prefill_mode=self.prefill_mode,
-            on_token=stream, sample_fn=sample_fn,
+            on_token=stream, sample_fn=sample_fn, paging=self.paging,
+            prefix_cache=self.prefix_cache,
         )
         for i, uid in enumerate(uids):
             batcher.submit(Request(
@@ -124,5 +137,17 @@ class ServeEngine:
             "prefill_tokens": batcher.prefill_tokens,
             "decode_s": batcher.decode_s,
             "prefill_s": batcher.prefill_s,
+            "admission_waits": batcher.admission_waits,
         }
+        self.last_prefix_stats = (
+            {
+                "hit_ratio": batcher.prefix.hit_ratio,
+                "hit_tokens": batcher.prefix.hit_tokens,
+                "lookup_tokens": batcher.prefix.lookup_tokens,
+                "cow_copies": batcher.cow_copies,
+                "prefill_tokens": batcher.prefill_tokens,
+            }
+            if batcher.prefix is not None
+            else None
+        )
         return np.stack([np.asarray(finished[uid].out, np.int32) for uid in uids])

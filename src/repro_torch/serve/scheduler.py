@@ -12,7 +12,10 @@ Policies (``policy=``):
 
   * ``"fifo"``    — strict arrival order. With ``chunk_budget=None`` this
     is the parity-oracle configuration ``ServeEngine`` uses.
-  * ``"sjf"``     — shortest prompt first, arrival order as tie-break.
+  * ``"sjf"``     — shortest job first, arrival order as tie-break. The
+    job's cost is its prompt length, or ``cost_fn(request)`` when given:
+    a prefix-caching executor injects the UNCACHED token count, so a long
+    prompt with a resident prefix schedules like the short job it is.
   * ``"priority"``— lower ``Request.priority`` first (nice-style: 0 beats
     10), arrival order as tie-break.
 
@@ -27,8 +30,8 @@ Deadlines: a request with ``timeout_s`` set expires ``timeout_s`` seconds
 after submission (wall clock via ``now_fn``, injectable for tests) whether
 it is still queued or mid-flight.
 
-Not ported yet (later slices): the prefix-cache cost hook (``cost_fn``) and
-the requeue / retry-backoff paths of preemption and fault tolerance.
+Not ported yet (a later slice): the requeue / retry-backoff paths of
+preemption and fault tolerance.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ class Scheduler:
     """Queue ownership + admission/budget/expiry decisions (host-only)."""
 
     def __init__(self, policy: str = "fifo", chunk_budget: int | None = None,
-                 now_fn=None):
+                 now_fn=None, cost_fn=None):
         if policy not in POLICIES:
             raise ValueError(
                 f"policy must be one of {POLICIES}, got {policy!r}"
@@ -54,6 +57,7 @@ class Scheduler:
             )
         self.policy = policy
         self.chunk_budget = chunk_budget
+        self.cost_fn = cost_fn  # sjf's prefill cost; None = prompt length
         self.queue: list = []
         self._now = now_fn if now_fn is not None else time.monotonic
         self._arrivals = itertools.count(1)
@@ -80,10 +84,16 @@ class Scheduler:
         return None
 
     # ---------------------------------------------------------- ordering
+    def _cost(self, req) -> int:
+        """Prefill cost of a request: prompt tokens that still need compute."""
+        if self.cost_fn is not None:
+            return self.cost_fn(req)
+        return len(req.tokens)
+
     def _key(self, req):
         arrival = getattr(req, "_arrival", 0)
         if self.policy == "sjf":
-            return (len(req.tokens), arrival)
+            return (self._cost(req), arrival)
         if self.policy == "priority":
             return (req.priority, arrival)
         return (arrival,)

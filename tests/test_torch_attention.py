@@ -130,13 +130,6 @@ def test_gqa_project_with_bias_matches_jax():
         _close(w, t, atol=1e-5)
 
 
-def test_cached_attend_refuses_paged_caches():
-    q = torch.zeros(1, 1, 2, 32)
-    kv = torch.zeros(1, 8, 2, 32)
-    with pytest.raises(NotImplementedError, match="paged"):
-        tattn.cached_attend(q, kv, kv, 0, block_tables=torch.zeros(1, 2, dtype=torch.int32))
-
-
 def test_kernel_launcher_input_checks():
     """What the CUDA launchers do not take raises before any launch."""
     x = torch.zeros(1, 1, 2, 64)

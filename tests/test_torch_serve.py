@@ -4,7 +4,7 @@ tokens from ServeEngine.generate and from the staggered ContinuousBatcher
 workload of tests/test_serve_backend.py, token for token and with the same
 dispatch counts, in both chunk_budget regimes and both prefill modes; plus
 the executor's contracts (cancel, timeout, streaming, tick budget, sampling
-stability, refusal of unported options). CPU, float32."""
+stability, refusal of the options of later slices). CPU, float32."""
 import dataclasses
 
 import pytest
@@ -186,8 +186,7 @@ def test_submit_validation():
 
 
 @pytest.mark.parametrize("option", [
-    {"paging": object()}, {"prefix_cache": True}, {"adapters": object()},
-    {"faults": object()}, {"preempt": True},
+    {"adapters": object()}, {"faults": object()}, {"preempt": True},
 ])
 def test_unported_options_raise(option):
     _, _, tm = _models("olmo_1b")

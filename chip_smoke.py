@@ -18,6 +18,15 @@ Phases; each raises on failure, and then no result line is printed:
                 library calls computing the same function (library_ms, a
                 yardstick the port never calls: scaled_dot_product_attention,
                 after gather_pages when paged), and computes the bound.
+                The graph-mix kernel against its plain version at the
+                multitask-LM adapter store's full width (m=256 tasks,
+                d=426,240) in f32 and bf16, at ragged m in {1, 12, 100} and
+                d in {1000, 4099}, and under the bsr, bol and consensus
+                matrices of band_graph(256, 2); f32 atol 1e-4 / rtol 1e-5,
+                bf16 atol = rtol = 1e-2 against the f32 plain result rounded
+                to bf16. At full width in f32 it times the kernel, the plain
+                version and torch.matmul(mu.t(), theta) (library_ms, TF32
+                off), and computes the bound (flops).
   3. serve    — OLMo-1B at full width (f32, random weights from seed 0, one
                 model for every serve phase) through ServeEngine.generate:
                 6 requests with ragged 64..700-token prompts over 4 slots,
@@ -46,15 +55,35 @@ Phases; each raises on failure, and then no result line is printed:
                 OLMo-1B full width, dense and paged, against the device
                 time torch.profiler sees, with the top kernels (measurement
                 only).
+  7. adapters — multitask-LM at full width (12 layers, d_model 1024, 256
+                tasks, rank 8; f32, random weights from seed 0, dense cache,
+                4 slots) serving 8 requests of 8 tasks (ids 0..255, prompts
+                of 64..700 tokens, 16 new tokens each) under a
+                TaskAdapterStore over band_graph(256, 2), bsr mixing,
+                randomized factors (scale 1e-2), an update every 2 finishes
+                with delays up to 2. Fails unless: 12 attention launches per
+                dispatch; 10 graph-mix launches counted from the store's
+                construction (1 at construction, 1 in randomize, 2 per
+                update); the same greedy tokens as the plain attention path
+                with the plain graph mix (margin rule); a zero store gives
+                exactly the no-store tokens; the random adapters change some
+                token; the kernel store's raw and serving trees equal the
+                plain store's (atol 1e-4, rtol 1e-5). Prints decode and
+                prefill tok/s and TTFT with and without the store, the host
+                seconds in update(), and a profile of 8 decode ticks with
+                and without the store.
 
 Output: the card's name and power limit first, per-phase lines, then one
-{"kernels": [...]} JSON line, and last {"ok": true, "device": {...}}.
+{"kernels": [...]} JSON line with the five kernels, and last
+{"ok": true, "device": {...}}.
 Exits non-zero without a result when there is no CUDA device or no
 src/repro_torch beside this file.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -66,6 +95,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32, dense bf16
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+MIX_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-2)}  # (atol, rtol)
 MARGIN = 1e-3
 LAYERS = 16  # OLMo-1B: one kernel launch per layer per dispatch
 
@@ -267,8 +297,71 @@ def phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, gather_pages):
     return entries
 
 
+def adapter_width(cfg) -> int:
+    """Per-task floats of the adapter store: four (d, r) / (r, d) factors
+    per layer (attention and MLP branches), the head bias and the final
+    gain — the d of its one f32 graph-mix block."""
+    return 4 * cfg.num_layers * cfg.d_model * cfg.adapter_rank + cfg.vocab_size + cfg.d_model
+
+
+def phase_graph_mix(torch, mix_ops, mix_ref, band_graph, cfg):
+    """The graph-mix kernel against its plain version on the card; times it
+    at the adapter store's full width (cfg: multitask_lm) in f32."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    m, d_full = cfg.num_tasks, adapter_width(cfg)
+    g = band_graph(m, 2)
+    families = {"bsr": g.bsr_mixing(1.0, 1.0, 1.0), "bol": g.bol_mixing(1.0, 1.0, 0.1),
+                "consensus": g.consensus_mixing()}
+
+    def rand_mu(k):
+        return torch.rand((k, k), generator=gen, device=dev) / k
+
+    cases = [("full_width", rand_mu(m), m, d_full)]
+    cases += [("ragged", rand_mu(k), k, d) for k in (1, 12, 100) for d in (1000, 4099)]
+    cases += [(f"band256_{name}", torch.as_tensor(mu, dtype=torch.float32, device=dev), m, d)
+              for name, mu in families.items() for d in (4096, 4099)]
+    entry = {}
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        atol, rtol = MIX_TOL[dname]
+        for name, mu, k, d in cases:
+            theta = torch.randn((k, d), generator=gen, device=dev).to(dtype)
+            got = mix_ops.graph_mix(mu, theta)
+            torch.cuda.synchronize()
+            want = mix_ref.graph_mix_reference(mu, theta)  # f32 sum, rounded to dtype
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            ok = torch.isfinite(got.float()).all().item() and bool(
+                (diff <= atol + rtol * want.float().abs()).all())
+            log(f"kernel graph_mix {name} m={k} d={d} {dname}: max_abs_err={err:.3e} "
+                f"(atol {atol}, rtol {rtol})")
+            if not ok:
+                raise AssertionError(f"graph_mix {name} m={k} d={d} {dname}: max_abs_err {err}")
+            if name != "full_width" or dname != "float32":
+                continue
+            # one input set is 436 MB of theta (and as much out): far above the L2
+            ms = graph_ms(torch, [lambda: mix_ops.graph_mix(mu, theta)])
+            plain_ms = graph_ms(torch, [lambda: mix_ref.graph_mix_reference(mu, theta)])
+            lib = torch.matmul(mu.t(), theta)
+            lib_err = (lib - want).abs().max().item()
+            lib_ms = graph_ms(torch, [lambda: torch.matmul(mu.t(), theta)])
+            nbytes = 4 * (k * k + 2 * k * d)
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = 2 * k * k * d / PEAK_FLOPS["float32"]
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            log(f"time graph_mix full_width m={k} d={d} f32: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, library (torch.matmul(mu.t(), theta)) {lib_ms:.4f} ms "
+                f"(err vs plain {lib_err:.2e}), bound {bound_ms:.4f} ms ({bound_by}; "
+                f"{nbytes / 1e6:.1f} MB, {2 * k * k * d / 1e9:.2f} GFLOP)")
+            entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms,
+                     "library": "torch.matmul(mu.t(), theta)"}
+    return entry
+
+
 COUNTED = ("decode_attention", "prefill_attention", "paged_decode_attention",
-           "paged_prefill_attention")
+           "paged_prefill_attention", "graph_mix")
 
 
 def zero_counts(ops):
@@ -280,13 +373,15 @@ def read_counts(ops):
     return {name: ops[name].launches for name in COUNTED}
 
 
-def check_launches(phase, launches, st, paged):
-    """16 launches of the decode kernel per decode dispatch and of the
-    prefill kernel per prefill dispatch, of the layout's kernels only."""
+def check_launches(phase, launches, st, paged, layers=LAYERS, graph_mix=0):
+    """One launch of the decode kernel per layer per decode dispatch and of
+    the prefill kernel per layer per prefill dispatch, of the layout's
+    kernels only, and ``graph_mix`` launches of the graph-mix kernel."""
     pre = "paged_" if paged else ""
     want = {name: 0 for name in COUNTED}
-    want[pre + "decode_attention"] = LAYERS * st["decode_dispatches"]
-    want[pre + "prefill_attention"] = LAYERS * st["prefill_dispatches"]
+    want[pre + "decode_attention"] = layers * st["decode_dispatches"]
+    want[pre + "prefill_attention"] = layers * st["prefill_dispatches"]
+    want["graph_mix"] = graph_mix
     log(f"{phase}: dispatches decode={st['decode_dispatches']} "
         f"prefill={st['prefill_dispatches']}; launches {launches}")
     if launches != want or min(want[pre + "decode_attention"],
@@ -294,15 +389,17 @@ def check_launches(phase, launches, st, paged):
         raise AssertionError(f"{phase}: kernel launches {launches} != expected {want}")
 
 
-def serve_timed(torch, engine, prompts, new, ops, task_ids=None):
+def serve_timed(torch, engine, prompts, new, ops, task_ids=None, zero=True):
     """One ServeEngine.generate call with the launch counts zeroed just
-    before and read just after; returns (tokens, launches, ttft list, wall)."""
+    before (unless the caller zeroed them earlier: ``zero=False``) and read
+    just after; returns (tokens, launches, ttft list, wall)."""
     first = {}
     batch = {"tokens": prompts}
     if task_ids is not None:
         batch["task_ids"] = task_ids
     torch.cuda.synchronize()
-    zero_counts(ops)
+    if zero:
+        zero_counts(ops)
     start = time.perf_counter()
 
     def on_token(uid, tok):
@@ -328,10 +425,22 @@ def report_rates(phase, st, n_req, new, ttft, wall):
     return rates
 
 
-def plain_run(np, model, cfg, prompts, new, ContinuousBatcher, Request, **batcher_kw):
+@contextlib.contextmanager
+def plain_backend(model):
+    """The model (and an adapter store built on it) on the plain versions
+    of every kernel while the block runs."""
+    saved = model.cfg
+    model.cfg = dataclasses.replace(saved, attn_backend="plain")
+    try:
+        yield
+    finally:
+        model.cfg = saved
+
+
+def plain_run(np, model, prompts, new, ContinuousBatcher, Request, task_ids=None,
+              **batcher_kw):
     """The same requests through the plain attention path, greedy, with
     each step's top-2 logit margin recorded: (outputs, margins) by uid."""
-    model.cfg = dataclasses.replace(cfg, attn_backend="plain")
     margins: dict = {}
 
     def greedy_with_margin(req, row):
@@ -341,14 +450,13 @@ def plain_run(np, model, cfg, prompts, new, ContinuousBatcher, Request, **batche
         margins.setdefault(req.uid, []).append(float(top2[1] - top2[0]))
         return int(np.argmax(row))
 
-    try:
+    with plain_backend(model):
         batcher = ContinuousBatcher(model, num_slots=4, max_seq=1024, prefill_chunk=32,
                                     sample_fn=greedy_with_margin, **batcher_kw)
         for uid, p in enumerate(prompts):
-            batcher.submit(Request(uid=uid, tokens=p, max_new=new))
+            tid = 0 if task_ids is None else int(task_ids[uid])
+            batcher.submit(Request(uid=uid, tokens=p, max_new=new, task_id=tid))
         out = {r.uid: r.out for r in batcher.run()}
-    finally:
-        model.cfg = cfg
     return out, margins
 
 
@@ -391,7 +499,7 @@ def phase_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request, ops):
     check_launches("serve", launches, st, paged=False)
     check_tokens("serve", toks, len(prompts), NEW, cfg.vocab_size)
     rates = report_rates("serve", st, len(prompts), NEW, ttft, wall)
-    ref, margins = plain_run(np, model, cfg, prompts, NEW, ContinuousBatcher, Request)
+    ref, margins = plain_run(np, model, prompts, NEW, ContinuousBatcher, Request)
     compare("serve", "plain path", toks, ref, margins, NEW)
     return {"launches": launches, "tokens": toks, "prompts": prompts, "rates": rates}
 
@@ -418,7 +526,7 @@ def phase_paged_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request,
         raise AssertionError("paged: no admission waited on blocks")
     rates = report_rates("paged", st, len(prompts), NEW, ttft, wall)
     rates["admission_waits"] = st["admission_waits"]
-    ref, margins = plain_run(np, model, cfg, prompts, NEW, ContinuousBatcher, Request,
+    ref, margins = plain_run(np, model, prompts, NEW, ContinuousBatcher, Request,
                              paging=spec)
     compare("paged", "plain path (paged)", toks, ref, margins, NEW)
     compare("paged", "dense kernel path", toks, dense["tokens"], margins, NEW)
@@ -461,7 +569,7 @@ def phase_prefix_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request
         f"{base_wall:.3f} s")
     if ps["cow_copies"] == 0 or saved <= 0:
         raise AssertionError(f"prefix: cow_copies {ps['cow_copies']}, tokens saved {saved}")
-    ref, margins = plain_run(np, model, cfg, prompts, NEW, ContinuousBatcher, Request,
+    ref, margins = plain_run(np, model, prompts, NEW, ContinuousBatcher, Request,
                              paging=spec, prefix_cache=True)
     compare("prefix", "plain path (prefix cache)", toks, ref, margins, NEW)
     compare("prefix", "kernel path without the cache", toks, base_toks, margins, NEW)
@@ -469,6 +577,125 @@ def phase_prefix_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request
                  prefill_tokens=ps["prefill_tokens"],
                  prefill_tokens_no_cache=base["prefill_tokens"],
                  ttft_p50_s_no_cache=statistics.median(base_ttft))
+    return {"launches": launches, "rates": rates}
+
+
+ADAPTER_LENS = [700, 64, 413, 257, 590, 128, 300, 500]
+ADAPTER_TASKS = [0, 37, 74, 111, 148, 185, 222, 255]
+ADAPTER_SCALE = 1e-2  # std of the randomized adapter factors
+
+
+def phase_adapters(torch, np, model, ServeEngine, TaskAdapterStore, band_graph, tree_lib,
+                   ContinuousBatcher, Request, ops):
+    """Mixed-tenant multi-LoRA serving at the multitask-LM's full width:
+    8 requests of 8 tasks under a graph-mixed, randomized adapter store
+    whose delayed updates run as the requests finish (update_every 2), over
+    the dense cache."""
+    cfg = model.cfg
+    n_req = len(ADAPTER_LENS)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in ADAPTER_LENS]
+    task_ids = np.asarray(ADAPTER_TASKS, np.int32)
+    graph = band_graph(cfg.num_tasks, 2)
+    store_kw = dict(mixing="bsr", eta=1.0, tau=1.0, alpha=1.0, update_every=2, max_delay=2,
+                    seed=0)
+
+    def engine(store=None):
+        return ServeEngine(model, max_seq=1024, prefill_chunk=32, num_slots=4,
+                           adapters=store)
+
+    # the same requests without a store: the yardstick of the store's cost
+    base_eng = engine()
+    base, _, base_ttft, base_wall = serve_timed(torch, base_eng, prompts, NEW, ops, task_ids)
+    base_rates = report_rates("adapters (no store)", base_eng.last_stats, n_req, NEW, base_ttft,
+                              base_wall)
+    zero_store = TaskAdapterStore(model, graph, **store_kw)
+    zero = engine(zero_store).generate({"tokens": prompts, "task_ids": task_ids}, NEW)
+    if not np.array_equal(zero, base):
+        raise AssertionError("adapters: a zero store changed the no-store tokens")
+    log(f"adapters: zero store == no store on all {base.size} greedy tokens "
+        f"({zero_store.updates} updates of the zero store)")
+    del zero_store
+
+    # the main path: counts zeroed before the store is built
+    torch.cuda.synchronize()
+    zero_counts(ops)
+    t0 = time.perf_counter()
+    store = TaskAdapterStore(model, graph, **store_kw)
+    store.randomize(scale=ADAPTER_SCALE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    update_s = []
+    update = store.update
+
+    def timed_update():
+        t = time.perf_counter()
+        update()
+        update_s.append(time.perf_counter() - t)
+
+    store.update = timed_update
+    eng = engine(store)
+    toks, launches, ttft, wall = serve_timed(torch, eng, prompts, NEW, ops, task_ids,
+                                             zero=False)
+    st = eng.last_stats
+    want_mix = 1 + 1 + 2 * (n_req // store.update_every)
+    check_launches("adapters", launches, st, paged=False, layers=cfg.num_layers,
+                   graph_mix=want_mix)
+    check_tokens("adapters", toks, n_req, NEW, cfg.vocab_size)
+    rates = report_rates("adapters", st, n_req, NEW, ttft, wall)
+    changed = int((toks != base).sum())
+    log(f"adapters: store of {cfg.num_tasks} tasks x {adapter_width(cfg)} floats "
+        f"({sum(t.numel() * t.element_size() for t in tree_lib.leaves(store.raw)) / 1e6:.1f} "
+        f"MB raw), built and randomized in {setup_s:.3f} s; {store.updates} updates, host "
+        f"s in update() {sum(update_s):.4f} ({', '.join(f'{x:.4f}' for x in update_s)}); "
+        f"random adapters changed {changed} of {toks.size} tokens against no store")
+    if store.updates != n_req // store.update_every or changed == 0:
+        raise AssertionError(f"adapters: {store.updates} updates, {changed} tokens changed")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    update()
+    torch.cuda.synchronize()
+    one_update_ms = (time.perf_counter() - t0) * 1e3
+    peak_mb = (torch.cuda.max_memory_allocated() - before) / 1e6
+    log(f"adapters: one more update(), synchronized: {one_update_ms:.2f} ms wall, peak "
+        f"{peak_mb:.1f} MB above the {before / 1e6:.1f} MB allocated before it")
+
+    with plain_backend(model):  # the same store seed, mixed by the plain version
+        plain_store = TaskAdapterStore(model, graph, **store_kw)
+        plain_store.randomize(scale=ADAPTER_SCALE)
+        ref, margins = plain_run(np, model, prompts, NEW, ContinuousBatcher, Request,
+                                 task_ids=task_ids, adapters=plain_store)
+        plain_store.update()  # the kernel store ran one more update() above
+    compare("adapters", "plain path (plain graph mix)", toks, ref, margins, NEW)
+    atol, rtol = MIX_TOL["float32"]
+    worst = 0.0
+    for name in ("raw", "serving"):
+        for got, want in zip(tree_lib.leaves(getattr(store, name)),
+                             tree_lib.leaves(getattr(plain_store, name))):
+            diff = (got - want).abs()
+            worst = max(worst, diff.max().item())
+            if not bool((diff <= atol + rtol * want.abs()).all()):
+                raise AssertionError(f"adapters: kernel store {name} differs from the plain "
+                                     f"store's by {diff.max().item()}")
+    log(f"adapters: kernel store raw and serving == plain store's within atol {atol} rtol "
+        f"{rtol} (max abs diff {worst:.2e}) after {store.updates} updates each")
+
+    def admitted(with_store):
+        bt = ContinuousBatcher(model, num_slots=4, max_seq=1024, prefill_chunk=32,
+                               adapters=store if with_store else None)
+        for uid in range(4):  # max_new 64: no request finishes, so no update runs
+            bt.submit(Request(uid=uid, tokens=prompts[uid], max_new=64,
+                              task_id=int(task_ids[uid])))
+        return _admitted(bt)
+
+    for with_store in (True, False):
+        profile_window(torch, f"8 decode ticks ({'store' if with_store else 'no store'})",
+                       lambda w=with_store: admitted(w), _ticks)
+    rates.update(update_host_s=sum(update_s), updates=len(update_s),
+                 one_update_ms=one_update_ms, update_peak_mb=peak_mb, tokens_changed=changed,
+                 no_store=base_rates)
     return {"launches": launches, "rates": rates}
 
 
@@ -518,9 +745,6 @@ def phase_profile(torch, np, model, ContinuousBatcher, Request, PagingSpec):
     over the dense cache and over a paged pool (16-token blocks, 4096
     tokens), without and with torch.profiler, against the device time of
     the kernels the profiler saw, with the top kernels by device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     rng = np.random.default_rng(1)
     lens = (700, 300, 500, 100)
 
@@ -533,6 +757,23 @@ def phase_profile(torch, np, model, ContinuousBatcher, Request, PagingSpec):
                               max_new=64))
         return bt
 
+    spec = PagingSpec.sized(16, 1024, 4096)
+    for name, setup, run in (
+        ("prefill round", batcher, lambda bt: bt._admit()),
+        ("8 decode ticks", lambda: _admitted(batcher()), _ticks),
+        ("prefill round (paged)", lambda: batcher(spec), lambda bt: bt._admit()),
+        ("8 decode ticks (paged)", lambda: _admitted(batcher(spec)), _ticks),
+    ):
+        profile_window(torch, name, setup, run)
+
+
+def profile_window(torch, name, setup, run):
+    """Host wall time of ``run(setup())`` without and with torch.profiler
+    (a fresh ``setup()`` for each), against the device time of the kernels
+    the profiler saw, with the top kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     def window(fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -540,31 +781,25 @@ def phase_profile(torch, np, model, ContinuousBatcher, Request, PagingSpec):
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    def ticks(bt, n=8):
-        for _ in range(n):
-            bt.tick()
+    bt = setup()
+    wall = window(lambda: run(bt))
+    bt = setup()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_prof = window(lambda: run(bt))
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_us = {e.key: e.self_device_time_total for e in kern}
+    busy = sum(dev_us.values()) / 1e6
+    log(f"profile {name}: wall {wall * 1e3:.2f} ms (profiler off), "
+        f"{wall_prof * 1e3:.2f} ms (on); device busy {busy * 1e3:.2f} ms "
+        f"= {busy / wall_prof:.1%} of the traced wall; kernels {len(dev_us)} kinds, "
+        f"{sum(e.count for e in kern)} launches")
+    for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"profile {name}:   {us / 1e3:8.3f} ms  {key[:90]}")
 
-    spec = PagingSpec.sized(16, 1024, 4096)
-    for name, setup, run in (
-        ("prefill round", batcher, lambda bt: bt._admit()),
-        ("8 decode ticks", lambda: _admitted(batcher()), ticks),
-        ("prefill round (paged)", lambda: batcher(spec), lambda bt: bt._admit()),
-        ("8 decode ticks (paged)", lambda: _admitted(batcher(spec)), ticks),
-    ):
-        bt = setup()
-        wall = window(lambda: run(bt))
-        bt = setup()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall_prof = window(lambda: run(bt))
-        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        dev_us = {e.key: e.self_device_time_total for e in kern}
-        busy = sum(dev_us.values()) / 1e6
-        log(f"profile {name}: wall {wall * 1e3:.2f} ms (profiler off), "
-            f"{wall_prof * 1e3:.2f} ms (on); device busy {busy * 1e3:.2f} ms "
-            f"= {busy / wall_prof:.1%} of the traced wall; kernels {len(dev_us)} kinds, "
-            f"{sum(e.count for e in kern)} launches")
-        for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
-            log(f"profile {name}:   {us / 1e3:8.3f} ms  {key[:90]}")
+
+def _ticks(bt, n=8):
+    for _ in range(n):
+        bt.tick()
 
 
 def _admitted(bt):
@@ -586,14 +821,24 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from repro_torch import tree as tree_lib
     from repro_torch.configs import get
+    from repro_torch.core.graph import band_graph
     from repro_torch.kernels import runtime
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.decode_attention import ref as dec_ref
+    from repro_torch.kernels.graph_mix import ops as mix_ops
+    from repro_torch.kernels.graph_mix import ref as mix_ref
     from repro_torch.kernels.prefill_attention import ops as pre_ops
     from repro_torch.kernels.prefill_attention import ref as pre_ref
     from repro_torch.models import TransformerLM
-    from repro_torch.serve import ContinuousBatcher, PagingSpec, Request, ServeEngine
+    from repro_torch.serve import (
+        ContinuousBatcher,
+        PagingSpec,
+        Request,
+        ServeEngine,
+        TaskAdapterStore,
+    )
 
     # full f32 products everywhere: no TF32, no reduced-precision bf16 sums
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -610,10 +855,13 @@ def main() -> int:
     ops = {"decode_attention": dec_ops.decode_attention,
            "prefill_attention": pre_ops.prefill_attention,
            "paged_decode_attention": dec_ops.paged_decode_attention,
-           "paged_prefill_attention": pre_ops.paged_prefill_attention}
+           "paged_prefill_attention": pre_ops.paged_prefill_attention,
+           "graph_mix": mix_ops.graph_mix}
     t0 = time.perf_counter()
     phase_build(runtime)
     entries = phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, runtime.gather_pages)
+    entries["graph_mix"] = phase_graph_mix(torch, mix_ops, mix_ref, band_graph,
+                                           get("multitask_lm"))
     phase_small_reference(torch, get, TransformerLM, PagingSpec)
     t1 = time.perf_counter()
     model = TransformerLM(get("olmo_1b"), device="cuda", seed=0)
@@ -627,13 +875,25 @@ def main() -> int:
     prefix = phase_prefix_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request,
                                 PagingSpec, ops)
     phase_profile(torch, np, model, ContinuousBatcher, Request, PagingSpec)
+    del model  # and the cycles that still hold it, so phase 7 starts on a free card
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    mt_model = TransformerLM(get("multitask_lm"), device="cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"adapters: multitask-LM full width ({sum(p.numel() for p in mt_model.parameters())} "
+        f"params, f32) initialised in {time.perf_counter() - t1:.1f} s")
+    adapters = phase_adapters(torch, np, mt_model, ServeEngine, TaskAdapterStore, band_graph,
+                              tree_lib, ContinuousBatcher, Request, ops)
     log(json.dumps({"serve_rates": {"dense": dense["rates"], "paged": paged["rates"],
-                                    "prefix": prefix["rates"]}}))
+                                    "prefix": prefix["rates"],
+                                    "adapters": adapters["rates"]}}))
     log(f"smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
-    # launches of each kernel on its main path: the dense phase for the
-    # dense kernels, the paged and prefix phases (summed) for the paged ones
+    # launches of each kernel on the main paths, each counted from zero:
+    # the dense and adapters phases for the dense kernels, the paged and
+    # prefix phases for the paged ones, the adapters phase for the graph mix
     launches = {
-        name: dense["launches"][name] + paged["launches"][name] + prefix["launches"][name]
+        name: sum(ph["launches"][name] for ph in (dense, paged, prefix, adapters))
         for name in COUNTED
     }
     meta = {
@@ -649,6 +909,8 @@ def main() -> int:
         "paged_prefill_attention": ("src/repro_torch/kernels/csrc/prefill_attention.cu",
                                     "src/repro/kernels/prefill_attention/kernel.py:218",
                                     "paged_prefill_attention_pallas"),
+        "graph_mix": ("src/repro_torch/kernels/csrc/graph_mix.cu",
+                      "src/repro/kernels/graph_mix/kernel.py:42", "graph_mix_pallas"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "jax": jax_fn,

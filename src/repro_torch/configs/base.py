@@ -1,11 +1,15 @@
 """Architecture config schema + registry of the port.
 
 The port's own copy of the fields of ``repro.configs.base.ArchConfig`` that
-the dense serving path reads (plus ``num_tasks`` and ``q_chunk``), with the
-same values per architecture. The attention backend flag is the port's:
-``"kernel"`` serves attention from the hand-written CUDA kernels,
-``"plain"`` from the masked-softmax PyTorch path that plays the role of the
-JAX package's ``"jnp"``. ``get(name, smoke=)`` resolves either variant.
+the dense serving path reads (plus ``num_tasks``, ``adapter_rank`` and
+``q_chunk``), with the same values per architecture. The backend flag
+``attn_backend`` is the port's, and it selects every hand-written kernel,
+not only attention's: ``"kernel"`` serves attention from the CUDA attention
+kernels and mixes task adapters (``repro_torch.serve.adapters``) with the
+CUDA graph-mix kernel; ``"plain"`` runs the plain PyTorch version of each
+(the masked-softmax attention that plays the role of the JAX package's
+``"jnp"``, and the einsum graph mix). ``get(name, smoke=)`` resolves either
+variant.
 """
 from __future__ import annotations
 
@@ -34,6 +38,10 @@ class ArchConfig:
     sliding_window: int | None = None
     tie_embeddings: bool = False
     num_tasks: int = 16
+    # default low-rank width of the serving-time per-task adapters
+    # (repro_torch.serve.adapters.TaskAdapterStore); 0 = the store's caller
+    # must pass an explicit rank
+    adapter_rank: int = 0
     q_chunk: int = 1024
     attn_backend: str = "kernel"
     source: str = ""
@@ -55,7 +63,7 @@ class ArchConfig:
             )
 
 
-_ARCHS = ["olmo_1b", "qwen2_5_14b"]
+_ARCHS = ["multitask_lm", "olmo_1b", "qwen2_5_14b"]
 
 
 def canonical(name: str) -> str:

@@ -6,23 +6,18 @@ leaves (``jax.tree.map(np.asarray, params)``) and returns the state dict of
 paths as ``repro/checkpoint/npz.py::_paths`` ("stages/0/slot0/attn/wq"); the
 (P, ...) period axis of the one stage of an ("attn",) model is unstacked
 into per-layer weights ("layers.3.attn.wq").
+
+``adapters_from_numpy(store, tree)`` carries a JAX ``TaskAdapterStore``'s
+raw tree (numpy leaves, ``jax.tree.map(np.asarray, store.raw)``) into the
+port's store of the same layout; the model's per-task ``task.*`` params
+come across with the other weights through ``params_from_numpy``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-
-def _paths(tree, prefix=()):
-    """(path, leaf) pairs of a nested dict/list tree, depth first."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _paths(tree[k], prefix + (str(k),))
-    elif isinstance(tree, (list, tuple)):
-        for i, t in enumerate(tree):
-            yield from _paths(t, prefix + (str(i),))
-    else:
-        yield "/".join(prefix), tree
+from repro_torch import tree as tree_lib
 
 
 def _tensor(arr) -> torch.Tensor:
@@ -34,7 +29,7 @@ def _tensor(arr) -> torch.Tensor:
 
 def params_from_numpy(tree) -> dict[str, torch.Tensor]:
     state = {}
-    for path, leaf in _paths(tree):
+    for path, leaf in tree_lib.paths(tree):
         parts = path.split("/")
         if parts[0] != "stages":
             state[".".join(parts)] = _tensor(leaf)
@@ -57,3 +52,12 @@ def load_numpy_params(model, tree):
     state = {k: v.to(model.dtype) for k, v in params_from_numpy(tree).items()}
     model.load_state_dict(state, strict=True)
     return model
+
+
+def adapters_from_numpy(store, tree):
+    """Set the raw per-task adapters of ``store`` (a
+    ``repro_torch.serve.adapters.TaskAdapterStore``) from a JAX store's raw
+    tree with numpy leaves; ``set_raw`` validates the layout (structure,
+    shapes, dtypes) and republishes the serving tree."""
+    store.set_raw(tree_lib.map_(_tensor, tree))
+    return store

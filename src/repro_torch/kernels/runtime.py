@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 # src/repro_torch/kernels/runtime.py -> repo root three levels above src/
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNEL_SOURCES = ("decode_attention", "prefill_attention")
+KERNEL_SOURCES = ("decode_attention", "prefill_attention", "graph_mix")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,4 +1,5 @@
-"""Shared building blocks: norms, RoPE, MLPs, initializers.
+"""Shared building blocks: norms, RoPE, MLPs, initializers, per-task
+low-rank adapters.
 
 Counterpart of ``repro.models.layers``. Parameters are plain dicts of
 tensors (the model wraps them in ``nn.ParameterDict``s); functions are free
@@ -124,3 +125,16 @@ def apply_mlp(params, x: torch.Tensor, kind: str) -> torch.Tensor:
         # jax.nn.gelu defaults to the tanh approximation
         return matmul(F.gelu(matmul(x, params["wi"]), approximate="tanh"), params["wo"])
     raise ValueError(kind)
+
+
+# ------------------------------------------------------- per-task adapters
+def apply_task_lora(x: torch.Tensor, ad: dict) -> torch.Tensor:
+    """Batched low-rank per-task delta: ``x @ a @ b`` with per-ROW factors.
+
+    x: (B, C, d) block activations; ad["a"]: (B, d, r), ad["b"]: (B, r, d) —
+    one factor pair per batch row, gathered by task id (multi-LoRA). Two
+    batched products accumulated in float32, cast to x's dtype. Zero
+    factors add an exact zero, so the result leaves the adapter-free path's
+    values unchanged."""
+    h = torch.bmm(x.float(), ad["a"].float())  # (B, C, r)
+    return torch.bmm(h, ad["b"].float()).to(x.dtype)

@@ -19,7 +19,11 @@ Serving entry points, counterparts of the JAX ones:
 Both steps update the caches IN PLACE (and return them, as the JAX
 functions return new ones). Multi-task personalization lives in
 ``self.task``: per-task final-norm gain (parametric norms only) and lm-head
-bias, gathered by each row's task id.
+bias, gathered by each row's task id. Both steps also take ``adapters=``,
+the graph-mixed serving tree of ``repro_torch.serve.adapters.
+TaskAdapterStore``: each row's low-rank deltas are gathered by task id and
+added to the attention and MLP branches of every layer, and its per-task
+gain and head-bias deltas to ``self.task``'s.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.runtime import pos_vector, require_device
 from repro_torch.models import attention as attn_lib
@@ -35,6 +40,7 @@ from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
     apply_rope,
+    apply_task_lora,
     dense_init,
     init_mlp,
     init_norm,
@@ -110,18 +116,48 @@ class TransformerLM(nn.Module):
         # rows only feed discarded dead-lane outputs)
         return table[task_ids.clamp(0, table.shape[0] - 1)]
 
-    def _logits(self, x, batch) -> torch.Tensor:
+    def _logits(self, x, batch, task_ad=None) -> torch.Tensor:
+        """task_ad: optional per-row adapter deltas (``_gather_adapters``),
+        added to the gathered final-norm gain and head bias."""
         c = self.cfg
         x = apply_norm(c.norm_kind, x, self.final_norm or None)
         if "final_gain" in self.task and "task_ids" in batch:
             gain = self._task_rows(self.task["final_gain"], batch["task_ids"])
+            if task_ad is not None and "final_gain" in task_ad:
+                gain = gain + task_ad["final_gain"].to(gain.dtype)
             x = x * (1.0 + gain[:, None, :].to(x.dtype))
         head = self.embed.t() if c.tie_embeddings else self.head
         logits = torch.matmul(x.float(), head.float())  # f32 logits, any dtype
         if "task_ids" in batch:
             hb = self._task_rows(self.task["head_bias"], batch["task_ids"])
+            if task_ad is not None and "head_bias" in task_ad:
+                hb = hb + task_ad["head_bias"].to(hb.dtype)
             logits = logits + hb[:, None, :].float()
         return logits
+
+    def _gather_adapters(self, adapters, task_ids):
+        """Per-row multi-LoRA gather for one dispatch: each batch row's
+        adapters from the serving tree (leading axis num_tasks + 1, the last
+        row the zero null row that dead lanes carry). Ids are clamped to the
+        tree, as the JAX model's mode="clip" does, so a corrupted id reads
+        some task's adapters and never stray memory. Returns (one
+        {"attn", "mlp"} dict of (B, ...) factors per layer, the (B, ...)
+        task deltas)."""
+        stages = adapters["stages"]
+        if len(stages) != 1 or set(stages[0]) != {"slot0"}:
+            raise ValueError(
+                "adapters: want the one-stage ('attn',) layout "
+                "{'stages': [{'slot0': ...}], 'task': ...}"
+            )
+
+        def take(t):
+            return t[task_ids.long().clamp(0, t.shape[0] - 1)]
+
+        slot = tree_lib.map_(take, stages[0]["slot0"])  # leaves (B, P, ...)
+        layers = [
+            tree_lib.map_(lambda t, i=i: t[:, i], slot) for i in range(self.cfg.num_layers)
+        ]
+        return layers, tree_lib.map_(take, adapters["task"])
 
     # ------------------------------------------------------------- caches
     def init_cache(self, batch_size: int, max_seq: int, paging=None) -> list:
@@ -201,9 +237,11 @@ class TransformerLM(nn.Module):
             block_tables=block_tables,
         )
 
-    def _attn_block(self, p: _Block, x, cache, pos, write, attend):
+    def _attn_block(self, p: _Block, x, cache, pos, write, attend, ad=None):
         """Project the chunk, write its K/V through ``write``, attend with
-        per-query positions ``pos + i``, then the MLP. x: (B, C, d)."""
+        per-query positions ``pos + i``, then the MLP. x: (B, C, d); ad:
+        optional per-row adapter factors of this layer, whose deltas are
+        added to both branches off the same normed inputs."""
         c = self.cfg
         b, cl = x.shape[:2]
         q_pos = pos[:, None] + torch.arange(cl, device=x.device)[None, :]  # (B, C)
@@ -215,20 +253,39 @@ class TransformerLM(nn.Module):
         write(k_cache, k)
         write(v_cache, v)
         o = attend(q, k_cache, v_cache)
-        x = x + matmul(o.reshape(b, cl, c.num_heads * c.head_dim), p.attn["wo"])
+        out = matmul(o.reshape(b, cl, c.num_heads * c.head_dim), p.attn["wo"])
+        if ad is not None:
+            out = out + apply_task_lora(h, ad["attn"])
+        x = x + out
         h = apply_norm(c.norm_kind, x, p.norm2 or None)
-        return x + apply_mlp(p.mlp, h, c.mlp_kind)
+        ff = apply_mlp(p.mlp, h, c.mlp_kind)
+        if ad is not None:
+            ff = ff + apply_task_lora(h, ad["mlp"])
+        return x + ff
+
+    def _run_layers(self, x, caches, pos, write, attend, batch, adapters):
+        """The layer loop of both steps, with each layer's adapters when
+        given. Returns (x, per-row task deltas or None)."""
+        if adapters is None:
+            layer_ads, task_ad = [None] * len(self.layers), None
+        else:
+            layer_ads, task_ad = self._gather_adapters(adapters, batch["task_ids"])
+        for p, cache, ad in zip(self.layers, caches, layer_ads):
+            x = self._attn_block(p, x, cache, pos, write, attend, ad)
+        return x, task_ad
 
     # ------------------------------------------------------------- serving
     @torch.no_grad()
-    def decode_step(self, batch, caches, pos, live=None, block_tables=None):
+    def decode_step(self, batch, caches, pos, live=None, block_tables=None,
+                    adapters=None):
         """One-token decode. batch: {'tokens': (B, 1) [, 'task_ids': (B,)]};
         pos: () or (B,) per-slot positions; live: optional (B,) bool — dead
         slots run through the math on their padding token but their cache
         rows are left untouched (paged: their write goes to the null block
         0). block_tables: optional (B, max_blocks) int32 — the caches are
-        then the shared pools of ``init_cache(..., paging=spec)``. Returns
-        (logits (B, 1, V) f32, caches)."""
+        then the shared pools of ``init_cache(..., paging=spec)``.
+        adapters: optional serving tree of a ``TaskAdapterStore`` (needs
+        ``batch['task_ids']``). Returns (logits (B, 1, V) f32, caches)."""
         x = self._embed(batch)
         pos = pos_vector(pos, x.shape[0], x.device)
         attend = self._make_attend(pos, block_tables)
@@ -238,21 +295,22 @@ class TransformerLM(nn.Module):
         else:
             def write(cc, new):
                 attn_lib.paged_cache_write(cc, new, pos, block_tables, live)
-        for p, cache in zip(self.layers, caches):
-            x = self._attn_block(p, x, cache, pos, write, attend)
-        return self._logits(x, batch), caches
+        x, task_ad = self._run_layers(x, caches, pos, write, attend, batch, adapters)
+        return self._logits(x, batch, task_ad), caches
 
     @torch.no_grad()
-    def prefill_step(self, batch, caches, positions, valid, block_tables=None):
+    def prefill_step(self, batch, caches, positions, valid, block_tables=None,
+                     adapters=None):
         """Multi-token prefill: a whole (B, C) prompt chunk, all C tokens in
         parallel, against the caches at per-slot offsets. positions: (B,)
         position of each slot's first chunk token; valid: (B, C)
         contiguous-prefix mask of real prompt tokens (all-False rows ride
         along untouched; paged, their lanes write the null block 0).
         block_tables: optional (B, max_blocks) int32 for paged pools.
-        Returns (logits (B, 1, V) after each slot's LAST valid token,
-        caches) — the lm head runs on one hidden state per slot (all-False
-        rows give logits the caller discards)."""
+        adapters: optional serving tree, as in ``decode_step``. Returns
+        (logits (B, 1, V) after each slot's LAST valid token, caches) — the
+        lm head runs on one hidden state per slot (all-False rows give
+        logits the caller discards)."""
         x = self._embed(batch)
         b = x.shape[0]
         pos = pos_vector(positions, b, x.device)
@@ -263,8 +321,7 @@ class TransformerLM(nn.Module):
         else:
             def write(cc, new):
                 attn_lib.paged_cache_write_slab(cc, new, pos, block_tables, valid)
-        for p, cache in zip(self.layers, caches):
-            x = self._attn_block(p, x, cache, pos, write, attend)
+        x, task_ad = self._run_layers(x, caches, pos, write, attend, batch, adapters)
         idx = (valid.sum(dim=1) - 1).clamp(min=0)  # in [0, C-1]
         x_last = x[torch.arange(b, device=x.device), idx][:, None, :]  # (B, 1, d)
-        return self._logits(x_last, batch), caches
+        return self._logits(x_last, batch, task_ad), caches

@@ -1,3 +1,4 @@
+from repro_torch.serve.adapters import TaskAdapterStore
 from repro_torch.serve.batching import ContinuousBatcher, Request, TickBudgetExceeded
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.paging import BlockAllocator, PagingSpec, RadixPrefixCache

@@ -51,10 +51,16 @@ prompt's full blocks are registered once its prefill completes, and
 retirement releases (decrefs) instead of freeing. Greedy outputs equal the
 no-sharing path's.
 
+``adapters`` (a ``repro_torch.serve.adapters.TaskAdapterStore`` over the
+model's ``num_tasks``) serves graph-mixed per-task low-rank adapters: every
+dispatch gathers each row's deltas from ``adapters.serving`` by task id
+(free and dead lanes carry the null id ``num_tasks``, the tree's zero row),
+and every finished request is streamed into the store's delayed-update
+loop (``note_request``) after its slot's blocks are freed.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: graph-mixed task adapters (``adapters``), fault injection
-(``faults``) and preemptive swap-out (``preempt``) — later slices of the
-port.
+ignored: fault injection (``faults``) and preemptive swap-out
+(``preempt``) — later slices of the port.
 """
 from __future__ import annotations
 
@@ -70,7 +76,6 @@ from repro_torch.serve.slots import SlotMap
 from repro_torch.serve.step import make_cow_copy, make_serve_step
 
 _LATER_SLICES = {
-    "adapters": "graph-mixed task adapters",
     "faults": "fault injection",
     "preempt": "preemptive swap-out",
 }
@@ -84,6 +89,16 @@ def refuse_unported(**options) -> None:
                 f"{name}=: {_LATER_SLICES[name]} is not ported to repro_torch "
                 "yet (a later slice of the port; see ROADMAP.md)"
             )
+
+
+def check_adapters(adapters, model) -> None:
+    """Reject an adapter store built for another task count than the
+    model's (its rows would be gathered by the wrong ids)."""
+    if adapters is not None and adapters.num_tasks != model.cfg.num_tasks:
+        raise ValueError(
+            f"adapter store serves {adapters.num_tasks} tasks but the model has "
+            f"num_tasks={model.cfg.num_tasks}"
+        )
 
 
 class TickBudgetExceeded(RuntimeError):
@@ -144,9 +159,10 @@ class ContinuousBatcher:
         faults=None,
         preempt: bool = False,
     ):
-        refuse_unported(adapters=adapters is not None, faults=faults is not None,
-                        preempt=preempt)
+        refuse_unported(faults=faults is not None, preempt=preempt)
+        check_adapters(adapters, model)
         self.model = model
+        self.adapters = adapters
         self.device = model.device
         self.num_slots = num_slots
         self.max_seq = max_seq
@@ -154,8 +170,9 @@ class ContinuousBatcher:
         self.paging = paging
         self.on_token = on_token
         self.sample_fn = sample_fn
-        # dead/free lanes carry the task id num_tasks, one past the task
-        # tables; the model clamps it and their outputs are discarded
+        # dead/free lanes carry the task id num_tasks: the adapter serving
+        # tree's zero null row, and one past the model's task tables (the
+        # model clamps it; those lanes' outputs are discarded)
         self._null_task = model.cfg.num_tasks
         self.scheduler = Scheduler(policy=policy, chunk_budget=chunk_budget, now_fn=now_fn)
         self.slots = SlotMap(num_slots)
@@ -215,6 +232,11 @@ class ContinuousBatcher:
         """The slots' block tables on the device (one host-to-device copy
         per dispatch, read by every layer), or None (dense)."""
         return self._dev(self.block_tables) if self.paging is not None else None
+
+    def _adapter_tree(self):
+        """The store's current serving tree (republished by its updates
+        between dispatches), or None."""
+        return self.adapters.serving if self.adapters is not None else None
 
     # ------------------------------------------------------------- plumbing
     def submit(self, req: Request):
@@ -355,6 +377,10 @@ class ContinuousBatcher:
                 # still hold blocks
                 self._free_slot_blocks(s)
                 self.slots.release(s)  # state cleared on re-admission
+                if self.adapters is not None:
+                    # the finish feeds the store's delayed-update loop
+                    # (host side, between dispatches)
+                    self.adapters.note_request(req)
 
     # --------------------------------------------------- retirement paths
     def cancel(self, uid) -> bool:
@@ -436,7 +462,7 @@ class ContinuousBatcher:
             t0 = time.perf_counter()
             last, self.caches, positions = self._prefill_fn(
                 self._dev(tokens), task_ids, self.caches, self._dev(self.pos),
-                self._dev(valid), reset, self._block_tables(),
+                self._dev(valid), reset, self._block_tables(), self._adapter_tree(),
             )
             greedy, rows = self._host_results(last)
             positions = positions.cpu().numpy()
@@ -478,6 +504,7 @@ class ContinuousBatcher:
         next_tok, step_logits, self.caches = self._tick_fn(
             self._dev(tokens), self._dev(self.slots.task_ids(self._null_task)),
             self.caches, self._dev(self.pos), self._dev(live), self._block_tables(),
+            self._adapter_tree(),
         )
         greedy = next_tok.cpu().numpy()
         rows = step_logits.cpu().numpy() if self.sample_fn is not None else None
@@ -520,7 +547,7 @@ class ContinuousBatcher:
         last, self.caches, positions = self._prefill_fn(
             self._dev(tokens), self._dev(self.slots.task_ids(self._null_task)),
             self.caches, self._dev(self.pos), self._dev(valid), reset,
-            self._block_tables(),
+            self._block_tables(), self._adapter_tree(),
         )
         greedy, rows = self._host_results(last)
         positions = positions.cpu().numpy()

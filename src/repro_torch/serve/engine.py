@@ -24,6 +24,10 @@ Sampling (``temperature > 0``) draws token ``t`` of request ``uid`` with a
 pure function of its own logits, stable under scheduler reordering and slot
 placement. It does not reproduce the JAX engine's PRNG bits.
 
+``adapters`` (a ``repro_torch.serve.adapters.TaskAdapterStore``) serves
+each row with its task's graph-mixed low-rank adapters; the store's
+delayed updates run as the requests finish.
+
 ``last_stats`` holds the dispatch counts, host seconds and (paged)
 admission waits of the last ``generate`` call.
 """
@@ -34,7 +38,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.serve.batching import ContinuousBatcher, Request, refuse_unported
+from repro_torch.serve.batching import (
+    ContinuousBatcher,
+    Request,
+    check_adapters,
+    refuse_unported,
+)
 from repro_torch.serve.paging import PagingSpec
 
 
@@ -69,14 +78,16 @@ class ServeEngine:
     # paged only: serve through the radix prefix cache (refcounted block
     # sharing + copy-on-write; see repro_torch.serve.paging)
     prefix_cache: bool = False
-    # later slices of the port; setting any of them raises
+    # optional repro_torch.serve.adapters.TaskAdapterStore: serve graph-mixed
+    # per-task adapters gathered by each row's task id
     adapters: object = None
+    # later slices of the port; setting either raises
     faults: object = None
     preempt: bool = False
 
     def __post_init__(self):
-        refuse_unported(adapters=self.adapters is not None,
-                        faults=self.faults is not None, preempt=self.preempt)
+        refuse_unported(faults=self.faults is not None, preempt=self.preempt)
+        check_adapters(self.adapters, self.model)
         self.last_stats = None
         self.last_prefix_stats = None
 
@@ -124,7 +135,7 @@ class ServeEngine:
             self.model, num_slots=slots, max_seq=self.max_seq,
             prefill_chunk=self.prefill_chunk, prefill_mode=self.prefill_mode,
             on_token=stream, sample_fn=sample_fn, paging=self.paging,
-            prefix_cache=self.prefix_cache,
+            prefix_cache=self.prefix_cache, adapters=self.adapters,
         )
         for i, uid in enumerate(uids):
             batcher.submit(Request(

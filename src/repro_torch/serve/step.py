@@ -7,14 +7,14 @@ functions built here, so their numerics cannot drift.
 ``make_serve_step(model, prefill_mode="parallel", paging=None)`` returns:
 
   * ``decode_tick(tokens, task_ids, caches, positions, live,
-    block_tables=None)`` — advance
+    block_tables=None, adapters=None)`` — advance
     EVERY slot one token at its own position ``positions[b]``. Dead slots
     (``live[b] == False``) run through the math on a padding token but
     their cache rows are left untouched. Returns (greedy next token, step
     logits, caches).
 
   * ``prefill_chunk(tokens, task_ids, caches, positions, valid, reset,
-    block_tables=None)`` — write a whole (B, C) prompt slice.
+    block_tables=None, adapters=None)`` — write a whole (B, C) prompt slice.
     ``valid[b, i]`` marks real prompt tokens as a contiguous prefix per
     row; ``reset[b]`` (host bool array) zeroes a (re)admitted slot's dense
     stripes before writing (paged pools need no reset). Returns (logits
@@ -28,7 +28,9 @@ the parallel path is held against, as in the JAX package).
 With ``paging`` (a ``repro_torch.serve.paging.PagingSpec``) the caches are
 the shared pools of ``model.init_cache(..., paging=spec)`` and every call
 takes the (B, max_blocks) int32 ``block_tables`` of the slots, one device
-tensor per dispatch shared by every layer.
+tensor per dispatch shared by every layer. ``adapters`` is the serving tree
+of a ``repro_torch.serve.adapters.TaskAdapterStore`` (per-task low-rank
+deltas gathered by ``task_ids``), or None.
 
 ``make_cow_copy(paging)`` returns the copy-on-write step of the prefix
 cache: rows ``[0, rows)`` of block ``src`` into block ``dst`` in every pool.
@@ -48,20 +50,21 @@ def make_serve_step(model, prefill_mode: str = "parallel", paging=None):
             f"prefill_mode must be 'parallel' or 'scan', got {prefill_mode!r}"
         )
 
-    def decode_tick(tokens, task_ids, caches, positions, live, block_tables=None):
+    def decode_tick(tokens, task_ids, caches, positions, live, block_tables=None,
+                    adapters=None):
         logits, caches = model.decode_step(
             {"tokens": tokens[:, None], "task_ids": task_ids}, caches, positions,
-            live=live, block_tables=block_tables,
+            live=live, block_tables=block_tables, adapters=adapters,
         )
         step_logits = logits[:, 0]  # (B, V) f32
         return step_logits.argmax(dim=-1), step_logits, caches
 
     def prefill_chunk_parallel(tokens, task_ids, caches, positions, valid, reset,
-                               block_tables=None):
+                               block_tables=None, adapters=None):
         caches = model.reset_slot_state(caches, reset, paging)
         logits, caches = model.prefill_step(
             {"tokens": tokens, "task_ids": task_ids}, caches, positions, valid,
-            block_tables=block_tables,
+            block_tables=block_tables, adapters=adapters,
         )
         n_valid = valid.sum(dim=1).to(positions.dtype)  # (B,)
         # slots with no valid token in this chunk report zeros
@@ -69,14 +72,14 @@ def make_serve_step(model, prefill_mode: str = "parallel", paging=None):
         return last, caches, positions + n_valid
 
     def prefill_chunk_scan(tokens, task_ids, caches, positions, valid, reset,
-                           block_tables=None):
+                           block_tables=None, adapters=None):
         caches = model.reset_slot_state(caches, reset, paging)
         last = None
         for i in range(tokens.shape[1]):
             vld = valid[:, i]
             logits, caches = model.decode_step(
                 {"tokens": tokens[:, i : i + 1], "task_ids": task_ids}, caches,
-                positions, live=vld, block_tables=block_tables,
+                positions, live=vld, block_tables=block_tables, adapters=adapters,
             )
             step = logits[:, 0]
             last = torch.zeros_like(step) if last is None else last

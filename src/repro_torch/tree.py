@@ -1,0 +1,33 @@
+"""Nested dict/list trees of tensors (weights, the adapter store's layout):
+the port's counterpart of the ``jax.tree`` functions it needs. Dict keys
+are visited in sorted order, as ``jax.tree_util`` visits them, so
+``leaves`` and ``map_`` agree on the order of a tree's leaves."""
+from __future__ import annotations
+
+
+def paths(tree, prefix=()):
+    """(path, leaf) pairs of a tree, depth first; a path joins the keys and
+    list indices with "/" ("stages/0/slot0/attn/wq")."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from paths(tree[k], prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            yield from paths(t, prefix + (str(i),))
+    else:
+        yield "/".join(prefix), tree
+
+
+def leaves(tree) -> list:
+    """The leaves of ``tree``, depth first."""
+    return [leaf for _, leaf in paths(tree)]
+
+
+def map_(fn, tree, *rest):
+    """``fn`` applied leafwise to ``tree`` and trees of its structure,
+    leaves visited in the order of ``leaves(tree)``."""
+    if isinstance(tree, dict):
+        return {k: map_(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree))
+    return fn(tree, *rest)

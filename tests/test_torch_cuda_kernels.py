@@ -4,6 +4,10 @@ block ids, a poisoned null block and poisoned unmapped pages, ragged
 positions (past the table, as a dead slot's stale position can be, so a
 row may see no key and average every logical row, null block included),
 G 1 and 5, a sliding window, float32 (atol 2e-5) and bfloat16 (atol 2e-2).
+The graph-mix kernel against its plain version: ragged m and d (vector and
+scalar loads), NaN beyond the operands' ends, float32 (atol 1e-4, rtol
+1e-5) and bfloat16 (atol = rtol = 1e-2 against the f32 plain result
+rounded to bf16), one launch per dtype group of a tree, and its refusals.
 
 Every test here needs a CUDA device and skips without one; the file imports
 no JAX, so it runs on a machine that has only the port's dependencies:
@@ -13,6 +17,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
+from repro_torch.kernels.graph_mix import ops as mix_ops  # noqa: E402
+from repro_torch.kernels.graph_mix.ref import graph_mix_reference  # noqa: E402
 from repro_torch.kernels.prefill_attention import ops as pre_ops  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -84,3 +90,58 @@ def test_paged_kernels_raise_on_bad_tables():
     with pytest.raises(ValueError, match="CUDA device"):
         dec_ops.paged_decode_attention(q, pool.cpu(), pool.cpu(), good, 3)
     assert dec_ops.paged_decode_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graph_mix_kernel_matches_plain_version(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for m, d in [(1, 1000), (12, 1000), (12, 4099), (100, 1000), (100, 4099),
+                 (256, 4096), (256, 131), (9, 3)]:
+        # operands cut from larger NaN-filled buffers: a kernel that reads
+        # past either end turns live outputs into NaN
+        mu_buf = torch.full((m * m + 64,), float("nan"), device=dev)
+        th_buf = torch.full((m * d + 64,), float("nan"), device=dev, dtype=dt)
+        mu = mu_buf[: m * m].view(m, m)
+        theta = th_buf[: m * d].view(m, d)
+        mu.copy_(torch.rand((m, m), generator=gen, device=dev) / m)
+        theta.copy_(torch.randn((m, d), generator=gen, device=dev).to(dt))
+        before = mix_ops.graph_mix.launches
+        got = mix_ops.graph_mix(mu, theta)
+        torch.cuda.synchronize()
+        assert mix_ops.graph_mix.launches == before + 1
+        assert got.dtype == dt and got.shape == (m, d)
+        want = graph_mix_reference(mu.cpu(), theta.cpu().float())
+        tol = (1e-4, 1e-5) if dtype == "float32" else (1e-2, 1e-2)
+        torch.testing.assert_close(got.cpu().float(), want.to(dt).float(),
+                                   atol=tol[0], rtol=tol[1])
+
+
+@pytest.mark.cuda
+def test_graph_mix_tree_launches_once_per_dtype_and_kernel_refusals():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    m = 16
+    tree = {"a": torch.randn(m, 3, 5, device=dev), "b": torch.randn(m, 7, device=dev),
+            "c": torch.randn(m, 4, device=dev).bfloat16()}
+    mu = torch.rand(m, m, device=dev)
+    before = mix_ops.graph_mix.launches
+    got = mix_ops.graph_mix_tree(mu, tree)
+    torch.cuda.synchronize()
+    assert mix_ops.graph_mix.launches == before + 2
+    for k, t in tree.items():
+        want = graph_mix_reference(mu.cpu(), t.cpu().reshape(m, -1)).reshape(t.shape)
+        torch.testing.assert_close(got[k].cpu().float(), want.float(), atol=1e-2, rtol=1e-2)
+    before = mix_ops.graph_mix.launches
+    with pytest.raises(TypeError, match="dtype"):
+        mix_ops.graph_mix(mu, torch.zeros(m, 8, device=dev, dtype=torch.float16))
+    with pytest.raises(ValueError, match="contiguous"):
+        mix_ops.graph_mix(mu, torch.zeros(8, m, device=dev).t())
+    with pytest.raises(ValueError, match="CUDA device"):
+        mix_ops.graph_mix(mu.cpu(), torch.zeros(m, 8, device=dev))
+    assert mix_ops.graph_mix.launches == before

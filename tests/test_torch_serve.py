@@ -4,7 +4,8 @@ tokens from ServeEngine.generate and from the staggered ContinuousBatcher
 workload of tests/test_serve_backend.py, token for token and with the same
 dispatch counts, in both chunk_budget regimes and both prefill modes; plus
 the executor's contracts (cancel, timeout, streaming, tick budget, sampling
-stability, refusal of the options of later slices). CPU, float32."""
+stability, refusal of the options of later slices and of an adapter
+store built for another task count). CPU, float32."""
 import dataclasses
 
 import pytest
@@ -21,11 +22,13 @@ from repro.serve import Request as JaxRequest  # noqa: E402
 from repro.serve import ServeEngine as JaxEngine  # noqa: E402
 from repro_torch.configs import get  # noqa: E402
 from repro_torch.convert import load_numpy_params  # noqa: E402
+from repro_torch.core.graph import ring_graph  # noqa: E402
 from repro_torch.models import TransformerLM  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     ContinuousBatcher,
     Request,
     ServeEngine,
+    TaskAdapterStore,
     TickBudgetExceeded,
 )
 
@@ -185,15 +188,26 @@ def test_submit_validation():
         batcher.submit(Request(uid=2, tokens=np.ones(5, np.int32), max_new=4))
 
 
-@pytest.mark.parametrize("option", [
-    {"adapters": object()}, {"faults": object()}, {"preempt": True},
-])
+@pytest.mark.parametrize("option", [{"faults": object()}, {"preempt": True}])
 def test_unported_options_raise(option):
     _, _, tm = _models("olmo_1b")
     with pytest.raises(NotImplementedError, match="not ported"):
         ContinuousBatcher(tm, num_slots=1, max_seq=8, **option)
     with pytest.raises(NotImplementedError, match="not ported"):
         ServeEngine(tm, max_seq=8, **option)
+
+
+def test_adapter_store_of_another_task_count_raises():
+    """Adapters are served now; a store built for another num_tasks than
+    the model's is refused by the batcher and by the engine."""
+    _, _, tm = _models("olmo_1b")
+    other = TransformerLM(dataclasses.replace(tm.cfg, num_tasks=tm.cfg.num_tasks + 2),
+                          device="cpu")
+    store = TaskAdapterStore(other, ring_graph(other.cfg.num_tasks), rank=2)
+    with pytest.raises(ValueError, match="adapter store serves"):
+        ContinuousBatcher(tm, num_slots=1, max_seq=8, adapters=store)
+    with pytest.raises(ValueError, match="adapter store serves"):
+        ServeEngine(tm, max_seq=8, adapters=store)
 
 
 def test_temperature_sampling_stable_under_reordering():

@@ -10,16 +10,20 @@ Phases; each raises on failure, and then no result line is printed:
   2. kernels  — each hand-written kernel against its plain PyTorch version
                 on the card, at the serving path's shapes: OLMo-1B
                 (B=4, S=1024, KVH=16, G=1, hd=128, ragged pos; prefill
-                C=32), Qwen2.5-14B GQA (KVH=8, G=5), a sliding window, and
-                every head-dim instantiation; the paged kernels over a pool
-                of 16-token blocks with shuffled ids (1024 logical rows per
-                slot); f32 (atol 2e-5) and bf16 (atol 2e-2). At the OLMo-1B
+                C=32), Qwen2.5-14B GQA (KVH=8, G=5), multitask-LM's prefill
+                (KVH=4, G=4, hd=64, C=32: 128 rows in one block), a sliding
+                window, and every head-dim instantiation; the paged kernels
+                over a pool of 16-token blocks with shuffled ids (1024
+                logical rows per slot); f32 (atol 2e-5) and bf16 (atol 2e-2). At the OLMo-1B
                 f32 shapes it times each kernel, its plain version and the
                 library calls computing the same function (library_ms, a
                 yardstick the port never calls: scaled_dot_product_attention,
-                after gather_pages when paged), and computes the bound.
-                The graph-mix kernel against its plain version at the
-                multitask-LM adapter store's full width (m=256 tasks,
+                after gather_pages when paged), and computes the bound;
+                prefill beside the wrapper's nsplit. After phase 7 it
+                reads, with torch.profiler, the device time of each CUDA
+                kernel one such call launches (prefill: partial + combine)
+                and of the kernels the library call runs. The graph-mix
+                kernel against its plain version at the multitask-LM adapter store's full width (m=256 tasks,
                 d=426,240) in f32 and bf16, at ragged m in {1, 12, 100} and
                 d in {1000, 4099}, and under the bsr, bol and consensus
                 matrices of band_graph(256, 2); f32 atol 1e-4 / rtol 1e-5,
@@ -53,8 +57,8 @@ Phases; each raises on failure, and then no result line is printed:
                 the no-cache run.
   6. profile  — host wall time of a prefill round and of 8 decode ticks at
                 OLMo-1B full width, dense and paged, against the device
-                time torch.profiler sees, with the top kernels (measurement
-                only).
+                time torch.profiler sees, with the top kernels and the
+                attention kernels' device time (measurement only).
   7. adapters — multitask-LM at full width (12 layers, d_model 1024, 256
                 tasks, rank 8; f32, random weights from seed 0, dense cache,
                 4 slots) serving 8 requests of 8 tasks (ids 0..255, prompts
@@ -134,6 +138,36 @@ def graph_ms(torch, calls, reps=20):
     return statistics.median(times)
 
 
+def kernel_ms(torch, fn, want=1, reps=4, tries=3):
+    """Device ms per call of each CUDA kernel ``fn`` launches, by kernel
+    name, from torch.profiler over ``reps`` eager calls after a warm-up, and
+    whether the records were whole. A session whose records are not (fewer
+    than ``want`` kernels, or a count that is no multiple of ``reps``: a
+    trace can lose a kernel's records after earlier profiler sessions in
+    the process) is made again, at most ``tries`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        whole = len(kern) >= want and all(e.count % reps == 0 for e in kern)
+        if whole:
+            break
+    return {e.key: e.self_device_time_total / 1e3 / reps for e in kern}, whole
+
+
+def short_name(key):
+    """A kernel's name without its namespace, return type and arguments."""
+    key = key.replace("(anonymous namespace)::", "").replace("void ", "")
+    return key.split("(")[0].split("::")[-1][:80]
+
+
 def visible_rows(p, s, window):
     """Inclusive key range a query at position p reads."""
     lo = max(0, p - window + 1) if window else 0
@@ -178,7 +212,7 @@ def phase_build(runtime):
     log(f"build: {len(logs)} kernel sources compiled in {secs:.1f} s")
 
 
-def phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, gather_pages):
+def phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, gather_pages, breakdown):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -249,6 +283,8 @@ def phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, gather_pages):
         ("hd32_gqa", 2, 200, 4, 2, 32, 8, [0, 190], None, None),
         ("hd32_gqa", 2, 200, 4, 2, 32, 1, [150, 199], None, None),
         ("masked_rows", 1, 100, 1, 1, 64, 5, [98], 3, None),
+        # multitask-LM's prefill: 128 slab rows in one block (8 m16 tiles)
+        ("multitask_lm", 4, 1024, 4, 4, 64, 32, [0, 200, 640, 992], None, None),
         # paged: 16-token pages, slot 0 maps only its first 512 rows
         ("olmo_1b", 4, 1024, 16, 1, 128, 1, [63, 300, 700, 1023], None, 16),
         ("olmo_1b", 4, 1024, 16, 1, 128, 32, [0, 200, 640, 992], None, 16),
@@ -288,13 +324,43 @@ def phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, gather_pages):
             bound_ms, bound_by = bound(b, s, kvh, g, hd, c, pos, window, dname, block)
             lib_name = ("gather_pages + scaled_dot_product_attention" if block
                         else "scaled_dot_product_attention")
+            extra = {}
+            if c > 1:
+                extra["nsplit"] = pre_ops.num_splits(q, kvh, s)
             log(f"time {kname} {name} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"library ({lib_name}) {lib_ms:.4f} ms (err vs plain {lib_err:.2e}), "
                 f"bound {bound_ms:.4f} ms ({bound_by})")
+            if c > 1:
+                log(f"time {kname} {name} f32: wrapper's nsplit {extra['nsplit']}")
             entries[kname] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                               "bound_ms": bound_ms, "bound_by": bound_by,
-                              "library_ms": lib_ms, "library": lib_name}
+                              "library_ms": lib_ms, "library": lib_name, **extra}
+            # the kernels one call launches, and what the library runs: read
+            # with torch.profiler after the last serve phase (phase_breakdown),
+            # since a profiler session slows the launches of the runs after it
+            breakdown.append((kname, entries[kname],
+                              lambda q=q, k=k, v=v, table=table, op=op, pos_t=pos_t:
+                              call(op, q, k, v, table, pos_t),
+                              lambda q=q, k=k, v=v, table=table, mask=mask:
+                              library(q, k, v, table, mask)))
     return entries
+
+
+def phase_breakdown(torch, breakdown):
+    """Device ms per call of each CUDA kernel a timed kernel call launches
+    (partial + combine) and of the kernels its library call runs, from
+    torch.profiler; added to the kernel's entry. Measurement only: records
+    still incomplete after the retries are logged as such."""
+    for kname, entry, kernel_call, library_call in breakdown:
+        launched, whole = kernel_ms(torch, kernel_call, want=2)
+        library_kernels, lib_whole = kernel_ms(torch, library_call)
+        entry["launched"] = {short_name(k): t for k, t in launched.items()}
+        entry["library_kernels"] = {short_name(k): t for k, t in library_kernels.items()}
+        log(f"breakdown {kname} olmo_1b f32: eager device ms per call: "
+            + ", ".join(f"{k} {t:.4f}" for k, t in entry["launched"].items())
+            + "; library runs "
+            + ", ".join(f"{k} {t:.4f}" for k, t in entry["library_kernels"].items())
+            + ("" if whole and lib_whole else "; profiler records incomplete"))
 
 
 def adapter_width(cfg) -> int:
@@ -795,6 +861,11 @@ def profile_window(torch, name, setup, run):
         f"{sum(e.count for e in kern)} launches")
     for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
         log(f"profile {name}:   {us / 1e3:8.3f} ms  {key[:90]}")
+    for e in kern:  # the port's attention kernels, wherever they rank
+        if any(k_ in e.key for k_ in ("prefill_partial", "prefill_combine", "decode_partial",
+                                      "decode_combine")):
+            log(f"profile {name}: attention {e.self_device_time_total / 1e3:8.3f} ms in "
+                f"{e.count} launches  {short_name(e.key)}")
 
 
 def _ticks(bt, n=8):
@@ -859,7 +930,9 @@ def main() -> int:
            "graph_mix": mix_ops.graph_mix}
     t0 = time.perf_counter()
     phase_build(runtime)
-    entries = phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, runtime.gather_pages)
+    breakdown = []  # (kernel, entry, kernel call, library call) for phase_breakdown
+    entries = phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, runtime.gather_pages,
+                            breakdown)
     entries["graph_mix"] = phase_graph_mix(torch, mix_ops, mix_ref, band_graph,
                                            get("multitask_lm"))
     phase_small_reference(torch, get, TransformerLM, PagingSpec)
@@ -885,6 +958,8 @@ def main() -> int:
         f"params, f32) initialised in {time.perf_counter() - t1:.1f} s")
     adapters = phase_adapters(torch, np, mt_model, ServeEngine, TaskAdapterStore, band_graph,
                               tree_lib, ContinuousBatcher, Request, ops)
+    phase_breakdown(torch, breakdown)
+    del breakdown  # its closures hold the phase-2 inputs
     log(json.dumps({"serve_rates": {"dense": dense["rates"], "paged": paged["rates"],
                                     "prefix": prefix["rates"],
                                     "adapters": adapters["rates"]}}))

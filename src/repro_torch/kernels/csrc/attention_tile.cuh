@@ -1,6 +1,8 @@
-// Shared body of the hand-written Hopper attention kernels
-// (decode_attention.cu, prefill_attention.cu): an online softmax of up to
-// kRows query rows over K/V tiles staged in shared memory.
+// Shared pieces of the hand-written Hopper attention kernels: the tile body
+// of flash decode (decode_attention.cu), an online softmax of up to kRows
+// query rows over K/V tiles staged in shared memory; and, shared with the
+// chunked flash prefill (prefill_attention.cu, which has its own tensor-core
+// body), key_range, the row-addressing types and the small helpers.
 //
 // Numerics follow the reference Pallas kernels exactly in kind: f32 scores,
 // f32 running max / sum / accumulator, the finite mask value -1e30 (never

@@ -8,6 +8,12 @@ The graph-mix kernel against its plain version: ragged m and d (vector and
 scalar loads), NaN beyond the operands' ends, float32 (atol 1e-4, rtol
 1e-5) and bfloat16 (atol = rtol = 1e-2 against the f32 plain result
 rounded to bf16), one launch per dtype group of a tree, and its refusals.
+The dense and paged flash-prefill kernels against their plain versions at
+forced split counts (1, 3 and the wrapper's own), at C * G of 3, 32, 128,
+160 and 200 (a ragged m16 tile, rows over several m16 tiles, several row
+tiles), with a window, a slot at pos 0 beside one at 992, a row that sees
+no key, and, paged, block sizes 8 and 16 with a poisoned null block and
+out-of-pool ids.
 
 Every test here needs a CUDA device and skips without one; the file imports
 no JAX, so it runs on a machine that has only the port's dependencies:
@@ -16,6 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import runtime  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.graph_mix import ops as mix_ops  # noqa: E402
 from repro_torch.kernels.graph_mix.ref import graph_mix_reference  # noqa: E402
@@ -70,6 +77,63 @@ def test_paged_kernels_match_plain_versions(dtype, bs):
         err = (got.float().cpu() - want.float()).abs().max().item()
         assert torch.isfinite(got.float()).all()
         assert err <= TOL[dtype], (b, tokens, bs, kvh, g, hd, c, pos, window, err)
+
+
+# (B, S logical rows, KVH, G, hd, C, pos, window): C * G = 32 (OLMo-1B), 128
+# (multitask-LM: eight m16 tiles in one block), 160 (Qwen2.5-14B: two row
+# tiles of 80 rows in bf16, four of 48 in f32), 3 (a ragged m16 tile), 200
+# (two row tiles at hd 128 in bf16, five in f32); pos 0 beside 992; the
+# (110, window 3) slot's last row sees no key
+_PREFILL_CASES = [
+    (4, 1024, 16, 1, 128, 32, [0, 200, 640, 992], None),
+    (4, 1024, 4, 4, 64, 32, [0, 200, 640, 992], None),
+    (4, 1024, 8, 5, 128, 32, [0, 992, 431, 100], 256),
+    (2, 304, 2, 3, 64, 1, [10, 297], 64),
+    (1, 112, 1, 1, 64, 5, [110], 3),
+    (2, 208, 4, 2, 32, 8, [0, 190], None),
+    (2, 96, 2, 5, 128, 40, [10, 50], None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nsplit", [1, 3, None])
+@pytest.mark.parametrize("block", [None, 8, 16])
+def test_prefill_kernels_match_plain_versions_at_forced_splits(dtype, nsplit, block):
+    """Through the private launch helper at a forced split count (None: the
+    wrapper's own choice): splits with no visible key, splits whose keys are
+    all masked for some rows, and rows that see no key at all must merge to
+    the plain version's answer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for b, s, kvh, g, hd, c, pos, window in _PREFILL_CASES:
+        if block is None:
+            q = torch.randn((b, c, kvh * g, hd), generator=gen, device=dev).to(dt)
+            k = torch.randn((b, s, kvh, hd), generator=gen, device=dev).to(dt)
+            v = torch.randn((b, s, kvh, hd), generator=gen, device=dev).to(dt)
+            table = None
+        else:
+            q, k, v, table = _paged_case(gen, dev, dt, b, s // block, block, kvh, g, hd, c)
+            table[-1, 0] = k.shape[0] + 5  # out of the pool: clamped to the last block
+            if b > 1:
+                table[0, 0] = -3  # clamped to the null block
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+        n = nsplit or pre_ops.num_splits(q, kvh, s)
+        got = pre_ops._launch(q, k, v, table, runtime.pos_vector(pos_t, b, dev),
+                              runtime.window_arg(window), n)
+        torch.cuda.synchronize()
+        if table is None:
+            want = pre_ops.prefill_attention(q.cpu(), k.cpu(), v.cpu(), pos_t.cpu(),
+                                             window=window)
+        else:
+            want = pre_ops.paged_prefill_attention(q.cpu(), k.cpu(), v.cpu(), table.cpu(),
+                                                   pos_t.cpu(), window=window)
+        err = (got.float().cpu() - want.float()).abs().max().item()
+        assert torch.isfinite(got.float()).all()
+        assert err <= TOL[dtype], (b, s, kvh, g, hd, c, pos, window, block, n, err)
 
 
 @pytest.mark.cuda

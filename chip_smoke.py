@@ -10,18 +10,19 @@ Phases; each raises on failure, and then no result line is printed:
   2. kernels  — each hand-written kernel against its plain PyTorch version
                 on the card, at the serving path's shapes: OLMo-1B
                 (B=4, S=1024, KVH=16, G=1, hd=128, ragged pos; prefill
-                C=32), Qwen2.5-14B GQA (KVH=8, G=5), multitask-LM's prefill
-                (KVH=4, G=4, hd=64, C=32: 128 rows in one block), a sliding
-                window, and every head-dim instantiation; the paged kernels
-                over a pool of 16-token blocks with shuffled ids (1024
-                logical rows per slot); f32 (atol 2e-5) and bf16 (atol 2e-2). At the OLMo-1B
-                f32 shapes it times each kernel, its plain version and the
+                C=32), Qwen2.5-14B GQA (KVH=8, G=5), multitask-LM's decode
+                and prefill (KVH=4, G=4, hd=64; prefill C=32: 128 rows in
+                one block), a sliding window, and every head-dim
+                instantiation; the paged kernels over a pool of 16-token
+                blocks with shuffled ids (1024 logical rows per slot); f32
+                (atol 2e-5) and bf16 (atol 2e-2). At the OLMo-1B f32
+                shapes it times each kernel, its plain version and the
                 library calls computing the same function (library_ms, a
                 yardstick the port never calls: scaled_dot_product_attention,
-                after gather_pages when paged), and computes the bound;
-                prefill beside the wrapper's nsplit. After phase 7 it
+                after gather_pages when paged), and computes the bound,
+                beside the wrapper's nsplit. After phase 7 it
                 reads, with torch.profiler, the device time of each CUDA
-                kernel one such call launches (prefill: partial + combine)
+                kernel one such call launches (partial + combine)
                 and of the kernels the library call runs. The graph-mix
                 kernel against its plain version at the multitask-LM adapter store's full width (m=256 tasks,
                 d=426,240) in f32 and bf16, at ragged m in {1, 12, 100} and
@@ -283,7 +284,9 @@ def phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, gather_pages, br
         ("hd32_gqa", 2, 200, 4, 2, 32, 8, [0, 190], None, None),
         ("hd32_gqa", 2, 200, 4, 2, 32, 1, [150, 199], None, None),
         ("masked_rows", 1, 100, 1, 1, 64, 5, [98], 3, None),
-        # multitask-LM's prefill: 128 slab rows in one block (8 m16 tiles)
+        # multitask-LM: decode (G 4, hd 64), and prefill with 128 slab rows in
+        # one block (8 m16 tiles)
+        ("multitask_lm", 4, 1024, 4, 4, 64, 1, [63, 300, 700, 1023], None, None),
         ("multitask_lm", 4, 1024, 4, 4, 64, 32, [0, 200, 640, 992], None, None),
         # paged: 16-token pages, slot 0 maps only its first 512 rows
         ("olmo_1b", 4, 1024, 16, 1, 128, 1, [63, 300, 700, 1023], None, 16),
@@ -324,14 +327,11 @@ def phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, gather_pages, br
             bound_ms, bound_by = bound(b, s, kvh, g, hd, c, pos, window, dname, block)
             lib_name = ("gather_pages + scaled_dot_product_attention" if block
                         else "scaled_dot_product_attention")
-            extra = {}
-            if c > 1:
-                extra["nsplit"] = pre_ops.num_splits(q, kvh, s)
+            extra = {"nsplit": pre_ops.num_splits(q, kvh, s) if c > 1
+                     else dec_ops.num_splits(q, kvh, s, paged=block is not None)}
             log(f"time {kname} {name} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"library ({lib_name}) {lib_ms:.4f} ms (err vs plain {lib_err:.2e}), "
-                f"bound {bound_ms:.4f} ms ({bound_by})")
-            if c > 1:
-                log(f"time {kname} {name} f32: wrapper's nsplit {extra['nsplit']}")
+                f"bound {bound_ms:.4f} ms ({bound_by}); wrapper's nsplit {extra['nsplit']}")
             entries[kname] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                               "bound_ms": bound_ms, "bound_by": bound_by,
                               "library_ms": lib_ms, "library": lib_name, **extra}

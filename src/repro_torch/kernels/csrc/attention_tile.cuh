@@ -1,19 +1,47 @@
 // Shared pieces of the hand-written Hopper attention kernels: the tile body
-// of flash decode (decode_attention.cu), an online softmax of up to kRows
-// query rows over K/V tiles staged in shared memory; and, shared with the
-// chunked flash prefill (prefill_attention.cu, which has its own tensor-core
-// body), key_range, the row-addressing types and the small helpers.
+// of flash decode (decode_attention.cu), where each warp runs its own online
+// softmax over its share of the keys; and, shared with the chunked flash
+// prefill (prefill_attention.cu, which has its own tensor-core body),
+// key_range, the row-addressing type of a paged pool, the cp.async helpers
+// and the small conversions.
 //
 // Numerics follow the reference Pallas kernels exactly in kind: f32 scores,
 // f32 running max / sum / accumulator, the finite mask value -1e30 (never
 // -inf, so a row with no visible key stays finite), and the final divide by
-// max(l, 1e-30). Inputs are f32 or bf16; every tile is widened to f32 as it
-// lands in shared memory, so all arithmetic is f32 on the CUDA cores.
+// max(l, 1e-30). Inputs are f32 or bf16; K/V land in shared memory in their
+// own dtype (bf16 at half the bytes) and are widened to f32 as they are read,
+// so all arithmetic is f32 on the CUDA cores.
+//
+// The decode body (attend_chunks). Decode does G / 2 flops per byte in f32
+// (G per byte in bf16) at G <= 16 query rows per KV head, far below the 20
+// f32 flops per byte of the card's CUDA cores: bytes bound it, so the body
+// is built to keep the K/V copies in flight and every thread busy, not to
+// compute faster. No tensor cores (they cannot speed up a byte-bound loop)
+// and no TMA (a tensor map cannot follow a block table row by row, so it
+// would split the dense and paged bodies in two).
+//  * A block's keys come in tiles of kTileS = kWarps * kChunk keys; warp w
+//    owns chunk w (kChunk = 8 keys) of every tile of the block, so the
+//    warps of a block walk the keys side by side and never wait on each
+//    other: no block barrier inside the tile loop, one __syncwarp after a
+//    chunk lands and one before its stage is refilled.
+//  * Each warp has its own kStages-deep ring of 16-byte cp.async.cg copies
+//    (a commit group per chunk, empty past the end; keys past S zero-filled
+//    by src-size 0): chunks u + 1 .. u + kStages - 1 are in flight while
+//    chunk u computes. Rows are stored XOR-swizzled in 16-byte pieces, so
+//    the reads below hit distinct banks without padding.
+//  * Scores: lane = part * 8 + key, each of the 4 parts holds a quarter of
+//    the head dim, so all 32 lanes work at G = 1; two shuffles finish a dot.
+//    The softmax of a chunk is 8 keys wide: three shuffles for the max, three
+//    for the sum. P @ V: lanes over the head dim, 4 dims each (128 / HD key
+//    groups of lanes take alternate keys), the weights of a key broadcast
+//    from the lane that scored it.
+//  * Each warp keeps its own (m, l, acc); the block merges its warps' partials
+//    once, at the end, through shared memory that aliases the ring.
 //
 // Layouts are the serving model's own: K/V caches (B, S, KVH, HD) or shared
 // pools (NB, BS, KVH, HD) read through a (B, MB) block table, and the query
-// rows of one KV head, gathered by the caller into sm.q. Where a cache row
-// lives is the one thing the two layouts differ in, so the tile body is
+// rows of one KV head, copied by the caller into shared memory. Where a cache
+// row lives is the one thing the two layouts differ in, so the body is
 // templated on a row-addressing type (DenseRows, PagedRows) and written once.
 #pragma once
 
@@ -24,10 +52,7 @@
 namespace attn {
 
 constexpr float kNegInf = -1e30f;  // the reference's finite mask value
-constexpr int kThreads = 128;      // threads per block (4 warps)
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileS = 64;         // keys per shared-memory K/V tile
-constexpr int kRows = 16;          // query rows one block holds
+constexpr int kRows = 16;          // query rows (G) one decode block holds
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -49,20 +74,24 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// float4 reads of q and p rows need 16-byte alignment: q sits at offset 0
-// and every member before p is a multiple of 16 bytes long.
-template <int HD>
-struct Smem {
-  float q[kRows][HD];
-  float k[kTileS][HD + 1];  // +1 pad: threads reading one key each hit distinct banks
-  float v[kTileS][HD];
-  float p[kRows][kTileS];   // scores, then exp(score - running max)
-  float m[kRows];           // running max
-  float l[kRows];           // running sum
-  float alpha[kRows];       // exp(m_old - m_new) of the current tile
-  int qpos[kRows];          // absolute position of each query row
-  long off[2][kTileS];      // paged: element offsets of a tile's rows (double buffer)
-};
+// ---------------------------------------------------------------- cp.async
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; src_bytes 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // Keys a block must visit, as an inclusive range [lo, hi] of cache rows.
 // Rows sit at positions pmin..pmax and see kv <= p (and kv > p - window).
@@ -102,9 +131,7 @@ struct DenseRows {
 // logical row j is pool[table[j / BS], j % BS]. The physical id is clamped
 // to [0, NB - 1], as the reference's gather clamps, so a bad table entry
 // reads a wrong page, never stray memory. The physical row is resolved per
-// key, so any block size works and one kTileS-key tile may span several
-// pages. attend_tiles resolves a tile's 64 rows once, into shared memory,
-// while the tile before it computes (see there).
+// key, so any block size works and one tile may span several pages.
 struct PagedRows {
   static constexpr bool kPaged = true;
   long stride;
@@ -117,206 +144,258 @@ struct PagedRows {
   }
 };
 
-// The rows of one tile as load_tile reads them: row(j) points at logical
-// row j. Dense: computed from the stride. Paged: looked up in the tile's
-// staged offsets (off[j - s0], filled by attend_tiles).
-template <typename T>
-struct DenseTile {
-  const T* base;
-  long stride;
-  __device__ __forceinline__ const T* row(int j) const { return base + (long)j * stride; }
-};
-template <typename T>
-struct StagedTile {
-  const T* base;
-  const long* off;
-  int s0;
-  __device__ __forceinline__ const T* row(int j) const { return base + off[j - s0]; }
+// ------------------------------------------------------------- decode body
+// Geometry of the decode partial kernel. DECODE_WARPS and DECODE_STAGES are
+// compile-time knobs (scripts/decode_probe.py builds variants); the port's
+// build takes the defaults.
+#ifndef DECODE_WARPS
+#define DECODE_WARPS 4
+#endif
+#ifndef DECODE_STAGES
+#define DECODE_STAGES 3
+#endif
+constexpr int kWarps = DECODE_WARPS;    // warps per decode block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStages = DECODE_STAGES;  // ring depth of each warp
+constexpr int kChunk = 8;               // keys a warp takes per tile
+constexpr int kTileS = kWarps * kChunk; // keys per tile: the unit of the split
+static_assert(kStages >= 2, "a ring needs two stages");
+
+// Shared memory of a decode block: the query rows (raw dtype, [kRows][HD]);
+// the warps' rings, kStages x (K chunk, V chunk) of [kChunk][HD] each, which
+// the end-of-block merge reuses for the warps' accumulators
+// ([kWarps][kRows][HD] f32); then the warps' (m, l) [kWarps][kRows] each.
+template <typename T, int HD>
+struct DecodePlan {
+  static constexpr int VW = 16 / (int)sizeof(T);  // elements per 16-byte piece
+  static constexpr int VPR = HD / VW;             // pieces per row: 4 .. 32
+  static constexpr int kQBytes = kRows * HD * (int)sizeof(T);
+  static constexpr int kChunkElems = kChunk * HD;
+  static constexpr int kWarpRingElems = kStages * 2 * kChunkElems;
+  static constexpr int kRingBytes = kWarps * kWarpRingElems * (int)sizeof(T);
+  static constexpr int kMergeBytes = kWarps * kRows * HD * 4;
+  static constexpr int kShared = kRingBytes > kMergeBytes ? kRingBytes : kMergeBytes;
+  static constexpr int kBytes = kQBytes + kShared + 2 * kWarps * kRows * 4;
+  static_assert(VPR >= 4 && VPR % 4 == 0, "four score parts of whole pieces");
+  static_assert(kChunk * VPR % 32 == 0, "a chunk's copies split evenly over a warp");
 };
 
-// Copy K or V rows [s0, s0 + kTileS) of one KV head into shared memory as
-// f32, 16 bytes per load, neighbouring threads on neighbouring addresses.
-// Every load of the tile is issued before the first store, so a thread has
-// all its loads in flight at once. Rows at or past S are zero-filled.
-template <typename T, int HD, int STRIDE, typename Tile>
-__device__ __forceinline__ void load_tile(float (*dst)[STRIDE], const Tile& rows, int s0,
-                                          int S) {
-  constexpr int VW = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int VPR = HD / VW;        // loads per row
-  constexpr int kIters = kTileS * VPR / kThreads;
-  static_assert(kTileS * VPR % kThreads == 0, "a tile splits evenly over the block");
-  uint4 raw[kIters];
-#pragma unroll
-  for (int it = 0; it < kIters; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / VPR;
-    raw[it] = s0 + r < S
-                  ? __ldg(reinterpret_cast<const uint4*>(rows.row(s0 + r) + (i % VPR) * VW))
-                  : make_uint4(0u, 0u, 0u, 0u);
-  }
-#pragma unroll
-  for (int it = 0; it < kIters; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const T* vals = reinterpret_cast<const T*>(&raw[it]);
-#pragma unroll
-    for (int e = 0; e < VW; ++e) dst[i / VPR][(i % VPR) * VW + e] = to_float(vals[e]);
+// Physical 16-byte piece of logical piece `pc` in row `r` of a chunk: the
+// low bits are XORed with the row, so the 8 rows of a chunk put one logical
+// piece in 8 distinct bank groups (rows are VPR pieces long; at VPR 4 two
+// rows share a 128-byte bank line, so the row's upper bits are used).
+template <int VPR>
+__device__ __forceinline__ int swizzle(int r, int pc) {
+  if constexpr (VPR >= 8) {
+    return pc ^ (r & 7);
+  } else {
+    return pc ^ ((r >> 1) & 3);
   }
 }
 
-// Online softmax of the block's `nrows` query rows (staged in sm.q, with
-// sm.qpos, sm.m = -1e30 and sm.l = 0 set, and a __syncthreads() behind them)
-// over key tiles [t_begin, t_end) of logical rows [0, S). kbase/vbase point
-// at this KV head's row 0 (dense) or its pool column (paged); rows
-// (DenseRows or PagedRows) places each logical row.
-//
-// Paged, the 64 row offsets of a tile are staged in sm.off before its loads:
-// one table read and one division per row and tile, shared by the K and V
-// loads of every thread. The table reads of tile t + 1 are issued at the
-// top of tile t and stored after its p @ V, so their latency hides behind
-// the tile's compute; the two halves of sm.off alternate between tiles.
-//
-// Thread roles per tile:
-//   load    thread -> 16-byte pieces tid + kThreads * it of the K and V tiles
-//   scores  thread -> key j = tid % kTileS, rows tid / kTileS + 2i
-//   softmax warp   -> rows warp + 4i (max and sum by shuffles)
-//   p @ V   thread -> dim d = tid % HD, rows tid / HD + (kThreads / HD) i
-// On return acc[i] holds the unnormalised output of row
-// tid / HD + (kThreads / HD) * i, dim tid % HD.
-template <typename T, int HD, typename Rows>
-__device__ __forceinline__ void attend_tiles(Smem<HD>& sm, const T* __restrict__ kbase,
-                                             const T* __restrict__ vbase, const Rows& rows,
-                                             int S, int nrows, int t_begin, int t_end,
-                                             int window, float scale,
-                                             float (&acc)[kRows * HD / kThreads]) {
-  constexpr int kSStep = kThreads / kTileS;  // score rows interleave
-  constexpr int kSRows = kRows / kSStep;     // score rows per thread
-  constexpr int kOStep = kThreads / HD;      // output rows interleave
-  constexpr int kORows = kRows / kOStep;     // output rows per thread
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int sj = tid % kTileS;
-  const int sr = tid / kTileS;
-  const int od = tid % HD;
-  const int orow = tid / HD;
-  // rows this thread owns in each phase (warp-uniform: sr and orow are)
-  const int n_srows = nrows > sr ? (nrows - sr + kSStep - 1) / kSStep : 0;
-  const int n_orows = nrows > orow ? (nrows - orow + kOStep - 1) / kOStep : 0;
+// VW elements of a 16-byte piece in shared memory, widened to f32.
+template <typename T>
+__device__ __forceinline__ void load_piece(const T* src, float (&x)[16 / sizeof(T)]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const T* vals = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int e = 0; e < (int)(16 / sizeof(T)); ++e) x[e] = to_float(vals[e]);
+}
 
-  if constexpr (Rows::kPaged) {
-    const int j = t_begin * kTileS + tid;
-    if (t_begin < t_end && tid < kTileS && j < S) {
-      sm.off[t_begin & 1][tid] = rows.offset(rows.page(j), j);
-    }
-    __syncthreads();
+// Four consecutive elements of a shared-memory row, widened to f32 (16 bytes
+// of f32, 8 of bf16).
+__device__ __forceinline__ float4 load4(const float* src) {
+  return *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* src) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(src);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+  const float2 a = __bfloat1622float2(lo);
+  const float2 b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// One warp's online softmax over its chunk of each tile in [t_begin,
+// t_end): warp w reads keys t * kTileS + w * kChunk + [0, kChunk) of every
+// tile t, through its ring (kWarpRingElems elements of T), for the G query
+// rows in qs ([G][HD], raw dtype), all at position qpos. The caller has
+// issued the copies of qs as the last cp.async group before the call; every
+// warp of the block calls this, which waits for them (after issuing its
+// first K/V copies) and synchronizes the block once. kbase/vbase point at
+// this KV head's row 0 (dense) or its pool column (paged); rows (DenseRows
+// or PagedRows) places each logical row.
+// Keys at or past S take no part (their copies are zero-filled).
+//
+// On return m[r] and l[r] (the same in every lane) are row r's running max
+// and sum over the warp's keys, and acc[r] the unnormalised output of row r,
+// dims 4 * (lane % (HD / 4)) .. + 3, summed over the warp's key groups.
+template <typename T, int HD, typename Rows>
+__device__ __forceinline__ void attend_chunks(T* ring, const T* qs, const T* __restrict__ kbase,
+                                              const T* __restrict__ vbase, const Rows& rows,
+                                              int S, int G, int t_begin, int t_end, int qpos,
+                                              int window, float scale, float (&m)[kRows],
+                                              float (&l)[kRows], float (&acc)[kRows][4]) {
+  using P = DecodePlan<T, HD>;
+  constexpr int VW = P::VW;
+  constexpr int VPR = P::VPR;
+  constexpr int kCopies = kChunk * VPR / 32;  // 16-byte copies per lane, K and V each
+  constexpr int kQ = VPR / 4;                 // pieces per score part
+  constexpr int kLPR = HD / 4;                // lanes per V row in P @ V
+  constexpr int kKG = 32 / kLPR;              // key groups in P @ V
+  constexpr int kKeysPerGroup = kChunk / kKG;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n = t_end - t_begin;
+  const int first = t_begin * kTileS + warp * kChunk;  // the warp's first key
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
   }
 
-  for (int t = t_begin; t < t_end; ++t) {
-    const int s0 = t * kTileS;
-    const int jmax = min(kTileS, S - s0);  // keys of this tile inside the cache
-    int next_page = 0;  // paged: page of this thread's row of tile t + 1
-    if constexpr (Rows::kPaged) {
-      const int jn = s0 + kTileS + tid;
-      if (t + 1 < t_end && tid < kTileS && jn < S) next_page = rows.page(jn);
-      load_tile<T, HD, HD + 1>(sm.k, StagedTile<T>{kbase, sm.off[t & 1], s0}, s0, S);
-      load_tile<T, HD, HD>(sm.v, StagedTile<T>{vbase, sm.off[t & 1], s0}, s0, S);
-    } else {
-      load_tile<T, HD, HD + 1>(sm.k, DenseTile<T>{kbase, rows.stride}, s0, S);
-      load_tile<T, HD, HD>(sm.v, DenseTile<T>{vbase, rows.stride}, s0, S);
-    }
-    __syncthreads();
+  // paged: the page of row lane % kChunk of the next chunk to issue, read
+  // one issue ahead so its latency hides behind a chunk's compute
+  int pg = 0;
+  if constexpr (Rows::kPaged) {
+    const int j = first + (lane & (kChunk - 1));
+    if (n > 0 && j < S) pg = rows.page(j);
+  }
 
-    // scores: q . k * scale, masked to -1e30; q rows read 4 dims at a time
-    float dot[kSRows];
+  // copies of chunk u into stage u % kStages, one commit group per chunk
+  // (empty past the end, so wait_group counts stay uniform)
+  auto issue = [&](int u) {
+    if (u < n) {
+      const int j0 = first + u * kTileS;
+      T* dk = ring + (u % kStages) * 2 * P::kChunkElems;
+      T* dv = dk + P::kChunkElems;
+      long row_off = 0;  // paged: offset of row lane % kChunk of this chunk
+      if constexpr (Rows::kPaged) {
+        const int j = j0 + (lane & (kChunk - 1));
+        if (j < S) row_off = rows.offset(pg, j);
+        const int jn = j + kTileS;
+        pg = u + 1 < n && jn < S ? rows.page(jn) : 0;
+      }
 #pragma unroll
-    for (int i = 0; i < kSRows; ++i) dot[i] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < HD; d += 4) {
-      const float k0 = sm.k[sj][d], k1 = sm.k[sj][d + 1];
-      const float k2 = sm.k[sj][d + 2], k3 = sm.k[sj][d + 3];
+      for (int c = 0; c < kCopies; ++c) {
+        const int i = lane + 32 * c;
+        const int r = i / VPR;
+        const int pc = i % VPR;
+        const int j = j0 + r;
+        long o;
+        if constexpr (Rows::kPaged) {
+          o = __shfl_sync(0xffffffffu, row_off, r);
+        } else {
+          o = (long)j * rows.stride;
+        }
+        const bool in = j < S;
+        const int dst = r * HD + swizzle<VPR>(r, pc) * VW;
+        const long src = (in ? o : 0) + pc * VW;
+        cp_async16(dk + dst, kbase + src, in ? 16 : 0);
+        cp_async16(dv + dst, vbase + src, in ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
 #pragma unroll
-      for (int i = 0; i < kSRows; ++i) {
-        if (i < n_srows) {
-          const float4 qv = *reinterpret_cast<const float4*>(&sm.q[sr + i * kSStep][d]);
-          dot[i] = fmaf(qv.x, k0, dot[i]);
-          dot[i] = fmaf(qv.y, k1, dot[i]);
-          dot[i] = fmaf(qv.z, k2, dot[i]);
-          dot[i] = fmaf(qv.w, k3, dot[i]);
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  // the caller's q copies, the group committed before these, landed: make
+  // them visible to every warp
+  cp_async_wait<kStages - 1>();
+  __syncthreads();
+
+  const int key = lane & (kChunk - 1);  // scores: this lane's key of a chunk
+  const int part = lane >> 3;           // ... and its quarter of the head dim
+  const int kg = lane / kLPR;           // P @ V: this lane's key group
+  const int dq = lane % kLPR;           // ... and its 4 dims
+  for (int u = 0; u < n; ++u) {
+    issue(u + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    __syncwarp();  // chunk u landed for every lane of the warp
+    const T* tk = ring + (u % kStages) * 2 * P::kChunkElems;
+    const T* tv = tk + P::kChunkElems;
+
+    // q . k over this lane's part of the head dim, then across the parts
+    float dot[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) dot[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) {
+      const int pc = part * kQ + i;
+      float kf[VW];
+      load_piece(tk + key * HD + swizzle<VPR>(key, pc) * VW, kf);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r < G) {
+          float qf[VW];
+          load_piece(qs + r * HD + pc * VW, qf);
+#pragma unroll
+          for (int e = 0; e < VW; ++e) dot[r] = fmaf(qf[e], kf[e], dot[r]);
         }
       }
     }
-    const int kv = s0 + sj;
+    // this lane's V values: keys kg + kKG * t of the chunk, dims 4 * dq ..
+    float4 vf[kKeysPerGroup];
 #pragma unroll
-    for (int i = 0; i < kSRows; ++i) {
-      if (i < n_srows) {
-        const int r = sr + i * kSStep;
-        const int qp = sm.qpos[r];
-        const bool seen = kv <= qp && (window <= 0 || kv > qp - window);
-        sm.p[r][sj] = seen ? dot[i] * scale : kNegInf;
-      }
+    for (int t = 0; t < kKeysPerGroup; ++t) {
+      const int jr = kg + kKG * t;
+      const int d = 4 * dq;  // logical element; its piece is d / VW
+      vf[t] = load4(tv + jr * HD + swizzle<VPR>(jr, d / VW) * VW + d % VW);
     }
-    __syncthreads();
-
-    // running max / sum update, one warp per row; keys past the cache
-    // (j >= jmax) take no part and get p = 0
-    for (int r = warp; r < nrows; r += kWarps) {
-      float sv[kTileS / 32];
-      float mt = kNegInf;
+    const int kv = first + u * kTileS + key;
+    const bool live = kv < S;
+    const bool seen = kv <= qpos && (window <= 0 || kv > qpos - window);
 #pragma unroll
-      for (int u = 0; u < kTileS / 32; ++u) {
-        const int j = lane + 32 * u;
-        sv[u] = sm.p[r][j];
-        if (j < jmax) mt = fmaxf(mt, sv[u]);
-      }
-      mt = warp_max(mt);
-      const float m_old = sm.m[r];
-      const float m_new = fmaxf(m_old, mt);
-      float sum = 0.f;
+    for (int r = 0; r < kRows; ++r) {
+      if (r < G) {
+        float d = dot[r];
+        d += __shfl_xor_sync(0xffffffffu, d, 8);
+        d += __shfl_xor_sync(0xffffffffu, d, 16);
+        // keys past the cache score -1e30 in the max (no effect) and get p 0
+        const float s = live && seen ? d * scale : kNegInf;
+        float mt = s;
 #pragma unroll
-      for (int u = 0; u < kTileS / 32; ++u) {
-        const int j = lane + 32 * u;
-        const float e = j < jmax ? expf(sv[u] - m_new) : 0.f;
-        sm.p[r][j] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float a = expf(m_old - m_new);
-        sm.alpha[r] = a;
-        sm.l[r] = a * sm.l[r] + sum;
-        sm.m[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = alpha * acc + p @ V over the whole tile (p = 0 and V rows = 0
-    // past the cache); p rows read 4 keys at a time
+        for (int o = 1; o < kChunk; o <<= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+        const float m_new = fmaxf(m[r], mt);
+        const float p = live ? expf(s - m_new) : 0.f;
+        float sum = p;
 #pragma unroll
-    for (int i = 0; i < kORows; ++i) {
-      if (i < n_orows) acc[i] *= sm.alpha[orow + i * kOStep];
-    }
-#pragma unroll 2
-    for (int j = 0; j < kTileS; j += 4) {
-      const float v0 = sm.v[j][od], v1 = sm.v[j + 1][od];
-      const float v2 = sm.v[j + 2][od], v3 = sm.v[j + 3][od];
+        for (int o = 1; o < kChunk; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        const float a = expf(m[r] - m_new);
+        l[r] = a * l[r] + sum;
+        m[r] = m_new;
+        float4 o4 = make_float4(acc[r][0] * a, acc[r][1] * a, acc[r][2] * a, acc[r][3] * a);
 #pragma unroll
-      for (int i = 0; i < kORows; ++i) {
-        if (i < n_orows) {
-          const float4 pv = *reinterpret_cast<const float4*>(&sm.p[orow + i * kOStep][j]);
-          acc[i] = fmaf(pv.x, v0, acc[i]);
-          acc[i] = fmaf(pv.y, v1, acc[i]);
-          acc[i] = fmaf(pv.z, v2, acc[i]);
-          acc[i] = fmaf(pv.w, v3, acc[i]);
+        for (int t = 0; t < kKeysPerGroup; ++t) {
+          const float pj = __shfl_sync(0xffffffffu, p, kg + kKG * t);
+          o4.x = fmaf(pj, vf[t].x, o4.x);
+          o4.y = fmaf(pj, vf[t].y, o4.y);
+          o4.z = fmaf(pj, vf[t].z, o4.z);
+          o4.w = fmaf(pj, vf[t].w, o4.w);
         }
+        acc[r][0] = o4.x;
+        acc[r][1] = o4.y;
+        acc[r][2] = o4.z;
+        acc[r][3] = o4.w;
       }
     }
-    if constexpr (Rows::kPaged) {
-      const int jn = s0 + kTileS + tid;
-      if (t + 1 < t_end && tid < kTileS && jn < S) {
-        sm.off[(t + 1) & 1][tid] = rows.offset(next_page, jn);
+    __syncwarp();  // every lane is done with stage u before it is refilled
+  }
+
+  // sum the key groups' accumulators (same m and l in every lane)
+#pragma unroll
+  for (int o = kLPR; o < 32; o <<= 1) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r < G) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], o);
       }
     }
-    __syncthreads();  // the next tile overwrites k, v and p, and reads off
   }
 }
 

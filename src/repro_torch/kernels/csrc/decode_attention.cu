@@ -13,28 +13,48 @@
 // pos[b] once and does 4 * G * HD flops per key row of 2 * HD elements, i.e.
 // G / 2 flops per byte in f32 (G in bf16) -- far below the card's 20 f32
 // flops per byte (67 TFLOP/s over 3.35 TB/s), so the floor is
-// (K/V bytes up to pos, plus the table when paged) / 3.35 TB/s.
+// (K/V bytes up to pos, plus the table when paged) / 3.35 TB/s. Tensor cores
+// would not move that floor, so the products stay on the CUDA cores; TMA is
+// not used because a tensor map cannot follow a block table row by row.
 //
-// Design against that bound:
-//  * Only the tiles holding visible keys are read: a block starts at the
-//    window's first tile and stops at the tile holding pos[b] (exact, see
+// What held the earlier body (one 4-warp block loading a 64-key tile through
+// registers, then scores, softmax and P @ V, each phase behind a block
+// barrier) was latency: nothing was in flight while a tile computed, and at
+// G = 1 half the threads scored nothing and three warps of four sat out the
+// softmax. This design:
+//  * Only the tiles holding visible keys are read: a slot's blocks start at
+//    the window's first tile and stop at the tile holding pos[b] (exact, see
 //    key_range in attention_tile.cuh). Ragged slots read only their prefix;
 //    paged, the pages past pos are never touched.
-//  * The TPU walks S sequentially in one grid row; here S is split
-//    (flash-decoding): grid (nsplit, KVH, B), each block runs the online
-//    softmax over its share of the visible tiles and writes a partial
-//    (max, sum, acc). At B = 4, KVH = 16 a grid of (b, h) alone is 64 blocks
-//    for 132 SMs; the wrapper picks nsplit so about two blocks land on every
-//    SM. A second, small kernel merges the partials:
-//      M = max_i m_i,  out = sum_i e^{m_i - M} acc_i / max(sum_i e^{m_i - M} l_i, 1e-30).
-//    Paged, the splits are taken over the logical key range, as dense.
-//  * All G query heads of a KV head share one pass over its K/V tiles.
-//  * Tiles land in shared memory through 16-byte coalesced loads and are
-//    widened to f32 there; all arithmetic is f32 FMAs on the CUDA cores
-//    (no tensor cores: at G <= 16 rows the product is too skinny to pay).
-//    Paged, each tile's 64 rows are found through the table once, into
-//    shared memory, while the tile before computes (attend_tiles), so a
-//    64-key tile may span several pages of any block size.
+//  * The visible tiles (kTileS keys) of each (b, h) are split into nsplit
+//    near-equal runs, on the device from pos (decode_split): grid
+//    (nsplit, KVH, B), so the split needs no host sync. An empty split
+//    returns at once and writes nothing; the merge knows from pos which
+//    splits had tiles. The wrapper picks nsplit from the shapes and from how
+//    many blocks of this kernel an SM holds (decode_geometry).
+//  * Inside a block each warp streams its own chunk of every tile through
+//    its own cp.async ring and runs its own online softmax with all 32
+//    lanes (attend_chunks in attention_tile.cuh); no block barrier inside
+//    the tile loop. At the end the block merges its warps' (m, l, acc) once
+//    and writes one partial per split. Paged, each lane resolves one row of
+//    its warp's next chunk through the table one issue ahead of the copies.
+//  * All G query heads of a KV head share one pass over its K/V chunks.
+//  * The merge is a second kernel with one warp per (row, KV head, slot):
+//    lanes read the splits' (m, l) once each, lanes over HD sum the
+//    weighted accumulators,
+//      M = max_s m_s,  out = sum_s e^{m_s - M} acc_s / max(sum_s e^{m_s - M} l_s, 1e-30).
+//    A split whose keys are all masked for a row has m = -1e30: weight 0
+//    once another split saw a key, and 1 everywhere for a row that sees no
+//    key, which so averages all S rows, as the reference does.
+//
+// What holds it now (H100, OLMo-1B's decode shape; scripts/decode_probe.py):
+// a call takes a little over twice the byte bound. The partial kernel alone
+// runs at about 60 % of the bound; the rest is the merge (its read of pos,
+// then of the partials, ~2.5 us) and the gap between the two launches.
+// Launching the merge as a programmatic dependent of the partial kernel hid
+// 1-2 us of that gap in CUDA-graph replays, but folds its wait into the
+// merge's own device time; it is left for the CUDA-graph capture of the
+// serving tick.
 #include "attention_tile.cuh"
 
 using namespace attn;
@@ -52,120 +72,254 @@ struct Layout {
   int nb;
 };
 
+// The tiles split `split` of `nsplit` walks for a slot at pos p:
+// [t_begin, t_end) in units of kTileS keys (empty when t_begin >= t_end),
+// and how many of the nsplit splits hold tiles (they are filled in order).
+// The partial and combine kernels both call it, so they agree.
+__device__ __forceinline__ int decode_split(int p, int S, int window, int nsplit, int split,
+                                            int* t_begin, int* t_end) {
+  int lo, hi;
+  key_range(p, p, S, window, &lo, &hi);
+  const int t_lo = lo / kTileS;
+  const int ntiles = hi / kTileS - t_lo + 1;
+  const int per = (ntiles + nsplit - 1) / nsplit;
+  *t_begin = t_lo + split * per;
+  *t_end = min(t_lo + ntiles, *t_begin + per);
+  return (ntiles + per - 1) / per;
+}
+
+// One split of the visible key tiles of (slot b, KV head h) for its G query
+// rows: the online softmax over tiles [t_begin, t_end), written as partial
+// (m, l) to part_ml (B, KVH, nsplit, kRows, 2) and the unnormalised
+// accumulator to part_acc (B, KVH, nsplit, kRows, HD).
 template <typename T, int HD, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ pos,
                       float* __restrict__ part_ml, float* __restrict__ part_acc, Layout lay,
                       int KVH, int G, int window, float scale) {
-  extern __shared__ float4 smem_raw[];
-  Smem<HD>& sm = *reinterpret_cast<Smem<HD>*>(smem_raw);
+  using P = DecodePlan<T, HD>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);                                   // [kRows][HD]
+  T* rings = reinterpret_cast<T*>(smem + P::kQBytes);                   // per warp
+  float* wacc = reinterpret_cast<float*>(smem + P::kQBytes);            // aliases the rings
+  float* wm = reinterpret_cast<float*>(smem + P::kQBytes + P::kShared);  // [kWarps][kRows]
+  float* wl = wm + kWarps * kRows;
   const int split = blockIdx.x;
   const int nsplit = gridDim.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int p = pos[b];
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const int S = lay.S;
 
-  // q is (B, 1, KVH * G, HD): the G heads of group h are contiguous
+  // q is (B, 1, KVH * G, HD): the G heads of group h are contiguous. Its
+  // copies go out before pos is read, so the two latencies overlap; the
+  // first K/V copies go out before q is waited for (attend_chunks).
   const T* qb = q + ((long)b * KVH + h) * G * HD;
-  for (int i = tid; i < kRows * HD; i += kThreads) {
-    const int r = i / HD;
-    sm.q[r][i % HD] = r < G ? to_float(qb[i]) : 0.f;
+  for (int i = tid; i < G * P::VPR; i += kThreads) cp_async16(qs + i * P::VW, qb + i * P::VW, 16);
+  cp_async_commit();
+  const int p = pos[b];
+  int t_begin, t_end;
+  decode_split(p, S, window, nsplit, split, &t_begin, &t_end);
+  if (t_begin >= t_end) {  // an empty split: the merge skips it
+    cp_async_wait<0>();
+    return;
   }
-  if (tid < kRows) {
-    sm.m[tid] = kNegInf;
-    sm.l[tid] = 0.f;
-    sm.qpos[tid] = p;
-  }
-  int lo, hi;
-  key_range(p, p, S, window, &lo, &hi);
-  const int t_lo = lo / kTileS;
-  const int ntiles = hi / kTileS - t_lo + 1;
-  const int per = (ntiles + nsplit - 1) / nsplit;
-  const int t_begin = t_lo + split * per;
-  const int t_end = min(t_lo + ntiles, t_begin + per);  // empty split: no tiles
-  __syncthreads();
 
-  float acc[kRows * HD / kThreads];
-#pragma unroll
-  for (int i = 0; i < kRows * HD / kThreads; ++i) acc[i] = 0.f;
+  float m[kRows], l[kRows], acc[kRows][4];
+  T* ring = rings + warp * P::kWarpRingElems;
   const long stride = (long)KVH * HD;
   if constexpr (PAGED) {
-    const int* tb = lay.table + (long)b * lay.mb;
-    const PagedRows rows{stride, tb, lay.bs, lay.nb};
-    attend_tiles<T, HD>(sm, k + (long)h * HD, v + (long)h * HD, rows, S, G, t_begin, t_end,
-                        window, scale, acc);
+    const PagedRows rows{stride, lay.table + (long)b * lay.mb, lay.bs, lay.nb};
+    attend_chunks<T, HD>(ring, qs, k + (long)h * HD, v + (long)h * HD, rows, S, G, t_begin,
+                         t_end, p, window, scale, m, l, acc);
   } else {
     const long head0 = (long)b * S * stride + (long)h * HD;
     const DenseRows rows{stride};
-    attend_tiles<T, HD>(sm, k + head0, v + head0, rows, S, G, t_begin, t_end, window, scale,
-                        acc);
+    attend_chunks<T, HD>(ring, qs, k + head0, v + head0, rows, S, G, t_begin, t_end, p, window,
+                         scale, m, l, acc);
+  }
+  cp_async_wait<0>();  // only empty groups remain; the rings become wacc
+  __syncthreads();
+
+  // each warp's partial into shared memory, then one merge over the warps
+  constexpr int kLPR = HD / 4;
+  if (lane < kLPR) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r < G) {
+        *reinterpret_cast<float4*>(wacc + (warp * kRows + r) * HD + 4 * lane) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      }
+    }
+  }
+  if (lane == 0) {  // m and l are the same in every lane
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r < G) {
+        wm[warp * kRows + r] = m[r];
+        wl[warp * kRows + r] = l[r];
+      }
+    }
   }
   __syncthreads();
 
-  // partials of slot (b, h, split): rows padded to kRows
   const long part = ((long)b * KVH + h) * nsplit + split;
-  if (tid < G) {
-    part_ml[(part * kRows + tid) * 2 + 0] = sm.m[tid];
-    part_ml[(part * kRows + tid) * 2 + 1] = sm.l[tid];
-  }
-  constexpr int kOStep = kThreads / HD;
+  for (int i = tid; i < G * kLPR; i += kThreads) {
+    const int r = i / kLPR;
+    const int d = 4 * (i % kLPR);
+    float mx = kNegInf;
 #pragma unroll
-  for (int i = 0; i < kRows * HD / kThreads; ++i) {
-    const int r = tid / HD + i * kOStep;
-    if (r < G) part_acc[(part * kRows + r) * HD + tid % HD] = acc[i];
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w * kRows + r]);
+    float ls = 0.f;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float e = expf(wm[w * kRows + r] - mx);
+      ls = fmaf(e, wl[w * kRows + r], ls);
+      const float4 a = *reinterpret_cast<const float4*>(wacc + (w * kRows + r) * HD + d);
+      o.x = fmaf(e, a.x, o.x);
+      o.y = fmaf(e, a.y, o.y);
+      o.z = fmaf(e, a.z, o.z);
+      o.w = fmaf(e, a.w, o.w);
+    }
+    *reinterpret_cast<float4*>(part_acc + (part * kRows + r) * HD + d) = o;
+    if (d == 0) *reinterpret_cast<float2*>(part_ml + (part * kRows + r) * 2) = make_float2(mx, ls);
   }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-decode_combine_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
-                      T* __restrict__ out, int KVH, int G, int nsplit) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const long part0 = ((long)b * KVH + h) * nsplit;
-  for (int i = threadIdx.x; i < G * HD; i += kThreads) {
-    const int r = i / HD;
-    const int d = i % HD;
-    float mx = kNegInf;
-    for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, part_ml[((part0 + s) * kRows + r) * 2]);
-    float l = 0.f;
-    float o = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const long pr = (part0 + s) * kRows + r;
-      const float w = expf(part_ml[pr * 2] - mx);
-      l = fmaf(w, part_ml[pr * 2 + 1], l);
-      o = fmaf(w, part_acc[pr * HD + d], o);
-    }
-    // out is (B, 1, KVH * G, HD), like q
-    store(out + (((long)b * KVH + h) * G + r) * HD + d, o / fmaxf(l, 1e-30f));
+// kPer consecutive floats of global memory (kPer = 1, 2 or 4).
+template <int kPer>
+__device__ __forceinline__ void load_floats(const float* src, float (&x)[kPer]) {
+  if constexpr (kPer == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(src);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  } else if constexpr (kPer == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(src);
+    x[0] = a.x; x[1] = a.y;
+  } else {
+    x[0] = *src;
   }
+}
+
+// Merge of the splits that had tiles: one warp per (row r, KV head h, slot
+// b), grid (G, KVH, B). Lane s holds split s's (m, l) (32 splits at a time,
+// each read once) and its weight e^{m_s - M}; every lane sums the weighted
+// accumulators over its HD / 32 dims. The (m, l) of the first 32 splits
+// and the accumulators of the first kBatch are loaded together with pos,
+// before the number of splits that had tiles is known: a split past them
+// holds no partial, so its values are read (the scratch is nsplit long) but
+// never used. Later loads take only the splits that had tiles. Writes out
+// (B, 1, KVH * G, HD).
+template <typename T, int HD>
+__global__ void __launch_bounds__(32)
+decode_combine_kernel(const int* __restrict__ pos, const float* __restrict__ part_ml,
+                      const float* __restrict__ part_acc, T* __restrict__ out, int S, int KVH,
+                      int G, int window, int nsplit) {
+  constexpr int kPer = HD / 32;
+  constexpr int kBatch = 16;  // splits whose accumulators are in flight at once
+  const int r = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int lane = threadIdx.x;
+  const int p = pos[b];
+  const long part0 = ((long)b * KVH + h) * nsplit;
+  const float* ml0 = part_ml + (part0 * kRows + r) * 2;                // split s: + s * kRows * 2
+  const float* acc0 = part_acc + (part0 * kRows + r) * HD + lane * kPer;  // + s * kRows * HD
+  float mx = kNegInf;
+  float ls = 0.f;
+  float o[kPer];
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) o[e] = 0.f;
+  int used = -1;
+  for (int s0 = 0; s0 < nsplit; s0 += 32) {
+    const int n = min(32, nsplit - s0);
+    float2 ml = make_float2(kNegInf, 0.f);
+    if (lane < n) ml = *reinterpret_cast<const float2*>(ml0 + (long)(s0 + lane) * kRows * 2);
+    for (int b0 = 0; b0 < n; b0 += kBatch) {
+      // the first batch is loaded before `used` is known; later ones only
+      // where splits had tiles
+      const int nload = used < 0 ? n : min(max(used - s0, 0), n);
+      if (b0 >= nload) break;
+      float x[kBatch][kPer];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        if (b0 + i < nload) load_floats<kPer>(acc0 + (long)(s0 + b0 + i) * kRows * HD, x[i]);
+      }
+      if (used < 0) {  // once, after the first loads are out
+        int tb, te;
+        used = decode_split(p, S, window, nsplit, 0, &tb, &te);
+      }
+      const int nu = min(max(used - s0, 0), n);  // splits of this group that had tiles
+      if (b0 == 0) {
+        if (lane >= nu) ml = make_float2(kNegInf, 0.f);
+        const float m_new = fmaxf(mx, warp_max(ml.x));
+        const float a = expf(mx - m_new);  // rescales the earlier groups of 32
+        ml.x = lane < nu ? expf(ml.x - m_new) : 0.f;  // now the split's weight
+        ls = a * ls + warp_sum(ml.x * ml.y);
+#pragma unroll
+        for (int e = 0; e < kPer; ++e) o[e] *= a;
+        mx = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int sl = b0 + i;  // < 32
+        const float w = __shfl_sync(0xffffffffu, ml.x, sl & 31);
+        if (sl < nu) {
+#pragma unroll
+          for (int e = 0; e < kPer; ++e) o[e] = fmaf(w, x[i][e], o[e]);
+        }
+      }
+    }
+  }
+  const float den = fmaxf(ls, 1e-30f);
+  T* dst = out + (((long)b * KVH + h) * G + r) * HD + lane * kPer;
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) store(dst + e, o[e] / den);
+}
+
+// Opt the partial kernel into its shared memory once per instantiation.
+template <typename T, int HD, bool PAGED>
+cudaError_t prepare() {
+  static bool done = false;
+  if (!done) {
+    const cudaError_t e = cudaFuncSetAttribute(decode_partial_kernel<T, HD, PAGED>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               DecodePlan<T, HD>::kBytes);
+    if (e != cudaSuccess) return e;
+    done = true;
+  }
+  return cudaSuccess;
 }
 
 template <typename T, int HD, bool PAGED>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* pos, void* out,
                    void* part_ml, void* part_acc, int B, const Layout& lay, int KVH, int G,
                    int window, int nsplit, float scale, cudaStream_t stream) {
-  const int smem = (int)sizeof(Smem<HD>);
-  static bool smem_set = false;  // one opt-in per instantiation
-  if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(decode_partial_kernel<T, HD, PAGED>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    smem_set = true;
-  }
-  decode_partial_kernel<T, HD, PAGED><<<dim3(nsplit, KVH, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(pos), static_cast<float*>(part_ml),
-      static_cast<float*>(part_acc), lay, KVH, G, window, scale);
-  const cudaError_t e = cudaGetLastError();
+  cudaError_t e = prepare<T, HD, PAGED>();
   if (e != cudaSuccess) return e;
-  decode_combine_kernel<T, HD><<<dim3(KVH, B), kThreads, 0, stream>>>(
-      static_cast<const float*>(part_ml), static_cast<const float*>(part_acc),
-      static_cast<T*>(out), KVH, G, nsplit);
+  decode_partial_kernel<T, HD, PAGED>
+      <<<dim3(nsplit, KVH, B), kThreads, DecodePlan<T, HD>::kBytes, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<const int*>(pos), static_cast<float*>(part_ml),
+          static_cast<float*>(part_acc), lay, KVH, G, window, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  decode_combine_kernel<T, HD><<<dim3(G, KVH, B), 32, 0, stream>>>(
+      static_cast<const int*>(pos), static_cast<const float*>(part_ml),
+      static_cast<const float*>(part_acc), static_cast<T*>(out), lay.S, KVH, G, window, nsplit);
   return cudaGetLastError();
+}
+
+// Blocks of the partial kernel one SM holds (shared memory, registers).
+template <typename T, int HD, bool PAGED>
+cudaError_t blocks_per_sm(int* n) {
+  const cudaError_t e = prepare<T, HD, PAGED>();
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, decode_partial_kernel<T, HD, PAGED>,
+                                                       kThreads, DecodePlan<T, HD>::kBytes);
 }
 
 template <bool PAGED>
@@ -202,6 +356,31 @@ int dispatch(int dtype, int HD, const void* q, const void* k, const void* v, con
 // part_ml: (B, KVH, nsplit, 16, 2) f32, part_acc: (B, KVH, nsplit, 16, HD) f32
 // scratch. window <= 0 means no sliding window. Each returns the cudaError_t
 // of its launches (0 on success); the kernels run asynchronously on `stream`.
+
+// The split geometry of a dtype and head dim: keys per tile (the unit the
+// split divides) and blocks of the partial kernel one SM holds.
+extern "C" int decode_geometry(int dtype, int HD, int paged, int* tile_keys,
+                               int* blocks_per_sm_out) {
+  *tile_keys = kTileS;
+#define GEOMETRY_CASE(TYPE, DIM)                                                    \
+  return (int)(paged ? blocks_per_sm<TYPE, DIM, true>(blocks_per_sm_out)           \
+                     : blocks_per_sm<TYPE, DIM, false>(blocks_per_sm_out))
+  if (dtype == 0) {
+    switch (HD) {
+      case 32: GEOMETRY_CASE(float, 32);
+      case 64: GEOMETRY_CASE(float, 64);
+      case 128: GEOMETRY_CASE(float, 128);
+    }
+  } else if (dtype == 1) {
+    switch (HD) {
+      case 32: GEOMETRY_CASE(__nv_bfloat16, 32);
+      case 64: GEOMETRY_CASE(__nv_bfloat16, 64);
+      case 128: GEOMETRY_CASE(__nv_bfloat16, 128);
+    }
+  }
+#undef GEOMETRY_CASE
+  return (int)cudaErrorInvalidValue;
+}
 
 // Dense: q and out (B, 1, KVH * G, HD); k and v (B, S, KVH, HD); pos (B,).
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,

@@ -68,6 +68,9 @@
 #include "attention_tile.cuh"
 
 using attn::kNegInf;
+using attn::cp_async16;
+using attn::cp_async_commit;
+using attn::cp_async_wait;
 using attn::key_range;
 using attn::PagedRows;
 using attn::store;
@@ -138,24 +141,6 @@ struct Plan {
 };
 
 // ------------------------------------------------------------ primitives
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; src_bytes 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // x rounded to TF32 (10 mantissa bits), to nearest with ties away from
 // zero: cvt.rna.tf32.f32's result for every finite x (and inf stays inf),
 // in two integer operations where the cvt expands to six with its NaN/inf

@@ -8,12 +8,16 @@ The graph-mix kernel against its plain version: ragged m and d (vector and
 scalar loads), NaN beyond the operands' ends, float32 (atol 1e-4, rtol
 1e-5) and bfloat16 (atol = rtol = 1e-2 against the f32 plain result
 rounded to bf16), one launch per dtype group of a tree, and its refusals.
-The dense and paged flash-prefill kernels against their plain versions at
-forced split counts (1, 3 and the wrapper's own), at C * G of 3, 32, 128,
-160 and 200 (a ragged m16 tile, rows over several m16 tiles, several row
-tiles), with a window, a slot at pos 0 beside one at 992, a row that sees
-no key, and, paged, block sizes 8 and 16 with a poisoned null block and
-out-of-pool ids.
+The dense and paged flash-decode kernels against their plain versions at
+forced split counts (1, 3, one per key tile and the wrapper's own), at the
+decode shapes above, multitask-LM's (G 4, hd 64) and S 2048 (64 splits,
+merged in two groups), a stale position, block sizes 8 and 16 with
+out-of-pool ids. The dense and paged flash-prefill kernels against their
+plain versions at forced split counts (1, 3 and the wrapper's own), at C * G
+of 3, 32, 128, 160 and 200 (a ragged m16 tile, rows over several m16 tiles,
+several row tiles), with a window, a slot at pos 0 beside one at 992, a row
+that sees no key, and, paged, block sizes 8 and 16 with a poisoned null
+block and out-of-pool ids.
 
 Every test here needs a CUDA device and skips without one; the file imports
 no JAX, so it runs on a machine that has only the port's dependencies:
@@ -134,6 +138,64 @@ def test_prefill_kernels_match_plain_versions_at_forced_splits(dtype, nsplit, bl
         err = (got.float().cpu() - want.float()).abs().max().item()
         assert torch.isfinite(got.float()).all()
         assert err <= TOL[dtype], (b, s, kvh, g, hd, c, pos, window, block, n, err)
+
+
+# (B, S logical rows, KVH, G, hd, pos, window): the decode cases of
+# test_paged_kernels_match_plain_versions (OLMo-1B; Qwen2.5-14B with a
+# window; a stale pos 396 whose slot sees no key), multitask-LM's decode
+# shape (G 4, hd 64), and S 2048, whose 64 tiles the merge takes in two
+# groups of 32 splits
+_DECODE_CASES = [
+    (4, 1024, 16, 1, 128, [63, 300, 700, 1023], None),
+    (4, 1024, 8, 5, 128, [0, 513, 64, 1000], 256),
+    (3, 96, 2, 4, 64, [96 + 300, 40, 95], 16),
+    (4, 1024, 4, 4, 64, [63, 300, 700, 1023], None),
+    (2, 2048, 2, 3, 64, [2047, 1500], None),  # "largest": 64 splits, two groups of 32 to merge
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nsplit", [1, 3, "largest", None])
+@pytest.mark.parametrize("block", [None, 8, 16])
+def test_decode_kernels_match_plain_versions_at_forced_splits(dtype, nsplit, block):
+    """Through the private launch helper at a forced split count
+    ("largest": one split per key tile; None: the wrapper's own choice):
+    empty splits, splits whose keys are all masked, and a slot that sees no
+    key at all must merge to the plain version's answer, dense and paged
+    (poisoned null block, out-of-pool ids)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for b, s, kvh, g, hd, pos, window in _DECODE_CASES:
+        if block is None:
+            q = torch.randn((b, 1, kvh * g, hd), generator=gen, device=dev).to(dt)
+            k = torch.randn((b, s, kvh, hd), generator=gen, device=dev).to(dt)
+            v = torch.randn((b, s, kvh, hd), generator=gen, device=dev).to(dt)
+            table = None
+        else:
+            q, k, v, table = _paged_case(gen, dev, dt, b, s // block, block, kvh, g, hd, 1)
+            table[-1, 0] = k.shape[0] + 5  # out of the pool: clamped to the last block
+            table[0, 0] = -3  # clamped to the null block
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+        if nsplit == "largest":
+            n = -(-s // dec_ops.geometry(dt, hd, block is not None)[0])
+        else:
+            n = nsplit or dec_ops.num_splits(q, kvh, s, paged=block is not None)
+        got = dec_ops._launch(q, k, v, table, runtime.pos_vector(pos_t, b, dev),
+                              runtime.window_arg(window), n)
+        torch.cuda.synchronize()
+        if table is None:
+            want = dec_ops.decode_attention(q.cpu(), k.cpu(), v.cpu(), pos_t.cpu(),
+                                            window=window)
+        else:
+            want = dec_ops.paged_decode_attention(q.cpu(), k.cpu(), v.cpu(), table.cpu(),
+                                                  pos_t.cpu(), window=window)
+        err = (got.float().cpu() - want.float()).abs().max().item()
+        assert torch.isfinite(got.float()).all()
+        assert err <= TOL[dtype], (b, s, kvh, g, hd, pos, window, block, n, err)
 
 
 @pytest.mark.cuda

@@ -35,18 +35,27 @@ Phases; each raises on failure, and then no result line is printed:
   3. serve    — OLMo-1B at full width (f32, random weights from seed 0, one
                 model for every serve phase) through ServeEngine.generate:
                 6 requests with ragged 64..700-token prompts over 4 slots,
-                16 new tokens each, on the dense cache. Launch counters,
-                zeroed just before, must show 16 kernel launches per
-                dispatch. The same requests through the plain attention
-                path must give the same greedy tokens (a request's
+                16 new tokens each, on the dense cache, each decode tick and
+                prefill chunk one CUDA-graph replay (the default). Launch
+                counters, zeroed just before, must show 16 kernel launches
+                per dispatch, plus 16 for the one warm-up run of each step
+                before its capture (replays add what their capture
+                recorded). The same requests with cuda_graphs=False must
+                give identical greedy tokens, and every logits row a
+                sampler sees within 1e-5 of the eager one (dense and
+                paged phases), and through the plain
+                attention path (eager) the same greedy tokens (a request's
                 comparison ends at the first step whose plain top-2 logit
-                margin is below 1e-3). Smoke configs on the card must match
-                a CPU run within 1e-4 (logits), dense and paged.
+                margin is below 1e-3). Every serve phase logs its capture
+                time, its eager rates and torch.cuda.memory_allocated()
+                after it. Smoke configs on the card must match a CPU run
+                within 1e-4 (logits), dense and paged.
   4. paged    — the same 6 requests over a paged pool of 1024 tokens, a
                 quarter of the dense cache (PagingSpec.sized(16, 1024,
                 1024)): admission must wait on blocks at least once; 16 paged-kernel launches per
-                dispatch; greedy parity with the plain path (same paging)
-                and with the dense phase's tokens under the margin rule.
+                dispatch (and per warm-up); graph tokens == eager tokens;
+                greedy parity with the plain path (same paging) and with
+                the dense phase's tokens under the margin rule.
   5. prefix   — 8 requests sharing one 500-token system prompt, distinct
                 40..200-token tails, 16 new tokens each, 4 slots, paged pool
                 of 4096 tokens with the prefix cache: the second admission
@@ -54,12 +63,18 @@ Phases; each raises on failure, and then no result line is printed:
                 the partly shared 32nd block. Prints the hit ratio, the COW
                 count and the prefill tokens saved against the same
                 requests without the cache; fails if either is 0, on launch
-                counts, or on greedy parity with the plain path and with
-                the no-cache run.
+                counts, on graph tokens != eager tokens, or on greedy
+                parity with the plain path and with the no-cache run.
   6. profile  — host wall time of a prefill round and of 8 decode ticks at
-                OLMo-1B full width, dense and paged, against the device
-                time torch.profiler sees, with the top kernels and the
-                attention kernels' device time (measurement only).
+                OLMo-1B full width, dense and paged, with CUDA graphs and
+                eagerly (the graphs captured before the window), against
+                the device time torch.profiler sees, with the top kernels,
+                the attention kernels' executions and device time, and the
+                CUDA API calls the host made (cudaGraphLaunch, kernel
+                launches, copies) per dispatch. Fails if a graph window
+                launches a kernel from the host or does not make one
+                cudaGraphLaunch per dispatch; logs whether the profiler saw
+                16 partial + 16 merge attention kernels per tick.
   7. adapters — multitask-LM at full width (12 layers, d_model 1024, 256
                 tasks, rank 8; f32, random weights from seed 0, dense cache,
                 4 slots) serving 8 requests of 8 tasks (ids 0..255, prompts
@@ -67,7 +82,9 @@ Phases; each raises on failure, and then no result line is printed:
                 TaskAdapterStore over band_graph(256, 2), bsr mixing,
                 randomized factors (scale 1e-2), an update every 2 finishes
                 with delays up to 2. Fails unless: 12 attention launches per
-                dispatch; 10 graph-mix launches counted from the store's
+                dispatch (and per warm-up); the same requests eagerly, under
+                a store built from the same seed, give identical tokens;
+                10 graph-mix launches counted from the store's
                 construction (1 at construction, 1 in randomize, 2 per
                 update); the same greedy tokens as the plain attention path
                 with the plain graph mix (margin rule); a zero store gives
@@ -102,6 +119,7 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32, dense bf16
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MIX_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-2)}  # (atol, rtol)
 MARGIN = 1e-3
+GRAPH_TOL = 1e-5  # step logits, CUDA graphs against eager, f32
 LAYERS = 16  # OLMo-1B: one kernel launch per layer per dispatch
 
 
@@ -442,14 +460,20 @@ def read_counts(ops):
 def check_launches(phase, launches, st, paged, layers=LAYERS, graph_mix=0):
     """One launch of the decode kernel per layer per decode dispatch and of
     the prefill kernel per layer per prefill dispatch, of the layout's
-    kernels only, and ``graph_mix`` launches of the graph-mix kernel."""
+    kernels only, and ``graph_mix`` launches of the graph-mix kernel. With
+    CUDA graphs each step also ran once, every lane dead, before its
+    capture (one more per layer), and each replay counts what its capture
+    recorded: the counts are the kernels the card executed."""
+    if st["captures"] not in (0, 2):
+        raise AssertionError(f"{phase}: {st['captures']} captures, want 0 or 2")
+    warm = st["captures"] // 2  # one warm-up before each step's capture
     pre = "paged_" if paged else ""
     want = {name: 0 for name in COUNTED}
-    want[pre + "decode_attention"] = layers * st["decode_dispatches"]
-    want[pre + "prefill_attention"] = layers * st["prefill_dispatches"]
+    want[pre + "decode_attention"] = layers * (st["decode_dispatches"] + warm)
+    want[pre + "prefill_attention"] = layers * (st["prefill_dispatches"] + warm)
     want["graph_mix"] = graph_mix
     log(f"{phase}: dispatches decode={st['decode_dispatches']} "
-        f"prefill={st['prefill_dispatches']}; launches {launches}")
+        f"prefill={st['prefill_dispatches']}, captures {st['captures']}; launches {launches}")
     if launches != want or min(want[pre + "decode_attention"],
                                want[pre + "prefill_attention"]) == 0:
         raise AssertionError(f"{phase}: kernel launches {launches} != expected {want}")
@@ -483,12 +507,63 @@ def report_rates(phase, st, n_req, new, ttft, wall):
         "decode_tok_s": decode_tokens / st["decode_s"],
         "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
         "ttft_p50_s": statistics.median(ttft), "ttft_max_s": ttft[-1], "wall_s": wall,
+        "capture_s": st["capture_s"],
     }
     log(f"{phase}: decode {rates['decode_tok_s']:.1f} tok/s ({decode_tokens} tokens in "
         f"{st['decode_s']:.3f} s), prefill {rates['prefill_tok_s']:.1f} tok/s "
         f"({st['prefill_tokens']} tokens in {st['prefill_s']:.3f} s), TTFT p50 "
-        f"{rates['ttft_p50_s']:.3f} s max {rates['ttft_max_s']:.3f} s, wall {wall:.3f} s")
+        f"{rates['ttft_p50_s']:.3f} s max {rates['ttft_max_s']:.3f} s, wall {wall:.3f} s; "
+        f"capture {st['capture_s']:.3f} s ({st['captures']} graphs)")
     return rates
+
+
+def eager_parity(torch, phase, engine, prompts, new, ops, toks, task_ids=None):
+    """The same requests through ``engine`` (built with cuda_graphs=False):
+    greedy tokens identical to the graph run's ``toks``, every request;
+    returns the eager run's rates."""
+    etoks, _, ettft, ewall = serve_timed(torch, engine, prompts, new, ops, task_ids)
+    if not (etoks.shape == toks.shape and (etoks == toks).all()):
+        bad = sorted({int(i) for i in (etoks != toks).nonzero()[0]})
+        raise AssertionError(f"{phase}: graph tokens != eager tokens for requests {bad}")
+    log(f"{phase}: CUDA-graph tokens == eager tokens on all {toks.size} greedy tokens")
+    return report_rates(f"{phase} (eager)", engine.last_stats, len(prompts), new, ettft, ewall)
+
+
+def logits_parity(np, phase, model, ContinuousBatcher, Request, prompts, **batcher_kw):
+    """Every logits row every dispatch hands the sampler (greedy), with
+    CUDA graphs against eager, for the same requests: within GRAPH_TOL.
+    Returns the largest absolute difference."""
+    runs = []
+    for graphs in (True, False):
+        rows = {}
+
+        def keep(req, row, rows=rows):
+            rows[(req.uid, len(req.out))] = row.copy()
+            return int(np.argmax(row))
+
+        bt = ContinuousBatcher(model, num_slots=4, max_seq=1024, prefill_chunk=32,
+                               sample_fn=keep, cuda_graphs=graphs, **batcher_kw)
+        for uid, p in enumerate(prompts):
+            bt.submit(Request(uid=uid, tokens=p, max_new=NEW))
+        bt.run()
+        bt.close()
+        runs.append(rows)
+    if runs[0].keys() != runs[1].keys():
+        raise AssertionError(f"{phase}: graph and eager runs sampled different steps")
+    worst = max(float(np.abs(runs[0][k] - runs[1][k]).max()) for k in runs[0])
+    log(f"{phase}: step logits with CUDA graphs vs eager: max abs diff {worst:.3e} over "
+        f"{len(runs[0])} rows of {runs[0][0, 0].size} (limit {GRAPH_TOL})")
+    if not worst <= GRAPH_TOL:
+        raise AssertionError(f"{phase}: graph logits differ from eager by {worst}")
+    return worst
+
+
+def log_memory(torch, phase):
+    """Device memory still allocated after a phase (its batchers, caches
+    and graph pools released): a pool that outlives its batcher shows."""
+    mb = torch.cuda.memory_allocated() / 1e6
+    log(f"{phase}: torch.cuda.memory_allocated() {mb:.1f} MB after the phase")
+    return mb
 
 
 @contextlib.contextmanager
@@ -516,9 +591,10 @@ def plain_run(np, model, prompts, new, ContinuousBatcher, Request, task_ids=None
         margins.setdefault(req.uid, []).append(float(top2[1] - top2[0]))
         return int(np.argmax(row))
 
-    with plain_backend(model):
+    with plain_backend(model):  # the oracle runs eagerly
         batcher = ContinuousBatcher(model, num_slots=4, max_seq=1024, prefill_chunk=32,
-                                    sample_fn=greedy_with_margin, **batcher_kw)
+                                    sample_fn=greedy_with_margin, cuda_graphs=False,
+                                    **batcher_kw)
         for uid, p in enumerate(prompts):
             tid = 0 if task_ids is None else int(task_ids[uid])
             batcher.submit(Request(uid=uid, tokens=p, max_new=new, task_id=tid))
@@ -559,14 +635,20 @@ def phase_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request, ops):
     cfg = model.cfg
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in SERVE_LENS]
-    engine = ServeEngine(model, max_seq=1024, prefill_chunk=32, num_slots=4)
+    kw = dict(max_seq=1024, prefill_chunk=32, num_slots=4)
+    engine = ServeEngine(model, **kw)
     toks, launches, ttft, wall = serve_timed(torch, engine, prompts, NEW, ops)
     st = engine.last_stats
     check_launches("serve", launches, st, paged=False)
     check_tokens("serve", toks, len(prompts), NEW, cfg.vocab_size)
     rates = report_rates("serve", st, len(prompts), NEW, ttft, wall)
+    rates["eager"] = eager_parity(torch, "serve", ServeEngine(model, cuda_graphs=False, **kw),
+                                  prompts, NEW, ops, toks)
+    rates["logits_diff_graph_vs_eager"] = logits_parity(np, "serve", model, ContinuousBatcher,
+                                                        Request, prompts)
     ref, margins = plain_run(np, model, prompts, NEW, ContinuousBatcher, Request)
     compare("serve", "plain path", toks, ref, margins, NEW)
+    rates["memory_mb"] = log_memory(torch, "serve")
     return {"launches": launches, "tokens": toks, "prompts": prompts, "rates": rates}
 
 
@@ -581,7 +663,8 @@ def phase_paged_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request,
     cfg = model.cfg
     prompts = dense["prompts"]
     spec = PagingSpec.sized(16, 1024, 1024)
-    engine = ServeEngine(model, max_seq=1024, prefill_chunk=32, num_slots=4, paging=spec)
+    kw = dict(max_seq=1024, prefill_chunk=32, num_slots=4, paging=spec)
+    engine = ServeEngine(model, **kw)
     toks, launches, ttft, wall = serve_timed(torch, engine, prompts, NEW, ops)
     st = engine.last_stats
     check_launches("paged", launches, st, paged=True)
@@ -592,10 +675,15 @@ def phase_paged_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request,
         raise AssertionError("paged: no admission waited on blocks")
     rates = report_rates("paged", st, len(prompts), NEW, ttft, wall)
     rates["admission_waits"] = st["admission_waits"]
+    rates["eager"] = eager_parity(torch, "paged", ServeEngine(model, cuda_graphs=False, **kw),
+                                  prompts, NEW, ops, toks)
+    rates["logits_diff_graph_vs_eager"] = logits_parity(np, "paged", model, ContinuousBatcher,
+                                                        Request, prompts, paging=spec)
     ref, margins = plain_run(np, model, prompts, NEW, ContinuousBatcher, Request,
                              paging=spec)
     compare("paged", "plain path (paged)", toks, ref, margins, NEW)
     compare("paged", "dense kernel path", toks, dense["tokens"], margins, NEW)
+    rates["memory_mb"] = log_memory(torch, "paged")
     return {"launches": launches, "rates": rates}
 
 
@@ -613,13 +701,15 @@ def phase_prefix_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request
                for n in tails]
     task_ids = np.zeros(len(prompts), np.int32)
     spec = PagingSpec.sized(16, 1024, 4096)
-    engine = ServeEngine(model, max_seq=1024, prefill_chunk=32, num_slots=4, paging=spec,
-                         prefix_cache=True)
+    kw = dict(max_seq=1024, prefill_chunk=32, num_slots=4, paging=spec, prefix_cache=True)
+    engine = ServeEngine(model, **kw)
     toks, launches, ttft, wall = serve_timed(torch, engine, prompts, NEW, ops, task_ids)
     st, ps = engine.last_stats, engine.last_prefix_stats
     check_launches("prefix", launches, st, paged=True)
     check_tokens("prefix", toks, len(prompts), NEW, cfg.vocab_size)
     rates = report_rates("prefix", st, len(prompts), NEW, ttft, wall)
+    rates["eager"] = eager_parity(torch, "prefix", ServeEngine(model, cuda_graphs=False, **kw),
+                                  prompts, NEW, ops, toks, task_ids)
     # the same requests without the cache: every prompt token computed
     nocache = ServeEngine(model, max_seq=1024, prefill_chunk=32, num_slots=4, paging=spec)
     base_toks, _, base_ttft, base_wall = serve_timed(torch, nocache, prompts, NEW, ops,
@@ -643,6 +733,7 @@ def phase_prefix_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request
                  prefill_tokens=ps["prefill_tokens"],
                  prefill_tokens_no_cache=base["prefill_tokens"],
                  ttft_p50_s_no_cache=statistics.median(base_ttft))
+    rates["memory_mb"] = log_memory(torch, "prefix")
     return {"launches": launches, "rates": rates}
 
 
@@ -666,9 +757,9 @@ def phase_adapters(torch, np, model, ServeEngine, TaskAdapterStore, band_graph, 
     store_kw = dict(mixing="bsr", eta=1.0, tau=1.0, alpha=1.0, update_every=2, max_delay=2,
                     seed=0)
 
-    def engine(store=None):
+    def engine(store=None, cuda_graphs=None):
         return ServeEngine(model, max_seq=1024, prefill_chunk=32, num_slots=4,
-                           adapters=store)
+                           adapters=store, cuda_graphs=cuda_graphs)
 
     # the same requests without a store: the yardstick of the store's cost
     base_eng = engine()
@@ -728,6 +819,14 @@ def phase_adapters(torch, np, model, ServeEngine, TaskAdapterStore, band_graph, 
     log(f"adapters: one more update(), synchronized: {one_update_ms:.2f} ms wall, peak "
         f"{peak_mb:.1f} MB above the {before / 1e6:.1f} MB allocated before it")
 
+    # the same requests eagerly, under a store built and randomized from the
+    # same seed (the graph run's store has since been updated)
+    eager_store = TaskAdapterStore(model, graph, **store_kw)
+    eager_store.randomize(scale=ADAPTER_SCALE)
+    rates["eager"] = eager_parity(torch, "adapters", engine(eager_store, cuda_graphs=False),
+                                  prompts, NEW, ops, toks, task_ids)
+    del eager_store
+
     with plain_backend(model):  # the same store seed, mixed by the plain version
         plain_store = TaskAdapterStore(model, graph, **store_kw)
         plain_store.randomize(scale=ADAPTER_SCALE)
@@ -748,20 +847,25 @@ def phase_adapters(torch, np, model, ServeEngine, TaskAdapterStore, band_graph, 
     log(f"adapters: kernel store raw and serving == plain store's within atol {atol} rtol "
         f"{rtol} (max abs diff {worst:.2e}) after {store.updates} updates each")
 
-    def admitted(with_store):
+    def admitted(with_store, graphs):
         bt = ContinuousBatcher(model, num_slots=4, max_seq=1024, prefill_chunk=32,
-                               adapters=store if with_store else None)
+                               adapters=store if with_store else None, cuda_graphs=graphs)
         for uid in range(4):  # max_new 64: no request finishes, so no update runs
             bt.submit(Request(uid=uid, tokens=prompts[uid], max_new=64,
                               task_id=int(task_ids[uid])))
         return _admitted(bt)
 
+    profiles = {}
     for with_store in (True, False):
-        profile_window(torch, f"8 decode ticks ({'store' if with_store else 'no store'})",
-                       lambda w=with_store: admitted(w), _ticks)
+        name = f"8 decode ticks ({'store' if with_store else 'no store'})"
+        for graphs in (True, False):
+            profiles[profile_key(name, graphs)] = profile_window(
+                torch, name, lambda w=with_store, g=graphs: admitted(w, g), _ticks, graphs,
+                layers=cfg.num_layers)
     rates.update(update_host_s=sum(update_s), updates=len(update_s),
                  one_update_ms=one_update_ms, update_peak_mb=peak_mb, tokens_changed=changed,
-                 no_store=base_rates)
+                 no_store=base_rates, profile=profiles)
+    rates["memory_mb"] = log_memory(torch, "adapters")
     return {"launches": launches, "rates": rates}
 
 
@@ -809,36 +913,57 @@ def phase_profile(torch, np, model, ContinuousBatcher, Request, PagingSpec):
     """Where a dispatch's time goes at OLMo-1B full width: host wall time
     of an admission round (prefill of four prompts) and of 8 decode ticks,
     over the dense cache and over a paged pool (16-token blocks, 4096
-    tokens), without and with torch.profiler, against the device time of
+    tokens), each with CUDA graphs (captured before the window) and
+    eagerly, without and with torch.profiler, against the device time of
     the kernels the profiler saw, with the top kernels by device time."""
-    rng = np.random.default_rng(1)
     lens = (700, 300, 500, 100)
 
-    def batcher(paging=None):
+    def batcher(paging=None, graphs=True):
+        rng = np.random.default_rng(1)  # the same prompts in every window
         bt = ContinuousBatcher(model, num_slots=4, max_seq=1024, prefill_chunk=32,
-                               paging=paging)
+                               paging=paging, cuda_graphs=graphs)
         for uid, n in enumerate(lens):
             bt.submit(Request(uid=uid, tokens=rng.integers(0, model.cfg.vocab_size, n)
                               .astype(np.int32),
                               max_new=64))
+        bt.capture()  # outside the window (no-op eagerly)
         return bt
 
     spec = PagingSpec.sized(16, 1024, 4096)
+    out = {}
     for name, setup, run in (
-        ("prefill round", batcher, lambda bt: bt._admit()),
-        ("8 decode ticks", lambda: _admitted(batcher()), _ticks),
-        ("prefill round (paged)", lambda: batcher(spec), lambda bt: bt._admit()),
-        ("8 decode ticks (paged)", lambda: _admitted(batcher(spec)), _ticks),
+        ("prefill round", lambda g: batcher(graphs=g), lambda bt: bt._admit()),
+        ("8 decode ticks", lambda g: _admitted(batcher(graphs=g)), _ticks),
+        ("prefill round (paged)", lambda g: batcher(spec, g), lambda bt: bt._admit()),
+        ("8 decode ticks (paged)", lambda g: _admitted(batcher(spec, g)), _ticks),
     ):
-        profile_window(torch, name, setup, run)
+        for graphs in (True, False):
+            out[profile_key(name, graphs)] = profile_window(
+                torch, name, lambda s=setup, g=graphs: s(g), run, graphs)
+    return out
 
 
-def profile_window(torch, name, setup, run):
+def profile_key(name, graphs):
+    return f"{name} [{'graphs' if graphs else 'eager'}]"
+
+
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def profile_window(torch, name, setup, run, graphs, layers=LAYERS):
     """Host wall time of ``run(setup())`` without and with torch.profiler
     (a fresh ``setup()`` for each), against the device time of the kernels
-    the profiler saw, with the top kernels by device time."""
+    the profiler saw, with the top kernels by device time and the CUDA API
+    calls the host made per dispatch. A decode window with graphs must make
+    one cudaGraphLaunch per tick and launch no kernel from the host (the
+    port's own kernels, launched through a statically linked runtime, leave
+    no API record; the counters and the executed kernels show them); the
+    attention kernels the profiler saw executing are logged against 16
+    partial + 16 merge per tick. Returns the window's numbers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    label = profile_key(name, graphs)
 
     def window(fn):
         torch.cuda.synchronize()
@@ -847,25 +972,56 @@ def profile_window(torch, name, setup, run):
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
+    def dispatches(bt):
+        return bt.decode_dispatches + bt.prefill_dispatches
+
     bt = setup()
     wall = window(lambda: run(bt))
+    bt.close()
     bt = setup()
+    n0, ticks0 = dispatches(bt), bt.decode_dispatches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_prof = window(lambda: run(bt))
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    n, ticks = dispatches(bt) - n0, bt.decode_dispatches - ticks0
+    bt.close()
+    events = prof.key_averages()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    api = {e.key: e.count for e in events
+           if e.device_type != DeviceType.CUDA and e.key.startswith("cu")}
     dev_us = {e.key: e.self_device_time_total for e in kern}
     busy = sum(dev_us.values()) / 1e6
-    log(f"profile {name}: wall {wall * 1e3:.2f} ms (profiler off), "
+    executed = sum(e.count for e in kern)
+    host_launches = sum(api.get(k, 0) for k in LAUNCH_APIS)
+    log(f"profile {label}: wall {wall * 1e3:.2f} ms (profiler off), "
         f"{wall_prof * 1e3:.2f} ms (on); device busy {busy * 1e3:.2f} ms "
         f"= {busy / wall_prof:.1%} of the traced wall; kernels {len(dev_us)} kinds, "
-        f"{sum(e.count for e in kern)} launches")
+        f"{executed} executed over {n} dispatches ({executed / max(n, 1):.1f} each)")
+    log(f"profile {label}: host CUDA API calls per dispatch: "
+        + ", ".join(f"{k} {c / max(n, 1):.2f}" for k, c in sorted(api.items())))
     for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"profile {name}:   {us / 1e3:8.3f} ms  {key[:90]}")
+        log(f"profile {label}:   {us / 1e3:8.3f} ms  {key[:90]}")
+    attention = {}
     for e in kern:  # the port's attention kernels, wherever they rank
         if any(k_ in e.key for k_ in ("prefill_partial", "prefill_combine", "decode_partial",
                                       "decode_combine")):
-            log(f"profile {name}: attention {e.self_device_time_total / 1e3:8.3f} ms in "
+            attention[short_name(e.key)] = e.count
+            log(f"profile {label}: attention {e.self_device_time_total / 1e3:8.3f} ms in "
                 f"{e.count} launches  {short_name(e.key)}")
+    if ticks and ticks == n:  # a decode window
+        seen = [sum(c for k, c in attention.items() if part in k) / ticks
+                for part in ("decode_partial", "decode_combine")]
+        log(f"profile {label}: attention kernels executed per tick: {seen[0]:g} partial + "
+            f"{seen[1]:g} merge (want {layers} + {layers})"
+            + ("" if seen == [layers, layers] else "; profiler records incomplete"))
+        if graphs and (api.get("cudaGraphLaunch", 0) != ticks or host_launches):
+            raise AssertionError(
+                f"profile {label}: {api.get('cudaGraphLaunch', 0)} cudaGraphLaunch and "
+                f"{host_launches} kernel launches from the host over {ticks} ticks; want one "
+                "graph launch per tick and none")
+    return {"wall_ms": wall * 1e3, "wall_profiled_ms": wall_prof * 1e3,
+            "device_busy_ms": busy * 1e3, "dispatches": n, "kernels_executed": executed,
+            "host_api_per_dispatch": {k: c / max(n, 1) for k, c in api.items()},
+            "attention_executed": attention}
 
 
 def _ticks(bt, n=8):
@@ -947,7 +1103,7 @@ def main() -> int:
                               PagingSpec, ops, dense)
     prefix = phase_prefix_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request,
                                 PagingSpec, ops)
-    phase_profile(torch, np, model, ContinuousBatcher, Request, PagingSpec)
+    profiles = phase_profile(torch, np, model, ContinuousBatcher, Request, PagingSpec)
     del model  # and the cycles that still hold it, so phase 7 starts on a free card
     gc.collect()
     torch.cuda.empty_cache()
@@ -962,7 +1118,8 @@ def main() -> int:
     del breakdown  # its closures hold the phase-2 inputs
     log(json.dumps({"serve_rates": {"dense": dense["rates"], "paged": paged["rates"],
                                     "prefix": prefix["rates"],
-                                    "adapters": adapters["rates"]}}))
+                                    "adapters": adapters["rates"]},
+                    "profile": profiles}))
     log(f"smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     # launches of each kernel on the main paths, each counted from zero:
     # the dense and adapters phases for the dense kernels, the paged and

@@ -182,6 +182,11 @@ class TransformerLM(nn.Module):
         model restores them to the ``init_cache`` value. reset: (B,) bool
         (host array or tensor). Only the reset rows are touched.
 
+        It reads ``reset`` on the host and uploads the row ids, so it runs
+        eagerly, never inside a captured CUDA graph: the serving executor
+        (``repro_torch.serve.step.StepExecutor``) calls it before a prefill
+        replay, only on dispatches that admit a slot.
+
         Paged pools (``paging`` given) need no clearing, as in JAX: a new
         request rewrites every position it can read and reads are masked by
         ``kv_idx <= pos``, so stale bytes in recycled blocks are never seen."""

@@ -9,7 +9,10 @@ ALL leaves with the graph's averaging weights ``mu``
 (``TaskGraph.bsr_mixing`` / ``bol_mixing`` / ``consensus_mixing``) in one
 ``graph_mix_tree`` call — one kernel launch per leaf dtype — and publishes
 a ``serving`` tree with a terminal ZERO null row (index ``num_tasks``) that
-dead batcher lanes gather.
+dead batcher lanes gather. The serving tree is allocated once, with the
+store, and every refresh writes the mixed rows into it in place: a CUDA
+graph of the serving steps, captured with its tensors, reads each
+refresh's values at its next replay.
 
 The batcher passes ``store.serving`` to every dispatch, where
 ``TransformerLM._gather_adapters`` picks each batch row's factors by task
@@ -70,6 +73,9 @@ class TaskAdapterStore:
 
     ``serving`` is the graph-mixed copy with one extra ZERO row appended to
     every leaf — row ``null_task == num_tasks`` — gathered by dead lanes.
+    Its tensors never change: ``update``, ``set_raw`` and ``randomize``
+    republish through ``refresh``, which writes rows ``[0, num_tasks)`` in
+    place.
     """
 
     def __init__(
@@ -125,7 +131,11 @@ class TaskAdapterStore:
         self._hist: list = [self.raw]  # newest first, len <= max_delay + 1
         self._finished = 0
         self.updates = 0
-        self.serving = None
+        self.serving = tree_lib.map_(
+            lambda t: torch.zeros((t.shape[0] + 1,) + t.shape[1:], dtype=t.dtype,
+                                  device=t.device),
+            self.raw,
+        )
         self.refresh()
 
     # ------------------------------------------------------------ structure
@@ -189,12 +199,11 @@ class TaskAdapterStore:
 
     def refresh(self) -> None:
         """Re-mix every leaf with ``mu`` (one kernel launch per dtype) and
-        publish the serving tree with the appended zero null row. Structure
-        and shapes never change."""
-        mixed = self._mix(self.raw)
-        self.serving = tree_lib.map_(
-            lambda t: torch.cat([t, torch.zeros_like(t[:1])], dim=0), mixed
-        )
+        publish it IN PLACE: each serving leaf's rows ``[0, num_tasks)`` (a
+        contiguous view) take the mixed rows; the zero null row and the
+        tensors themselves stay."""
+        m = self.num_tasks
+        tree_lib.map_(lambda dst, t: dst[:m].copy_(t), self.serving, self._mix(self.raw))
 
     # ------------------------------------------------- delayed adaptation
     def push_grads(self, task_id: int, grads) -> None:

@@ -28,18 +28,30 @@ argmax (a numpy f32 row). Requests can be cancelled mid-flight
 immediately and land in ``finished`` with ``cancelled`` / ``timed_out`` set
 and ``done`` False.
 
+Every dispatch goes through the batcher's ``repro_torch.serve.step.
+StepExecutor``: its inputs are packed into one int32 buffer and uploaded in
+one copy, the step runs, and its int32 results come back in one copy, which
+waits for the device. With ``cuda_graphs`` on (``None``, the default, means
+on for a CUDA model; the CPU cannot capture, and ``True`` there raises) the
+step is ONE CUDA-graph replay, captured at the batcher's first decode and
+first prefill dispatch; ``cuda_graphs=False`` runs the same buffers through
+the eager step pair, the counterpart of ``jax.disable_jit``. A failed
+capture or replay raises; nothing falls back to the eager pair.
+
 ``decode_dispatches`` / ``prefill_dispatches`` / ``mixed_dispatches`` /
 ``ticks`` count real step calls; ``decode_s`` / ``prefill_s`` are host
-seconds spent in the decode and (unchunked) prefill dispatches, each ending
-in the copy of its results to the host (which waits for the device).
+seconds spent in the decode and (unchunked) prefill dispatches, from the
+packing of the inputs to the read-back of the results (the sampler's logits
+rows included), and ``capture_s`` the host seconds of the graph captures
+(each with its warm-up), which neither of the other two holds.
 
 Paged mode (pass a ``repro_torch.serve.paging.PagingSpec``): admission
 reserves ``ceil((len(prompt) + max_new) / block_size)`` blocks for the
 request's lifetime (allocator backpressure queues requests that cannot get
 them; ``admission_waits`` counts the rounds that stopped on blocks) and
 every retirement path — finish, cancel, timeout — returns them. The
-(num_slots, max_blocks) int32 table goes to the device in one copy per
-dispatch, shared by every layer.
+(num_slots, max_blocks) int32 table rides in each dispatch's one upload,
+shared by every layer.
 
 ``prefix_cache=True`` (paged mode) puts a
 ``repro_torch.serve.paging.RadixPrefixCache`` in front of admission: a
@@ -73,7 +85,7 @@ import torch
 from repro_torch.serve.paging import BlockAllocator, RadixPrefixCache
 from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.slots import SlotMap
-from repro_torch.serve.step import make_cow_copy, make_serve_step
+from repro_torch.serve.step import StepExecutor, make_cow_copy
 
 _LATER_SLICES = {
     "faults": "fault injection",
@@ -158,6 +170,7 @@ class ContinuousBatcher:
         adapters=None,
         faults=None,
         preempt: bool = False,
+        cuda_graphs: bool | None = None,
     ):
         refuse_unported(faults=faults is not None, preempt=preempt)
         check_adapters(adapters, model)
@@ -196,12 +209,14 @@ class ContinuousBatcher:
                 )
             # the port's model is attention-only (pattern ("attn",)): no
             # recurrent state lives outside the KV blocks
-            self.prefix = RadixPrefixCache(self.allocator)
+            prefix = self.prefix = RadixPrefixCache(self.allocator)
             self._cow_fn = make_cow_copy(paging)
             # sjf orders by UNCACHED prompt tokens: a long prompt with a
-            # resident prefix is a short job
+            # resident prefix is a short job (the closure holds the cache,
+            # not the batcher, so the batcher and its caches are freed
+            # without waiting for the cycle collector)
             self.scheduler.cost_fn = lambda r: (
-                len(r.tokens) - self.prefix.match(r.task_id, r.tokens).tokens
+                len(r.tokens) - prefix.match(r.task_id, r.tokens).tokens
             )
         self.caches = model.init_cache(num_slots, max_seq, paging)
         self.finished: list[Request] = []
@@ -214,7 +229,8 @@ class ContinuousBatcher:
         self.prefill_tokens = 0  # prompt tokens computed
         self.decode_s = self.prefill_s = 0.0
         self._needs_reset: set[int] = set()  # fresh slots awaiting reset
-        self._tick_fn, self._prefill_fn = make_serve_step(model, prefill_mode, paging)
+        self._steps = StepExecutor(model, self.caches, num_slots, prefill_chunk,
+                                   prefill_mode, paging, cuda_graphs)
 
     # --------------------------------------------------- bookkeeping views
     @property
@@ -225,13 +241,21 @@ class ContinuousBatcher:
     def pos(self) -> np.ndarray:
         return self.slots.pos
 
-    def _dev(self, arr) -> torch.Tensor:
-        return torch.as_tensor(arr, device=self.device)
+    @property
+    def capture_s(self) -> float:
+        """Host seconds spent capturing the step pair's CUDA graphs."""
+        return self._steps.capture_s
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs captured (each after one warm-up run of its step)."""
+        return self._steps.captures
 
     def _block_tables(self):
-        """The slots' block tables on the device (one host-to-device copy
-        per dispatch, read by every layer), or None (dense)."""
-        return self._dev(self.block_tables) if self.paging is not None else None
+        """The slots' (num_slots, max_blocks) block tables, which the
+        executor writes into its static table before each dispatch, or None
+        (dense)."""
+        return self.block_tables if self.paging is not None else None
 
     def _adapter_tree(self):
         """The store's current serving tree (republished by its updates
@@ -357,13 +381,11 @@ class ContinuousBatcher:
         if self.on_token is not None:
             self.on_token(req, tok)
 
-    def _host_results(self, logits: torch.Tensor):
-        """(greedy tokens, logits rows or None) of a prefill dispatch on
-        the host. The greedy argmax runs on the device (first maximal index,
-        like np.argmax); the full rows cross only when a sampler needs them."""
-        greedy = logits.argmax(dim=-1).cpu().numpy()
-        rows = logits.cpu().numpy() if self.sample_fn is not None else None
-        return greedy, rows
+    def _rows(self, logits: torch.Tensor):
+        """A dispatch's logits rows on the host, only when a sampler needs
+        them (the greedy argmax runs on the device: first maximal index,
+        like np.argmax). Read at once: the next replay overwrites them."""
+        return logits.cpu().numpy() if self.sample_fn is not None else None
 
     def _finish_ready(self):
         for s, req in self.slots.live_items():
@@ -439,7 +461,8 @@ class ContinuousBatcher:
         dispatch its prefill completes. Each slot prefills from its own
         cursor (``prompt_done``: 0, or ``cached_tokens`` after a prefix
         hit), so a resident prefix costs no dispatch."""
-        task_ids = self._dev(self.slots.task_ids(self._null_task))
+        task_ids = self.slots.task_ids(self._null_task)
+        tree = self._adapter_tree()
         c = self.prefill_chunk
         while True:
             pending = [
@@ -459,13 +482,12 @@ class ContinuousBatcher:
                 t = np.asarray(req.tokens, np.int32)[d : d + c]
                 tokens[s, : len(t)] = t
                 valid[s, : len(t)] = True
+            self._steps.prepare("prefill", tree)  # capture_s, not prefill_s
             t0 = time.perf_counter()
-            last, self.caches, positions = self._prefill_fn(
-                self._dev(tokens), task_ids, self.caches, self._dev(self.pos),
-                self._dev(valid), reset, self._block_tables(), self._adapter_tree(),
+            greedy, last, positions = self._steps.prefill(
+                tokens, task_ids, self.pos, valid, reset, self._block_tables(), tree,
             )
-            greedy, rows = self._host_results(last)
-            positions = positions.cpu().numpy()
+            rows = self._rows(last)
             self.prefill_s += time.perf_counter() - t0
             self.prefill_dispatches += 1
             self.prefill_tokens += int(valid.sum())
@@ -500,14 +522,14 @@ class ContinuousBatcher:
         tokens = np.zeros(self.num_slots, np.int32)
         for s, req in self.slots.live_items():
             tokens[s] = req.out[-1] if req.out else np.asarray(req.tokens)[-1]
+        tree = self._adapter_tree()
+        self._steps.prepare("decode", tree)  # capture_s, not decode_s
         t0 = time.perf_counter()
-        next_tok, step_logits, self.caches = self._tick_fn(
-            self._dev(tokens), self._dev(self.slots.task_ids(self._null_task)),
-            self.caches, self._dev(self.pos), self._dev(live), self._block_tables(),
-            self._adapter_tree(),
+        greedy, step_logits = self._steps.decode(
+            tokens, self.slots.task_ids(self._null_task), self.pos, live,
+            self._block_tables(), tree,
         )
-        greedy = next_tok.cpu().numpy()
-        rows = step_logits.cpu().numpy() if self.sample_fn is not None else None
+        rows = self._rows(step_logits)
         self.decode_s += time.perf_counter() - t0
         self.ticks += 1
         self.decode_dispatches += 1
@@ -544,13 +566,11 @@ class ContinuousBatcher:
         for s, req in decoding:
             tokens[s, 0] = req.out[-1] if req.out else np.asarray(req.tokens)[-1]
             valid[s, 0] = True
-        last, self.caches, positions = self._prefill_fn(
-            self._dev(tokens), self._dev(self.slots.task_ids(self._null_task)),
-            self.caches, self._dev(self.pos), self._dev(valid), reset,
+        greedy, last, positions = self._steps.prefill(
+            tokens, self.slots.task_ids(self._null_task), self.pos, valid, reset,
             self._block_tables(), self._adapter_tree(),
         )
-        greedy, rows = self._host_results(last)
-        positions = positions.cpu().numpy()
+        rows = self._rows(last)
         self.ticks += 1
         self.mixed_dispatches += 1
         self.prefill_tokens += sum(n for _, n in plan)
@@ -571,6 +591,18 @@ class ContinuousBatcher:
                 self._emit(req, row=None if rows is None else rows[s], greedy=greedy[s])
 
     # ------------------------------------------------------------ driving
+    def capture(self) -> None:
+        """Capture both steps now, as the first decode and the first
+        prefill dispatch would (no-op without CUDA graphs)."""
+        tree = self._adapter_tree()
+        self._steps.prepare("prefill", tree)
+        self._steps.prepare("decode", tree)
+
+    def close(self) -> None:
+        """Release the step pair's CUDA graphs and their memory pool (a
+        later dispatch captures again)."""
+        self._steps.close()
+
     def step(self):
         """One scheduling round: retire expired requests, admit from the
         queue, then advance — the admit-gulp + decode tick when

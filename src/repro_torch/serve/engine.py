@@ -28,8 +28,17 @@ placement. It does not reproduce the JAX engine's PRNG bits.
 each row with its task's graph-mixed low-rank adapters; the store's
 delayed updates run as the requests finish.
 
-``last_stats`` holds the dispatch counts, host seconds and (paged)
-admission waits of the last ``generate`` call.
+``cuda_graphs`` is passed to the call's batcher: ``None`` (the default)
+runs each decode tick and prefill chunk as one CUDA-graph replay on a CUDA
+model and eagerly on the CPU; ``False`` runs the eager step pair on any
+device; ``True`` on the CPU raises. Each call captures the graphs of its
+own batcher (they bind that batcher's caches) and releases them when it
+returns.
+
+``last_stats`` holds the dispatch counts, host seconds (``decode_s``,
+``prefill_s``, and ``capture_s`` for the captures, which the other two do
+not hold), graph captures and (paged) admission waits of the last
+``generate`` call.
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ from repro_torch.serve.batching import (
     refuse_unported,
 )
 from repro_torch.serve.paging import PagingSpec
+from repro_torch.serve.step import use_cuda_graphs
 
 
 def _request_generator(seed: int, uid: int, token_index: int) -> torch.Generator:
@@ -81,6 +91,8 @@ class ServeEngine:
     # optional repro_torch.serve.adapters.TaskAdapterStore: serve graph-mixed
     # per-task adapters gathered by each row's task id
     adapters: object = None
+    # None: one CUDA-graph replay per step on a CUDA model, eager on the CPU
+    cuda_graphs: bool | None = None
     # later slices of the port; setting either raises
     faults: object = None
     preempt: bool = False
@@ -88,6 +100,7 @@ class ServeEngine:
     def __post_init__(self):
         refuse_unported(faults=self.faults is not None, preempt=self.preempt)
         check_adapters(self.adapters, self.model)
+        use_cuda_graphs(self.cuda_graphs, self.model.device)
         self.last_stats = None
         self.last_prefix_stats = None
 
@@ -136,18 +149,24 @@ class ServeEngine:
             prefill_chunk=self.prefill_chunk, prefill_mode=self.prefill_mode,
             on_token=stream, sample_fn=sample_fn, paging=self.paging,
             prefix_cache=self.prefix_cache, adapters=self.adapters,
+            cuda_graphs=self.cuda_graphs,
         )
-        for i, uid in enumerate(uids):
-            batcher.submit(Request(
-                uid=uid, tokens=prompts[i], max_new=num_tokens, task_id=int(task_ids[i]),
-            ))
-        finished = {r.uid: r for r in batcher.run()}
+        try:
+            for i, uid in enumerate(uids):
+                batcher.submit(Request(
+                    uid=uid, tokens=prompts[i], max_new=num_tokens, task_id=int(task_ids[i]),
+                ))
+            finished = {r.uid: r for r in batcher.run()}
+        finally:
+            batcher.close()
         self.last_stats = {
             "decode_dispatches": batcher.decode_dispatches,
             "prefill_dispatches": batcher.prefill_dispatches,
             "prefill_tokens": batcher.prefill_tokens,
             "decode_s": batcher.decode_s,
             "prefill_s": batcher.prefill_s,
+            "capture_s": batcher.capture_s,
+            "captures": batcher.captures,
             "admission_waits": batcher.admission_waits,
         }
         self.last_prefix_stats = (

@@ -32,6 +32,14 @@ tensor per dispatch shared by every layer. ``adapters`` is the serving tree
 of a ``repro_torch.serve.adapters.TaskAdapterStore`` (per-task low-rank
 deltas gathered by ``task_ids``), or None.
 
+``StepExecutor`` is what the batcher dispatches through: the pair over the
+static device buffers of one batcher, the counterpart of the reference's
+``jax.jit`` of the pair. With ``cuda_graphs`` on (the default for a CUDA
+model) each step is captured once as a CUDA graph, and a dispatch is one
+upload of the packed int32 inputs, one graph replay and one read-back of
+the results; with it off (the CPU, or ``cuda_graphs=False``: the
+counterpart of ``jax.disable_jit``) the same buffers feed the eager pair.
+
 ``make_cow_copy(paging)`` returns the copy-on-write step of the prefix
 cache: rows ``[0, rows)`` of block ``src`` into block ``dst`` in every pool.
 
@@ -41,10 +49,25 @@ rides on ``model.cfg.attn_backend``.
 """
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 
+from repro_torch import tree as tree_lib
+from repro_torch.kernels.decode_attention.ops import decode_attention, paged_decode_attention
+from repro_torch.kernels.prefill_attention.ops import (
+    paged_prefill_attention,
+    prefill_attention,
+)
 
-def make_serve_step(model, prefill_mode: str = "parallel", paging=None):
+# the kernel wrappers a step can launch; a replay adds what its capture launched
+_COUNTED_OPS = (decode_attention, paged_decode_attention, prefill_attention,
+                paged_prefill_attention)
+
+
+def _step_bodies(model, prefill_mode: str):
+    """(decode_tick, prefill body without the slot reset)."""
     if prefill_mode not in ("parallel", "scan"):
         raise ValueError(
             f"prefill_mode must be 'parallel' or 'scan', got {prefill_mode!r}"
@@ -59,9 +82,8 @@ def make_serve_step(model, prefill_mode: str = "parallel", paging=None):
         step_logits = logits[:, 0]  # (B, V) f32
         return step_logits.argmax(dim=-1), step_logits, caches
 
-    def prefill_chunk_parallel(tokens, task_ids, caches, positions, valid, reset,
-                               block_tables=None, adapters=None):
-        caches = model.reset_slot_state(caches, reset, paging)
+    def prefill_parallel(tokens, task_ids, caches, positions, valid, block_tables=None,
+                         adapters=None):
         logits, caches = model.prefill_step(
             {"tokens": tokens, "task_ids": task_ids}, caches, positions, valid,
             block_tables=block_tables, adapters=adapters,
@@ -71,9 +93,8 @@ def make_serve_step(model, prefill_mode: str = "parallel", paging=None):
         last = torch.where((n_valid > 0)[:, None], logits[:, 0], 0.0)
         return last, caches, positions + n_valid
 
-    def prefill_chunk_scan(tokens, task_ids, caches, positions, valid, reset,
-                           block_tables=None, adapters=None):
-        caches = model.reset_slot_state(caches, reset, paging)
+    def prefill_scan(tokens, task_ids, caches, positions, valid, block_tables=None,
+                     adapters=None):
         last = None
         for i in range(tokens.shape[1]):
             vld = valid[:, i]
@@ -87,8 +108,230 @@ def make_serve_step(model, prefill_mode: str = "parallel", paging=None):
             positions = positions + vld.to(positions.dtype)
         return last, caches, positions
 
-    prefill = prefill_chunk_parallel if prefill_mode == "parallel" else prefill_chunk_scan
-    return decode_tick, prefill
+    return decode_tick, prefill_parallel if prefill_mode == "parallel" else prefill_scan
+
+
+def make_serve_step(model, prefill_mode: str = "parallel", paging=None):
+    decode_tick, prefill_body = _step_bodies(model, prefill_mode)
+
+    def prefill_chunk(tokens, task_ids, caches, positions, valid, reset,
+                      block_tables=None, adapters=None):
+        caches = model.reset_slot_state(caches, reset, paging)
+        return prefill_body(tokens, task_ids, caches, positions, valid, block_tables,
+                            adapters)
+
+    return decode_tick, prefill_chunk
+
+
+def use_cuda_graphs(cuda_graphs: bool | None, device: torch.device) -> bool:
+    """Resolve a ``cuda_graphs`` option for a model on ``device``: None is
+    on for a CUDA model and off elsewhere; True off CUDA raises (only a
+    CUDA stream can be captured)."""
+    if cuda_graphs is None:
+        return device.type == "cuda"
+    if cuda_graphs and device.type != "cuda":
+        raise ValueError(
+            f"cuda_graphs=True needs a model on a CUDA device, not {device}; "
+            "pass cuda_graphs=False (or None) to run the steps eagerly"
+        )
+    return bool(cuda_graphs)
+
+
+def _pointers(tree) -> tuple:
+    return tuple(t.data_ptr() for t in tree_lib.leaves(tree)) if tree is not None else ()
+
+
+class _Step:
+    """One step of the pair over its static inputs: a packed int32 host
+    buffer (pinned on CUDA), its device copy and views of it, and, once
+    captured, the graph and its outputs.
+
+    Packed fields, in order: tokens (B, C), task ids (B,), positions (B,)
+    int32, the live / valid mask (B, C) as 0/1, and the (B, max_blocks)
+    block table (paged only)."""
+
+    def __init__(self, b: int, c: int, max_blocks: int, device: torch.device):
+        sizes = {"tokens": b * c, "task_ids": b, "positions": b, "mask": b * c,
+                 "table": b * max_blocks}
+        n = sum(sizes.values())
+        self.host = torch.zeros(n, dtype=torch.int32, pin_memory=device.type == "cuda")
+        self.dev = torch.zeros(n, dtype=torch.int32, device=device)
+        host_np = self.host.numpy()
+        self.fields, self.views, off = {}, {}, 0
+        for name, size in sizes.items():
+            self.fields[name] = host_np[off : off + size]
+            self.views[name] = self.dev[off : off + size]
+            off += size
+        self.views["tokens"] = self.views["tokens"].view(b, c)
+        self.views["mask"] = self.views["mask"].view(b, c)
+        self.views["table"] = self.views["table"].view(b, max_blocks) if max_blocks else None
+        self.graph = None
+        self.outputs = None
+        self.launches = ()  # per counted op: kernels one replay launches
+        self.bound = ()  # data pointers of the adapter tree the graph reads
+
+    def fill(self, tokens, task_ids, positions, mask, table) -> None:
+        """Write one dispatch's inputs into the host buffer and start their
+        upload on the current stream (one copy)."""
+        self.fields["tokens"][:] = np.asarray(tokens).reshape(-1)
+        self.fields["task_ids"][:] = task_ids
+        self.fields["positions"][:] = positions
+        self.fields["mask"][:] = np.asarray(mask).reshape(-1)
+        if table is not None:
+            self.fields["table"][:] = np.asarray(table).reshape(-1)
+        self.dev.copy_(self.host, non_blocking=True)
+
+
+class StepExecutor:
+    """The step pair of one batcher over static device buffers.
+
+    ``decode`` and ``prefill`` take host arrays (numpy), write them into
+    one packed int32 buffer per step and upload it in one copy, run the
+    step, and read the int32 results back in one copy, which waits for the
+    device. With ``cuda_graphs`` on, each step is captured as one CUDA
+    graph at its first dispatch (or at ``prepare``), and every later
+    dispatch replays it; the two graphs share one memory pool. A capture or
+    replay that fails raises: there is no eager fallback.
+
+    Capture (``prepare``) first runs the step once eagerly on a side stream
+    with every lane dead: dense dead lanes write each row's old value back
+    and paged ones write only the null block 0, so the rows attention reads
+    are unchanged. That run is where kernel libraries load and each kernel
+    opts into its shared memory; its kernel launches count, since they
+    execute. The capture itself executes nothing, so it counts none: the
+    launches it records are added to the kernel wrappers' ``launches`` at
+    every replay instead. ``capture_s`` is the host time of the warm-ups and
+    captures, ``captures`` their number.
+
+    The graphs bind the batcher's caches and the adapter serving tree given
+    at capture; a dispatch with a tree whose leaves have moved raises.
+
+    ``reset`` is applied eagerly before the prefill step, and only when it
+    admits a slot: one ``index_fill_`` per dense cache tensor
+    (``TransformerLM.reset_slot_state``), never inside a graph."""
+
+    def __init__(self, model, caches, num_slots: int, prefill_chunk: int,
+                 prefill_mode: str = "parallel", paging=None, cuda_graphs: bool | None = None):
+        self.model = model
+        self.caches = caches
+        self.paging = paging
+        self.num_slots = num_slots
+        self.cuda_graphs = use_cuda_graphs(cuda_graphs, model.device)
+        self.decode_tick, self.prefill_body = _step_bodies(model, prefill_mode)
+        mb = paging.max_blocks_per_slot if paging is not None else 0
+        self._steps = {
+            "decode": _Step(num_slots, 1, mb, model.device),
+            "prefill": _Step(num_slots, prefill_chunk, mb, model.device),
+        }
+        self.capture_s = 0.0
+        self.captures = 0
+        self._pool = torch.cuda.graph_pool_handle() if self.cuda_graphs else None
+
+    # ------------------------------------------------------------ steps
+    def _run(self, kind: str, adapters):
+        """The step on the static buffers, eagerly (or under capture).
+        Returns (int32 results, logits): decode's next tokens (B,); prefill's
+        greedy tokens and new positions (2B,)."""
+        v = self._steps[kind].views
+        mask = v["mask"] != 0
+        if kind == "decode":
+            nxt, logits, _ = self.decode_tick(
+                v["tokens"][:, 0], v["task_ids"], self.caches, v["positions"], mask[:, 0],
+                v["table"], adapters,
+            )
+            return nxt.to(torch.int32), logits
+        last, _, positions = self.prefill_body(
+            v["tokens"], v["task_ids"], self.caches, v["positions"], mask, v["table"],
+            adapters,
+        )
+        return torch.cat([last.argmax(dim=-1).to(torch.int32), positions.to(torch.int32)]), last
+
+    def prepare(self, kind: str, adapters=None) -> None:
+        """Capture step ``kind`` ("decode" or "prefill") now, as its first
+        dispatch would, if graphs are on and it is not captured yet;
+        ``adapters`` is the serving tree the graph will read."""
+        step = self._steps[kind]
+        if not self.cuda_graphs or step.graph is not None:
+            return
+        t0 = time.perf_counter()
+        step.fill(0, self.model.cfg.num_tasks, 0, 0, 0)  # every lane dead, tables null
+        graph = torch.cuda.CUDAGraph()
+        # torch's one capture stream, shared by every capture in the process:
+        # cuBLAS keeps a workspace for each stream it has run on, for good
+        capture = torch.cuda.graph(graph, pool=self._pool)
+        side = capture.capture_stream
+        current = torch.cuda.current_stream(self.model.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self._run(kind, adapters)  # the warm-up: every lane dead
+            before = [op.launches for op in _COUNTED_OPS]
+            try:
+                with capture:
+                    outputs = self._run(kind, adapters)
+            except BaseException:
+                # torch leaves a failed capture's pool registered as recording:
+                # a later capture takes a fresh pool
+                self._pool = torch.cuda.graph_pool_handle()
+                raise
+            finally:
+                launched = tuple(op.launches - n for op, n in zip(_COUNTED_OPS, before))
+                for op, n in zip(_COUNTED_OPS, before):
+                    op.launches = n
+        torch.cuda.synchronize(self.model.device)
+        step.graph, step.outputs, step.launches = graph, outputs, launched
+        step.bound = _pointers(adapters)
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+
+    def _dispatch(self, kind: str, adapters):
+        step = self._steps[kind]
+        if not self.cuda_graphs:
+            return self._run(kind, adapters)
+        if _pointers(adapters) != step.bound:
+            raise RuntimeError(
+                f"{kind} step: the adapter serving tree is not the one its CUDA graph was "
+                "captured with (a leaf was reallocated); the store must update in place"
+            )
+        step.graph.replay()
+        for op, n in zip(_COUNTED_OPS, step.launches):
+            op.launches += n
+        return step.outputs
+
+    def decode(self, tokens, task_ids, positions, live, block_tables=None, adapters=None):
+        """One decode tick. tokens, task_ids, positions: (B,) ints; live:
+        (B,) bool; block_tables: (B, max_blocks) int32 (paged) or None.
+        Returns (greedy next tokens (B,) numpy int32, step logits (B, V) f32
+        on the device — a graph output, overwritten by the next tick)."""
+        self.prepare("decode", adapters)
+        self._steps["decode"].fill(tokens, task_ids, positions, live, block_tables)
+        ints, logits = self._dispatch("decode", adapters)
+        return ints.cpu().numpy(), logits
+
+    def prefill(self, tokens, task_ids, positions, valid, reset, block_tables=None,
+                adapters=None):
+        """One (B, C) prefill chunk. valid: (B, C) bool; reset: (B,) bool,
+        the slots admitted by this dispatch. Returns (greedy tokens after
+        each slot's last valid token (B,), those logits (B, V) on the
+        device, overwritten by the next chunk, new positions (B,) int32)."""
+        self.prepare("prefill", adapters)
+        reset = np.asarray(reset, bool)
+        if reset.any():
+            self.model.reset_slot_state(self.caches, reset, self.paging)
+        self._steps["prefill"].fill(tokens, task_ids, positions, valid, block_tables)
+        ints, last = self._dispatch("prefill", adapters)
+        out = ints.cpu().numpy()
+        return out[: self.num_slots], last, out[self.num_slots :]
+
+    def close(self) -> None:
+        """Release both graphs and their memory pool; a later dispatch
+        captures again."""
+        for step in self._steps.values():
+            if step.graph is not None:
+                step.graph.reset()
+            step.graph = step.outputs = None
+            step.launches = step.bound = ()
+        if self.cuda_graphs:
+            self._pool = torch.cuda.graph_pool_handle()
 
 
 def make_cow_copy(paging):

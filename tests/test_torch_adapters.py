@@ -139,6 +139,7 @@ def test_delayed_updates_match_jax_store(mixing, fixed):
               lr=0.1, max_delay=2, fixed_delay=fixed, seed=7)
     js = JaxStore(jm, jgraph.band_graph(m, 2), **kw)
     ts = TaskAdapterStore(tm, graph.band_graph(m, 2), **kw)
+    serving, ptrs = ts.serving, _pointers(ts.serving)
     js.randomize(scale=0.1)
     ts.randomize(scale=0.1)  # one draw of the numpy generator on each side
     adapters_from_numpy(ts, _np(js.raw))
@@ -156,6 +157,36 @@ def test_delayed_updates_match_jax_store(mixing, fixed):
         assert len(ts._hist) == len(js._hist) == min(step + 2, 3)
         _assert_trees_close(ts.raw, js.raw)
         _assert_trees_close(ts.serving, js.serving)
+        # published in place: the tree a captured serving graph reads
+        assert ts.serving is serving and _pointers(ts.serving) == ptrs
+
+
+def _pointers(tree):
+    return [t.data_ptr() for t in tree_lib.leaves(tree)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_serving_tree_is_republished_in_place(dtype):
+    """update(), set_raw() and randomize() write the mixed rows into the
+    serving tree allocated with the store: every leaf keeps its storage,
+    the null row stays zero, rows [0, m) equal the plain mix."""
+    _, tm = _models()
+    m = tm.cfg.num_tasks
+    store = TaskAdapterStore(tm, graph.ring_graph(m), max_delay=1,
+                             dtype=getattr(torch, dtype))
+    serving, ptrs = store.serving, _pointers(store.serving)
+    g = tree_lib.map_(torch.ones_like, store.zeros_like_task())
+    for step in (lambda: store.randomize(scale=0.5),
+                 lambda: store.push_grads(1, g) or store.update(),
+                 lambda: store.set_raw(tree_lib.map_(lambda t: t + 1, store.raw)),
+                 store.update):
+        step()
+        assert store.serving is serving and _pointers(store.serving) == ptrs
+        ref = graph_mix_tree_reference(store.mu, store.raw)
+        for got, want in zip(tree_lib.leaves(store.serving), tree_lib.leaves(ref)):
+            assert got.shape[0] == m + 1 and got.is_contiguous()
+            torch.testing.assert_close(got[:m], want, rtol=0, atol=1e-6)
+            assert torch.count_nonzero(got[m]) == 0
 
 
 def test_note_request_runs_update_every_n_finishes():

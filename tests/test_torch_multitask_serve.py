@@ -203,14 +203,14 @@ def test_dead_lanes_gather_the_null_row():
     batcher = ContinuousBatcher(tm, num_slots=3, max_seq=MAX_SEQ, prefill_chunk=4,
                                 adapters=store)
     seen = []
-    tick = batcher._tick_fn
+    tick = batcher._steps.decode_tick  # the executor's eager decode step
 
     def spy(tokens, task_ids, *args):
         seen.append(task_ids.tolist())
         assert args[-1] is store.serving
         return tick(tokens, task_ids, *args)
 
-    batcher._tick_fn = spy
+    batcher._steps.decode_tick = spy
     batcher.submit(Request(uid=0, tokens=np.array([1, 2, 3], np.int32), max_new=3, task_id=5))
     batcher.run()
     assert seen and all(ids == [5, m, m] for ids in seen)

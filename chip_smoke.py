@@ -95,6 +95,28 @@ Phases; each raises on failure, and then no result line is printed:
                 seconds in update(), and a profile of 8 decode ticks with
                 and without the store.
 
+  8. faults   — run between phases 5 and 6, on phase 3's OLMo-1B, CUDA graphs
+                on: (a) phase 3's requests with an armed, empty FaultPlan (so
+                the quarantine reads every dispatch's logits): tokens,
+                decode and prefill dispatches, captures and launches equal
+                phase 3's; (b) phase 4's requests with the quarantine alone:
+                phase 4's tokens (its decode tok/s is the quarantine's
+                price); (c) a scripted plan over phase 4's pool — the decode
+                dispatch of tick 20 fails twice, the first prefill dispatch
+                once, request 0's first logits row is poisoned: request 0
+                ends failed ("non-finite"), the others give phase 4's
+                tokens, 3 dispatch faults, 2 captures, check_invariants()
+                clean with no live reference; (d) preemption: 2 slots,
+                priority policy, the 700-token prompt with 64 new tokens
+                at priority 10 (48 blocks), then, after two steps, the
+                413-token prompt with 16 at priority 0 (27 blocks) over a
+                1024-token pool of 63 blocks: one swap-out, one swap-in and
+                one preemption, tokens equal to a 2048-token pool's without
+                preemption, with graphs and eagerly, every pool's data_ptr
+                unchanged, check_invariants() clean; it logs the
+                synchronized swap-out and swap-in times, the snapshot's size
+                and rate. Launch counts are checked in every run.
+
 Output: the card's name and power limit first, per-phase lines, then one
 {"kernels": [...]} JSON line with the five kernels, and last
 {"ok": true, "device": {...}}.
@@ -649,7 +671,8 @@ def phase_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request, ops):
     ref, margins = plain_run(np, model, prompts, NEW, ContinuousBatcher, Request)
     compare("serve", "plain path", toks, ref, margins, NEW)
     rates["memory_mb"] = log_memory(torch, "serve")
-    return {"launches": launches, "tokens": toks, "prompts": prompts, "rates": rates}
+    return {"launches": launches, "tokens": toks, "prompts": prompts, "rates": rates,
+            "stats": st}
 
 
 def phase_paged_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request, PagingSpec,
@@ -684,7 +707,7 @@ def phase_paged_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request,
     compare("paged", "plain path (paged)", toks, ref, margins, NEW)
     compare("paged", "dense kernel path", toks, dense["tokens"], margins, NEW)
     rates["memory_mb"] = log_memory(torch, "paged")
-    return {"launches": launches, "rates": rates}
+    return {"launches": launches, "rates": rates, "tokens": toks}
 
 
 def phase_prefix_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request, PagingSpec,
@@ -735,6 +758,197 @@ def phase_prefix_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request
                  ttft_p50_s_no_cache=statistics.median(base_ttft))
     rates["memory_mb"] = log_memory(torch, "prefix")
     return {"launches": launches, "rates": rates}
+
+
+FAULT_DECODE_TICK = 20  # a mid-run decode tick of the paged requests
+FAULT_NAN_UID = 0  # the 700-token request: its 45 blocks free up early
+HOG_NEW = 64  # 700 + 64 tokens: 48 blocks of the 63 a 1024-token pool has
+
+
+def batcher_stats(bt):
+    return {"captures": bt.captures, "decode_dispatches": bt.decode_dispatches,
+            "prefill_dispatches": bt.prefill_dispatches}
+
+
+def decode_rate(bt, reqs):
+    """Decode tok/s of a batcher run: tokens the decode ticks emitted (all
+    but each request's first, which its prefill gives) over decode_s."""
+    tokens = sum(max(len(r.out) - 1, 0) for r in reqs)
+    return tokens / bt.decode_s, tokens
+
+
+def timed_swap(torch, fn, sink):
+    """A swap direction with each call synchronized on both sides; appends
+    (host seconds, snapshot shape, bytes, pinned) to ``sink`` and keeps no
+    reference to the snapshot, so its pinned memory returns to torch's
+    cache when the request lets go of it."""
+    def call(caches, blocks, *saved):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(caches, blocks, *saved)
+        torch.cuda.synchronize()
+        snap = saved[0] if saved else out
+        sink.append((time.perf_counter() - t0, tuple(snap.shape),
+                     snap.numel() * snap.element_size(), snap.is_pinned()))
+        return out
+    return call
+
+
+def phase_faults(torch, np, model, ServeEngine, ContinuousBatcher, Request, PagingSpec,
+                 FaultPlan, ops, dense, paged):
+    """Fault tolerance at OLMo-1B full width, CUDA graphs on: an empty plan
+    on the dense phase's requests (tokens, dispatches and launches equal to
+    phase 3's), a scripted plan over phase 4's pool (a twice-failing decode
+    dispatch mid-run, a failing first prefill dispatch, a poisoned lane:
+    only that request fails, the others keep phase 4's tokens), the
+    quarantine alone on phase 4's requests (its price in decode tok/s), and
+    a preemption: a priority-10 hog swapped out for a priority-0 request
+    and restored, against a roomy pool and an eager run."""
+    prompts = dense["prompts"]
+    mem_before = torch.cuda.memory_allocated() / 1e6
+    launches_sum = {name: 0 for name in COUNTED}
+    rates = {}
+
+    def add(launches):
+        for name in COUNTED:
+            launches_sum[name] += launches[name]
+
+    # 1. an armed, empty plan: the quarantine reads every dispatch's logits
+    engine = ServeEngine(model, max_seq=1024, prefill_chunk=32, num_slots=4, faults=FaultPlan())
+    toks, launches, ttft, wall = serve_timed(torch, engine, prompts, NEW, ops)
+    st = engine.last_stats
+    check_launches("faults (empty plan)", launches, st, paged=False)
+    add(launches)
+    same = {k: (st[k], dense["stats"][k]) for k in ("decode_dispatches", "prefill_dispatches",
+                                                     "captures")}
+    if (not np.array_equal(toks, dense["tokens"]) or launches != dense["launches"]
+            or any(a != b for a, b in same.values()) or st["dispatch_faults"]
+            or st["quarantined"]):
+        raise AssertionError(f"faults (empty plan): differs from phase 3: dispatches {same}, "
+                             f"launches {launches} vs {dense['launches']}, tokens equal "
+                             f"{np.array_equal(toks, dense['tokens'])}")
+    log(f"faults (empty plan): tokens, dispatches {same} and launches == phase 3's")
+    rates["empty_plan"] = report_rates("faults (empty plan)", st, len(prompts), NEW, ttft, wall)
+
+    spec = PagingSpec.sized(16, 1024, 1024)
+
+    def paged_run(name, **kw):
+        bt = ContinuousBatcher(model, num_slots=4, max_seq=1024, prefill_chunk=32, paging=spec,
+                               **kw)
+        for uid, p in enumerate(prompts):
+            bt.submit(Request(uid=uid, tokens=p, max_new=NEW))
+        torch.cuda.synchronize()
+        zero_counts(ops)
+        t0 = time.perf_counter()
+        done = {r.uid: r for r in bt.run()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(ops)
+        check_launches(name, launches, batcher_stats(bt), paged=True)
+        add(launches)
+        summary = bt.check_invariants()
+        bt.close()
+        tok_s, n = decode_rate(bt, done.values())
+        log(f"{name}: decode {tok_s:.1f} tok/s ({n} tokens in {bt.decode_s:.3f} s; phase 4 "
+            f"{paged['rates']['decode_tok_s']:.1f}), wall {wall:.3f} s, captures "
+            f"{bt.captures}; check_invariants {summary}")
+        return bt, done, summary, tok_s
+
+    # 2. the quarantine alone: phase 4's schedule, plus one logits read a dispatch
+    del engine
+    bt, done, summary, tok_s = paged_run("faults (quarantine only)", quarantine=True)
+    got = np.stack([np.asarray(done[uid].out, np.int32) for uid in range(len(prompts))])
+    if not np.array_equal(got, paged["tokens"]) or bt.quarantined:
+        raise AssertionError("faults (quarantine only): tokens differ from phase 4's")
+    rates["quarantine_decode_tok_s"] = tok_s
+
+    # 3. a scripted plan over phase 4's pool
+    plan = (FaultPlan().script("dispatch", where="decode", tick=FAULT_DECODE_TICK, count=2)
+            .script("dispatch", where="prefill", count=1)
+            .script("nan", uid=FAULT_NAN_UID, count=1))
+    bt, done, summary, tok_s = paged_run("faults (scripted)", faults=plan)
+    bad = done[FAULT_NAN_UID]
+    log(f"faults (scripted): plan log {plan.log}; request {FAULT_NAN_UID}: failed {bad.failed} "
+        f"({bad.error})")
+    if not (bad.failed and "non-finite" in bad.error):
+        raise AssertionError(f"faults (scripted): request {FAULT_NAN_UID} was not quarantined")
+    others = [uid for uid in range(len(prompts)) if uid != FAULT_NAN_UID]
+    differ = [uid for uid in others
+              if done[uid].failed or list(done[uid].out) != list(paged["tokens"][uid])]
+    if (differ or bt.dispatch_faults != 3 or bt.captures != 2 or bt.quarantined != 1
+            or summary["live_refs"] != 0 or summary["live_slots"] or summary["queued"]):
+        raise AssertionError(f"faults (scripted): tokens differ from phase 4's for {differ}, "
+                             f"dispatch_faults {bt.dispatch_faults}, captures {bt.captures}, "
+                             f"quarantined {bt.quarantined}, invariants {summary}")
+    log(f"faults (scripted): requests {others} == phase 4's tokens; dispatch_faults 3, "
+        "captures 2, quarantined 1, live_refs 0")
+    rates["scripted_decode_tok_s"] = tok_s
+    del bt
+
+    # 4. preemption: a hog swapped out for a short request of higher priority
+    hog, short = prompts[0], prompts[2]
+
+    def pressure(pool_tokens, preempt, graphs):
+        bt = ContinuousBatcher(model, num_slots=2, max_seq=1024, prefill_chunk=32,
+                               paging=PagingSpec.sized(16, 1024, pool_tokens), policy="priority",
+                               preempt=preempt, cuda_graphs=graphs)
+        ptrs = [(k.data_ptr(), v.data_ptr()) for k, v in bt.caches]
+        on_card = bt.caches[0][0].is_cuda
+        outs, ins = [], []
+        if preempt:
+            bt._swap_out_fn = timed_swap(torch, bt._swap_out_fn, outs)
+            bt._swap_in_fn = timed_swap(torch, bt._swap_in_fn, ins)
+        torch.cuda.synchronize()
+        zero_counts(ops)
+        reqs = [Request(uid=0, tokens=hog, max_new=HOG_NEW, priority=10),
+                Request(uid=1, tokens=short, max_new=NEW, priority=0)]
+        bt.submit(reqs[0])
+        bt.step()
+        bt.step()
+        bt.submit(reqs[1])
+        bt.run()
+        torch.cuda.synchronize()
+        launches = read_counts(ops)
+        name = (f"faults (preemption, {pool_tokens}-token pool, "
+                f"{'graphs' if graphs else 'eager'})")
+        check_launches(name, launches, batcher_stats(bt), paged=True)
+        add(launches)
+        summary = bt.check_invariants()
+        moved = ptrs != [(k.data_ptr(), v.data_ptr()) for k, v in bt.caches]
+        bt.close()
+        log(f"{name}: swap_outs {bt.swap_outs}, swap_ins {bt.swap_ins}, hog preemptions "
+            f"{reqs[0].preemptions}; check_invariants {summary}; pools moved {moved}")
+        if moved or summary["live_slots"] or summary["queued"] or summary["live_refs"]:
+            raise AssertionError(f"{name}: pools moved {moved} or invariants {summary}")
+        if (preempt and ((bt.swap_outs, bt.swap_ins, reqs[0].preemptions) != (1, 1, 1)
+                         or len(outs) != 1 or len(ins) != 1)):
+            raise AssertionError(f"{name}: swap_outs {bt.swap_outs}, swap_ins {bt.swap_ins}, "
+                                 f"preemptions {reqs[0].preemptions}")
+        if any(on_card and not pinned for *_, pinned in outs + ins):
+            raise AssertionError(f"{name}: the swap snapshot is not pinned")
+        return [list(r.out) for r in reqs], outs, ins
+
+    want, _, _ = pressure(2048, False, True)
+    timings = {}
+    # the graph run's swap-out is the process's first: it allocates the
+    # pinned snapshot; the eager run's reuses it from torch's cache
+    for graphs in (True, False):
+        got, ((out_s, shape, nbytes, _),), ((in_s, *_),) = pressure(1024, True, graphs)
+        mode = "graphs" if graphs else "eager"
+        if got != want:
+            raise AssertionError(f"faults (preemption, {mode}): tokens differ from the roomy "
+                                 "pool's")
+        timings[mode] = {"swap_out_ms": out_s * 1e3, "swap_in_ms": in_s * 1e3,
+                         "snapshot_mib": nbytes / 2**20, "swap_out_gb_s": nbytes / out_s / 1e9,
+                         "swap_in_gb_s": nbytes / in_s / 1e9}
+        log(f"faults (preemption, {mode}): tokens == the roomy pool's on both requests; "
+            f"snapshot {shape}, {nbytes / 2**20:.1f} MiB pinned; synchronized swap-out "
+            f"{out_s * 1e3:.2f} ms ({nbytes / out_s / 1e9:.2f} GB/s), swap-in "
+            f"{in_s * 1e3:.2f} ms ({nbytes / in_s / 1e9:.2f} GB/s)")
+    rates["preemption"] = timings
+    rates["memory_before_mb"] = mem_before
+    rates["memory_mb"] = log_memory(torch, "faults")
+    return {"launches": launches_sum, "rates": rates}
 
 
 ADAPTER_LENS = [700, 64, 413, 257, 590, 128, 300, 500]
@@ -1061,6 +1275,7 @@ def main() -> int:
     from repro_torch.models import TransformerLM
     from repro_torch.serve import (
         ContinuousBatcher,
+        FaultPlan,
         PagingSpec,
         Request,
         ServeEngine,
@@ -1103,6 +1318,8 @@ def main() -> int:
                               PagingSpec, ops, dense)
     prefix = phase_prefix_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request,
                                 PagingSpec, ops)
+    faults = phase_faults(torch, np, model, ServeEngine, ContinuousBatcher, Request, PagingSpec,
+                          FaultPlan, ops, dense, paged)
     profiles = phase_profile(torch, np, model, ContinuousBatcher, Request, PagingSpec)
     del model  # and the cycles that still hold it, so phase 7 starts on a free card
     gc.collect()
@@ -1117,15 +1334,16 @@ def main() -> int:
     phase_breakdown(torch, breakdown)
     del breakdown  # its closures hold the phase-2 inputs
     log(json.dumps({"serve_rates": {"dense": dense["rates"], "paged": paged["rates"],
-                                    "prefix": prefix["rates"],
+                                    "prefix": prefix["rates"], "faults": faults["rates"],
                                     "adapters": adapters["rates"]},
                     "profile": profiles}))
     log(f"smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     # launches of each kernel on the main paths, each counted from zero:
     # the dense and adapters phases for the dense kernels, the paged and
-    # prefix phases for the paged ones, the adapters phase for the graph mix
+    # prefix phases for the paged ones, the faults phase for both, the
+    # adapters phase for the graph mix
     launches = {
-        name: sum(ph["launches"][name] for ph in (dense, paged, prefix, adapters))
+        name: sum(ph["launches"][name] for ph in (dense, paged, prefix, faults, adapters))
         for name in COUNTED
     }
     meta = {

@@ -70,9 +70,27 @@ dispatch gathers each row's deltas from ``adapters.serving`` by task id
 and every finished request is streamed into the store's delayed-update
 loop (``note_request``) after its slot's blocks are freed.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: fault injection (``faults``) and preemptive swap-out
-(``preempt``) — later slices of the port.
+Fault tolerance, as in the reference: ``faults=`` injects a seeded
+``repro_torch.serve.faults.FaultPlan`` at named seams (allocator
+exhaustion, prefix pinning, dispatch exceptions, NaN lanes, adapter
+failures, failed retirements, clock skew; every seam a no-op when
+``faults=None``). A dispatch seam fires before the step's inputs are
+packed and before its CUDA graph is captured, so a faulted dispatch leaves
+no half-made capture and launches (and counts) no kernel. ``quarantine``
+(on exactly when a plan is given, unless set) reads each dispatch's logits
+rows to the host before the next replay overwrites them and turns a
+non-finite row into a terminal ``Request.failed`` for THAT request only.
+Transient faults retry with a deadline-aware backoff (``max_retries``,
+``retry_backoff_s``), and exhaustion goes terminally failed: ``run()``
+raises nothing but the documented ``TickBudgetExceeded`` for an injected
+fault. A real error — a CUDA error, a failed capture or replay — is no
+``FaultError`` and propagates. ``preempt=True`` (paged mode) swaps a
+running lower-priority victim's blocks to pinned host memory under block
+pressure instead of refusing admission (``serve.step.make_swap``, eager,
+between replays, the pools written in place) and requeues it; its
+re-admission restores the rows into fresh blocks and resumes at the saved
+position. ``check_invariants()`` reconciles the slot map, allocator
+refcounts, block tables, prefix-trie chains and the queue at any point.
 """
 from __future__ import annotations
 
@@ -82,25 +100,11 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.serve.faults import FaultError
 from repro_torch.serve.paging import BlockAllocator, RadixPrefixCache
 from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.slots import SlotMap
-from repro_torch.serve.step import StepExecutor, make_cow_copy
-
-_LATER_SLICES = {
-    "faults": "fault injection",
-    "preempt": "preemptive swap-out",
-}
-
-
-def refuse_unported(**options) -> None:
-    """Raise for any option of a later slice of the port that is set."""
-    for name, value in options.items():
-        if value:
-            raise NotImplementedError(
-                f"{name}=: {_LATER_SLICES[name]} is not ported to repro_torch "
-                "yet (a later slice of the port; see ROADMAP.md)"
-            )
+from repro_torch.serve.step import StepExecutor, make_cow_copy, make_swap
 
 
 def check_adapters(adapters, model) -> None:
@@ -139,6 +143,18 @@ class Request:
     # retirement flags; a flagged request is never done
     cancelled: bool = False
     timed_out: bool = False
+    # terminal failure: lane quarantine (non-finite logits) or transient-
+    # fault retry exhaustion; ``error`` carries the reason
+    failed: bool = False
+    error: str | None = None
+    # bounded retry: transient injected faults requeue with a backoff;
+    # ``not_before`` gates re-admission
+    retries: int = 0
+    not_before: float = 0.0
+    # preemptive swap-out: times this request was swapped out, and (while
+    # preempted) its snapshot {"kv": pinned host tensor, "pos": int}
+    preemptions: int = 0
+    _swap: dict | None = None
     # bookkeeping stamped by the scheduler/executor
     submit_time: float | None = None
     prompt_done: int = 0  # prompt tokens already written to the cache
@@ -170,9 +186,11 @@ class ContinuousBatcher:
         adapters=None,
         faults=None,
         preempt: bool = False,
+        quarantine: bool | None = None,
+        max_retries: int = 3,
+        retry_backoff_s: float = 0.0,
         cuda_graphs: bool | None = None,
     ):
-        refuse_unported(faults=faults is not None, preempt=preempt)
         check_adapters(adapters, model)
         self.model = model
         self.adapters = adapters
@@ -218,6 +236,30 @@ class ContinuousBatcher:
             self.scheduler.cost_fn = lambda r: (
                 len(r.tokens) - prefix.match(r.task_id, r.tokens).tokens
             )
+        # ---- fault tolerance & graceful degradation ----
+        self.faults = faults
+        # quarantine defaults on exactly when a fault plan is present: the
+        # finiteness check reads every dispatch's logits to the host, which
+        # the greedy path otherwise never does
+        self.quarantine = (faults is not None) if quarantine is None else quarantine
+        self.preempt = preempt
+        if preempt and paging is None:
+            raise ValueError(
+                "preempt=True requires a paged cache layout (a PagingSpec): "
+                "dense per-slot stripes hold no blocks to swap out"
+            )
+        if max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got {max_retries}")
+        self.max_retries = max_retries
+        self.retry_backoff_s = retry_backoff_s
+        self._swap_out_fn = self._swap_in_fn = None
+        if preempt:
+            self._swap_out_fn, self._swap_in_fn = make_swap(paging)
+        if faults is not None:
+            # clock-skew seam: every deadline decision the scheduler makes
+            # sees the plan's skewed time (timeout storms)
+            base_now = self.scheduler._now
+            self.scheduler._now = lambda: base_now() + faults.skew()
         self.caches = model.init_cache(num_slots, max_seq, paging)
         self.finished: list[Request] = []
         self.ticks = 0
@@ -227,8 +269,18 @@ class ContinuousBatcher:
         self.cow_copies = 0  # copy-on-write steps (prefix-cache mode)
         self.admission_waits = 0  # admission rounds stopped on KV blocks (paged)
         self.prefill_tokens = 0  # prompt tokens computed
+        self.swap_outs = 0  # preemptive swap-outs
+        self.swap_ins = 0  # swap-ins (restores)
+        self.quarantined = 0  # requests failed by the finiteness check
+        self.dispatch_faults = 0  # injected dispatch failures absorbed
+        self.adapter_faults = 0  # injected adapter-update failures absorbed
+        self.retire_faults = 0  # injected mid-retirement failures absorbed
         self.decode_s = self.prefill_s = 0.0
+        self._consec_dispatch_faults = 0
+        self._stalled_steps = 0  # no-progress rounds (count against run())
+        self._pending_prefill: set[int] = set()  # gulp resume after a fault
         self._needs_reset: set[int] = set()  # fresh slots awaiting reset
+        self._just_restored: set[int] = set()
         self._steps = StepExecutor(model, self.caches, num_slots, prefill_chunk,
                                    prefill_mode, paging, cuda_graphs)
 
@@ -329,48 +381,191 @@ class ContinuousBatcher:
     def _try_bind(self, s: int, req: Request) -> bool:
         """Scheduler placement callback: reserve the request's blocks for
         its whole lifetime and bind the slot — or report backpressure
-        (False stops admission for this round)."""
+        (False stops admission for this round; ``admission_waits`` counts
+        it). Under ``preempt=True``, block pressure first tries to swap out
+        a strictly-lower-priority running victim. A transient
+        ``FaultError`` on an admission dispatch (COW, swap-in) unwinds
+        every reference the attempt acquired and requeues the request with
+        bounded retry."""
         if self.paging is None:
             self.slots.bind(s, req)
             return True
         needed = self.paging.blocks_for(len(req.tokens) + req.max_new)
-        if self.prefix is not None:
-            bound = self._bind_prefix(s, req, needed)
-        elif self.allocator.can_alloc(needed):
-            self._set_table(s, self.allocator.alloc(needed))
-            self.slots.bind(s, req)
-            bound = True
+        if self.faults is not None and self.faults.fires("alloc", uid=req.uid):
+            # simulated allocator exhaustion: indistinguishable from real
+            # backpressure downstream
+            bound = False
         else:
-            bound = False  # wait for finishing requests' blocks
+            try:
+                bound = self._bind_paged(s, req, needed)
+            except FaultError as e:
+                self._note_retry(req, str(e))
+                return False
         if not bound:
             self.admission_waits += 1
         return bound
+
+    def _bind_paged(self, s: int, req: Request, needed: int) -> bool:
+        if req._swap is not None:
+            return self._bind_restore(s, req, needed)
+        if self.prefix is not None:
+            if self.faults is not None and self.faults.fires("incref", uid=req.uid):
+                return False
+            return self._bind_prefix(s, req, needed)
+        if not self.allocator.can_alloc(needed) and not self._preempt_for(req, needed):
+            return False  # wait for finishing requests' blocks
+        self._set_table(s, self.allocator.alloc(needed))
+        self.slots.bind(s, req)
+        return True
 
     def _bind_prefix(self, s: int, req: Request, needed: int) -> bool:
         """Prefix-cache admission: alias the cached chain, copy-on-write
         the partially shared boundary block, bind at ``cached_tokens``."""
         admit = self.prefix.admit(req.task_id, req.tokens, needed)
+        if admit is None and self._preempt_for(req, needed):
+            admit = self.prefix.admit(req.task_id, req.tokens, needed)
         if admit is None:
             return False  # truly out of live + unreclaimable memory
         if admit.cow is not None:
             # the boundary block is only partially shared: copy the shared
             # rows into the slot's private block. The source stays pinned
-            # (increfed) across the copy; the pin drops whatever happens
+            # (increfed) across the copy; the pin drops whatever happens,
+            # and a failure also unwinds the chain and the fresh blocks
             src, dst, rows = admit.cow
+            ok = False
             try:
+                if self.faults is not None and self.faults.fires(
+                    "dispatch", uid=req.uid, where="cow"
+                ):
+                    raise FaultError("injected copy-on-write dispatch failure")
                 self.caches = self._cow_fn(self.caches, src, dst, rows)
                 self.cow_copies += 1
-            except BaseException:
-                self.prefix.release(list(admit.blocks))
-                raise
+                ok = True
             finally:
                 self.prefix.release([src])
+                if not ok:
+                    self.prefix.release(list(admit.blocks))
         self._set_table(s, admit.blocks)
         # prefill resumes after the cached prefix
         req.prompt_done = admit.cached_tokens
         req.cached_tokens = admit.cached_tokens
         self.slots.bind(s, req, pos=admit.cached_tokens)
         return True
+
+    def _bind_restore(self, s: int, req: Request, needed: int) -> bool:
+        """Re-admit a preempted request: fresh blocks, one swap-in of its
+        saved rows, bound at the saved position. The prefix trie is
+        bypassed: the snapshot holds mid-generation KV that must stay
+        private, so restored blocks never alias cached chains."""
+        if not self._blocks_available(needed) and not self._preempt_for(req, needed):
+            return False
+        release = self.prefix.release if self.prefix is not None else self.allocator.free
+        blocks = (self.prefix.alloc(needed) if self.prefix is not None
+                  else self.allocator.alloc(needed))
+        try:
+            if self.faults is not None and self.faults.fires(
+                "dispatch", uid=req.uid, where="swap"
+            ):
+                raise FaultError("injected swap-in dispatch failure")
+            self._swap_in_fn(self.caches, blocks, req._swap["kv"])
+        except FaultError:
+            # unwind the fresh blocks; the snapshot stays on the request,
+            # so a later retry restores from it unchanged
+            release(blocks)
+            raise
+        self.swap_ins += 1
+        self._set_table(s, blocks)
+        self.slots.bind(s, req, pos=req._swap["pos"])
+        req._swap = None  # the pinned snapshot goes back to torch's cache
+        self._just_restored.add(s)
+        return True
+
+    # --------------------------------------------- preemptive swap-out
+    def _blocks_available(self, n: int) -> bool:
+        if self.prefix is not None:
+            return self.prefix.can_alloc(n)
+        return self.allocator.can_alloc(n)
+
+    def _pick_victim(self, req: Request):
+        """Among running slots whose priority value is STRICTLY greater
+        than the incoming request's (they matter strictly less), the
+        lowest-priority one, ties broken by most blocks held, then latest
+        arrival. Strict dominance means a restored request is never
+        re-preempted by the one it yielded to (no livelock). Only slots
+        past prefill that have emitted a token are preemptable."""
+        candidates = [
+            (s, r) for s, r in self.slots.live_items()
+            if r.priority > req.priority and r.prefill_remaining == 0 and r.out
+        ]
+        if not candidates:
+            return None
+        return max(candidates,
+                   key=lambda sr: (sr[1].priority, len(self.slot_blocks[sr[0]]), sr[1]._arrival))
+
+    def _preempt_for(self, req: Request, needed: int) -> bool:
+        """Swap out victims until ``needed`` blocks are coverable (or no
+        dominated victim remains). Returns whether pressure was relieved."""
+        if not self.preempt:
+            return False
+        while not self._blocks_available(needed):
+            victim = self._pick_victim(req)
+            if victim is None:
+                return False
+            try:
+                self._swap_out_slot(*victim)
+            except FaultError:
+                # the fault fired before the gather: the victim keeps
+                # running untouched; no preemption this round
+                self.dispatch_faults += 1
+                return False
+        return True
+
+    def _swap_out_slot(self, s: int, req: Request) -> None:
+        """Gather the slot's blocks to host memory (one swap-out), free
+        them, release the slot and requeue the request at its original
+        arrival position; re-admission restores it (``_bind_restore``)."""
+        if self.faults is not None and self.faults.fires(
+            "dispatch", uid=req.uid, where="swap"
+        ):
+            raise FaultError("injected swap-out dispatch failure")
+        saved = self._swap_out_fn(self.caches, self.slot_blocks[s])
+        req._swap = {"kv": saved, "pos": int(self.pos[s])}
+        req.preemptions += 1
+        self.swap_outs += 1
+        self._free_slot_blocks(s)
+        self.slots.release(s)
+        self.scheduler.requeue(req)
+
+    # ----------------------------------------------------- bounded retry
+    def _backoff_delay(self, req: Request) -> float:
+        """Deadline-aware exponential backoff: doubles per retry but is
+        capped at half the request's remaining deadline budget, so backoff
+        can never itself expire the request."""
+        if self.retry_backoff_s <= 0.0:
+            return 0.0
+        delay = self.retry_backoff_s * (2 ** (req.retries - 1))
+        if req.timeout_s is not None and req.submit_time is not None:
+            remaining = req.submit_time + req.timeout_s - self.scheduler.now()
+            delay = min(delay, max(0.0, 0.5 * remaining))
+        return delay
+
+    def _note_retry(self, req: Request, error: str) -> None:
+        """Bounded retry for a transient admission fault: requeue with
+        backoff, or — once ``max_retries`` is exhausted — retire the
+        request terminally failed."""
+        req.retries += 1
+        if req.retries > self.max_retries:
+            self.scheduler.cancel(req.uid)  # drop from the queue if queued
+            s = self.slots.slot_of(req.uid)
+            if s is not None:
+                self._free_slot_blocks(s)
+                self.slots.release(s)
+            req.failed = True
+            req.error = f"{error} (retries exhausted after {req.retries - 1})"
+            req._swap = None
+            self.finished.append(req)
+            return
+        req.not_before = self.scheduler.now() + self._backoff_delay(req)
 
     # ------------------------------------------------------------- emission
     def _emit(self, req: Request, row=None, greedy=None):
@@ -382,10 +577,13 @@ class ContinuousBatcher:
             self.on_token(req, tok)
 
     def _rows(self, logits: torch.Tensor):
-        """A dispatch's logits rows on the host, only when a sampler needs
-        them (the greedy argmax runs on the device: first maximal index,
-        like np.argmax). Read at once: the next replay overwrites them."""
-        return logits.cpu().numpy() if self.sample_fn is not None else None
+        """A dispatch's logits rows on the host, only when a sampler or the
+        quarantine needs them (the greedy argmax runs on the device: first
+        maximal index, like np.argmax). Read at once: the next replay
+        overwrites them."""
+        if self.sample_fn is None and not self.quarantine:
+            return None
+        return logits.cpu().numpy()
 
     def _finish_ready(self):
         for s, req in self.slots.live_items():
@@ -399,9 +597,14 @@ class ContinuousBatcher:
                 # still hold blocks
                 self._free_slot_blocks(s)
                 self.slots.release(s)  # state cleared on re-admission
-                if self.adapters is not None:
-                    # the finish feeds the store's delayed-update loop
-                    # (host side, between dispatches)
+                if self.adapters is None:
+                    continue
+                # the finish feeds the store's delayed-update loop (host
+                # side, between dispatches). An injected update failure
+                # drops THIS request's signal only
+                if self.faults is not None and self.faults.fires("adapter", uid=req.uid):
+                    self.adapter_faults += 1
+                else:
                     self.adapters.note_request(req)
 
     # --------------------------------------------------- retirement paths
@@ -417,6 +620,7 @@ class ContinuousBatcher:
                 return False
             self._free_slot_blocks(s)
             req = self.slots.release(s)
+        req._swap = None  # a preempted request's snapshot
         req.cancelled = True
         self.finished.append(req)
         return True
@@ -435,8 +639,15 @@ class ContinuousBatcher:
         )
         for req in dead_queued:
             req.timed_out = True
+            req._swap = None  # a preempted request's snapshot
             self.finished.append(req)
         for s, req in dead_live:
+            if self.faults is not None and self.faults.fires("free", uid=req.uid):
+                # injected mid-retirement fault: skip THIS retirement — the
+                # slot stays bound and its blocks held, so the allocator
+                # stays reconcilable, and the expiry retries next round
+                self.retire_faults += 1
+                continue
             self._free_slot_blocks(s)
             self.slots.release(s)
             req.timed_out = True
@@ -448,11 +659,17 @@ class ContinuousBatcher:
         prefill ALL newly admitted prompts together in chunked dispatches.
         Paged mode reserves each request's blocks here; when they cannot
         be had, admission stops until finishing requests release blocks."""
+        self._just_restored = set()
         admitted = self.scheduler.admit(self.slots.free_slots(), self._try_bind)
         newly = [s for s, _ in admitted]
-        self._needs_reset |= set(newly)
-        if self.scheduler.chunk_budget is None and newly:
-            self._prefill_full(sorted(newly))
+        # restored (swapped-in) slots must not be reset: their rows were
+        # just written back
+        self._needs_reset |= set(newly) - self._just_restored
+        # slots whose gulp a dispatch fault interrupted resume here
+        resumed = sorted(self._pending_prefill)
+        self._pending_prefill = set()
+        if self.scheduler.chunk_budget is None and (newly or resumed):
+            self._prefill_full(sorted(set(newly) | set(resumed)))
         return newly
 
     def _prefill_full(self, targets: list[int]):
@@ -460,7 +677,11 @@ class ContinuousBatcher:
         dispatches, emitting each request's first generated token the
         dispatch its prefill completes. Each slot prefills from its own
         cursor (``prompt_done``: 0, or ``cached_tokens`` after a prefix
-        hit), so a resident prefix costs no dispatch."""
+        hit), so a resident prefix costs no dispatch; restored slots ride
+        along with nothing to prefill. An injected dispatch fault aborts
+        the round before the dispatch: the unfinished slots land in
+        ``_pending_prefill`` and the next admission round resumes them
+        from their cursors."""
         task_ids = self.slots.task_ids(self._null_task)
         tree = self._adapter_tree()
         c = self.prefill_chunk
@@ -472,6 +693,9 @@ class ContinuousBatcher:
             ]
             if not pending:
                 break
+            if self.faults is not None and self.faults.fires("dispatch", where="prefill"):
+                self._pending_prefill = set(pending)
+                raise FaultError("injected prefill dispatch failure")
             tokens = np.zeros((self.num_slots, c), np.int32)
             valid = np.zeros((self.num_slots, c), bool)
             reset = np.zeros(self.num_slots, bool)
@@ -491,6 +715,7 @@ class ContinuousBatcher:
             self.prefill_s += time.perf_counter() - t0
             self.prefill_dispatches += 1
             self.prefill_tokens += int(valid.sum())
+            self._consec_dispatch_faults = 0
             self._needs_reset -= set(pending)
             self.slots.set_positions(positions)
             completed = []
@@ -505,13 +730,44 @@ class ContinuousBatcher:
             # generated token: emit it the dispatch it appears (prefix
             # matching is capped at len(prompt) - 1, so every completing
             # slot computed at least its last prompt token here)
+            if self.quarantine and completed:
+                self._quarantine_scan({s: rows[s] for s, _ in completed}, completed)
             for s, req in completed:
-                if self.slots.reqs[s] is not req:  # cancelled
+                if self.slots.reqs[s] is not req:  # quarantined/cancelled
                     continue
                 self._register_prefix(s, req)
                 if not req.out:
                     self._emit(req, row=None if rows is None else rows[s],
                                greedy=greedy[s])
+
+    def _quarantine_scan(self, rows: dict, items: list) -> None:
+        """Lane quarantine: one host-side finiteness check over the logits
+        rows this dispatch already read. A non-finite row fails ONLY its
+        own request — terminal ``Request.failed`` with the reason, blocks
+        freed, slot released — while every other lane's tokens are
+        untouched.
+
+        rows: {slot: logits row (np)}; items: [(slot, request)] emitting
+        this dispatch. The ``nan`` fault seam poisons its scripted lanes
+        here, in the host copy, never in the device output."""
+        if not items:
+            return
+        if self.faults is not None:
+            for s, req in items:
+                if self.faults.fires("nan", slot=s, uid=req.uid):
+                    rows[s] = np.full_like(rows[s], np.nan)
+        finite = np.isfinite(np.stack([rows[s] for s, _ in items])).all(axis=1)
+        for (s, req), ok in zip(items, finite):
+            if ok:
+                continue
+            self.quarantined += 1
+            self._free_slot_blocks(s)  # blocks first (see _finish_ready)
+            self.slots.release(s)
+            req.failed = True
+            req.error = (
+                f"non-finite logits at tick {self.ticks} (slot {s}) — lane quarantined"
+            )
+            self.finished.append(req)
 
     def tick(self):
         """Advance every live slot one token — exactly ONE decode dispatch
@@ -519,6 +775,8 @@ class ContinuousBatcher:
         live = self.slots.live()
         if not live.any():
             return
+        if self.faults is not None and self.faults.fires("dispatch", where="decode"):
+            raise FaultError("injected decode dispatch failure")
         tokens = np.zeros(self.num_slots, np.int32)
         for s, req in self.slots.live_items():
             tokens[s] = req.out[-1] if req.out else np.asarray(req.tokens)[-1]
@@ -533,7 +791,11 @@ class ContinuousBatcher:
         self.decode_s += time.perf_counter() - t0
         self.ticks += 1
         self.decode_dispatches += 1
+        self._consec_dispatch_faults = 0
         self.slots.advance_live()
+        if self.quarantine:
+            items = self.slots.live_items()
+            self._quarantine_scan({s: rows[s] for s, _ in items}, items)
         for s, req in self.slots.live_items():
             self._emit(req, row=None if rows is None else rows[s], greedy=greedy[s])
 
@@ -552,6 +814,8 @@ class ContinuousBatcher:
         ]
         if not prefilling and not decoding:
             return
+        if self.faults is not None and self.faults.fires("dispatch", where="mixed"):
+            raise FaultError("injected mixed dispatch failure")
         c = self.prefill_chunk
         plan = self.scheduler.plan_prefill(prefilling, c)
         tokens = np.zeros((self.num_slots, c), np.int32)
@@ -574,6 +838,7 @@ class ContinuousBatcher:
         self.ticks += 1
         self.mixed_dispatches += 1
         self.prefill_tokens += sum(n for _, n in plan)
+        self._consec_dispatch_faults = 0
         self.slots.set_positions(positions)
         completed = []
         for s, n in plan:
@@ -583,11 +848,14 @@ class ContinuousBatcher:
             req.prompt_done += n
             if req.prefill_remaining == 0:
                 completed.append((s, req))
+        if self.quarantine:
+            items = completed + [(s, r) for s, r in decoding if self.slots.reqs[s] is r]
+            self._quarantine_scan({s: rows[s] for s, _ in items}, items)
         for s, req in completed:
-            if self.slots.reqs[s] is req:  # not cancelled mid-round
+            if self.slots.reqs[s] is req:  # not quarantined/cancelled
                 self._register_prefix(s, req)
         for s, req in completed + decoding:
-            if self.slots.reqs[s] is req:  # not cancelled mid-round
+            if self.slots.reqs[s] is req:  # not quarantined/cancelled
                 self._emit(req, row=None if rows is None else rows[s], greedy=greedy[s])
 
     # ------------------------------------------------------------ driving
@@ -606,16 +874,45 @@ class ContinuousBatcher:
     def step(self):
         """One scheduling round: retire expired requests, admit from the
         queue, then advance — the admit-gulp + decode tick when
-        ``chunk_budget`` is None, or one fused interleaved dispatch."""
+        ``chunk_budget`` is None, or one fused interleaved dispatch.
+
+        An injected dispatch ``FaultError`` (always raised before the
+        dispatch, so no state was mutated) aborts the round; the next round
+        retries the same work. ``max_retries`` consecutive failed rounds
+        fail every in-flight request terminally instead of spinning."""
+        if self.faults is not None:
+            self.faults.set_tick(self.ticks)
         self._retire_expired()
-        self._admit()
-        if self.scheduler.chunk_budget is None:
-            self._finish_ready()  # prefill alone may satisfy max_new
-            if self.slots.any_live():
-                self.tick()
-        else:
-            self._interleaved_tick()
+        try:
+            self._admit()
+            if self.scheduler.chunk_budget is None:
+                self._finish_ready()  # prefill alone may satisfy max_new
+                if self.slots.any_live():
+                    self.tick()
+            else:
+                self._interleaved_tick()
+        except FaultError as e:
+            self._note_dispatch_fault(e)
         self._finish_ready()
+
+    def _note_dispatch_fault(self, e: FaultError) -> None:
+        """Count an injected dispatch fault, and once ``max_retries``
+        CONSECUTIVE rounds have failed (a successful dispatch resets the
+        streak), retire every in-flight request terminally failed."""
+        self.dispatch_faults += 1
+        self._consec_dispatch_faults += 1
+        if self._consec_dispatch_faults <= self.max_retries:
+            return
+        for s, req in self.slots.live_items():
+            self._free_slot_blocks(s)
+            self.slots.release(s)
+            req.failed = True
+            req.error = (
+                f"dispatch failed {self._consec_dispatch_faults} consecutive rounds: {e}"
+            )
+            self.finished.append(req)
+        self._pending_prefill = set()
+        self._consec_dispatch_faults = 0
 
     def _pending(self) -> bool:
         return bool(self.scheduler.queue) or self.slots.any_live()
@@ -640,7 +937,11 @@ class ContinuousBatcher:
             before = (self.ticks, self.prefill_tokens, len(self.finished))
             self.step()
             if (self.ticks, self.prefill_tokens, len(self.finished)) == before:
-                stalled += 1  # a round that advanced nothing burns budget too
+                # a round that advanced nothing (injected faults, backoff)
+                # burns budget too: a permanently faulted engine raises
+                # TickBudgetExceeded instead of spinning
+                stalled += 1
+                self._stalled_steps += 1
         if exhausted:
             unfinished = [r for _, r in self.slots.live_items()]
             unfinished += list(self.scheduler.queue)
@@ -655,3 +956,86 @@ class ContinuousBatcher:
                     "partial results instead of this exception"
                 )
         return self.finished
+
+    # ------------------------------------------------------ reconciliation
+    def check_invariants(self) -> dict:
+        """Host-side reconciliation: slot map vs. allocator refcounts vs.
+        block tables vs. prefix-trie chains vs. the scheduler queue. Pure
+        bookkeeping, no dispatch; callable between steps. Raises
+        ``RuntimeError`` at the first violation; returns a summary dict
+        when everything reconciles."""
+        live = self.slots.live_items()
+        self.slots.check_consistent(self.slot_capacity)
+        for s, req in live:
+            if req.done or req.failed or req.cancelled:
+                raise RuntimeError(
+                    f"slot {s}: request {req.uid} is retired "
+                    "(done/failed/cancelled) but still bound"
+                )
+        uids = [r.uid for r in self.scheduler.queue] + [r.uid for _, r in live]
+        if len(set(uids)) != len(uids):
+            raise RuntimeError(f"duplicate uid across queue + slots: {sorted(uids)}")
+        for r in self.scheduler.queue:
+            if r.done or r.failed or r.cancelled or r.timed_out:
+                raise RuntimeError(f"queued request {r.uid} is already retired")
+        summary = {
+            "live_slots": len(live),
+            "queued": len(self.scheduler.queue),
+            "finished": len(self.finished),
+        }
+        if self.paging is None:
+            return summary
+        spec = self.paging
+        expected = [0] * spec.num_blocks
+        for s in range(self.num_slots):
+            blocks = self.slot_blocks[s]
+            row = self.block_tables[s]
+            if self.slots.reqs[s] is None:
+                if blocks or row.any():
+                    raise RuntimeError(
+                        f"slot {s} is unbound but still holds blocks "
+                        f"{blocks or row.nonzero()[0].tolist()} — leak"
+                    )
+                continue
+            if not blocks:
+                raise RuntimeError(
+                    f"slot {s} (request {self.slots.reqs[s].uid}) is live "
+                    "with no reserved blocks"
+                )
+            if list(row[: len(blocks)]) != blocks or row[len(blocks):].any():
+                raise RuntimeError(
+                    f"slot {s}: block table row {row.tolist()} does not "
+                    f"mirror the reservation {blocks}"
+                )
+            for b in blocks:
+                if not 0 < b < spec.num_blocks:
+                    raise RuntimeError(f"slot {s} maps foreign block {b}")
+                expected[b] += 1
+        self.allocator.check_consistent(expected)
+        registered = set(self.prefix._node_of_block) if self.prefix is not None else set()
+        for b in range(1, spec.num_blocks):
+            if (
+                self.allocator.refcount[b] == 0
+                and b not in self.allocator._free_set
+                and b not in registered
+            ):
+                raise RuntimeError(
+                    f"block {b} leaked: refcount 0, not on the free list, "
+                    "not cached in the prefix trie"
+                )
+        if self.prefix is not None:
+            self.prefix.check_chains()
+        for r in self.scheduler.queue:
+            if r._swap is None and r.prompt_done > r.cached_tokens:
+                # a queued non-preempted request holds no cache state, so a
+                # nonzero cursor would skip prefilling real prompt tokens
+                raise RuntimeError(
+                    f"queued request {r.uid} has prefill cursor "
+                    f"{r.prompt_done} but no slot and no swap snapshot"
+                )
+        summary.update({
+            "free_blocks": self.allocator.free_blocks,
+            "live_refs": self.allocator.live_refs,
+            "cached_blocks": len(registered),
+        })
+        return summary

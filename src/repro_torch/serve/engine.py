@@ -35,9 +35,18 @@ device; ``True`` on the CPU raises. Each call captures the graphs of its
 own batcher (they bind that batcher's caches) and releases them when it
 returns.
 
+``faults`` (a ``repro_torch.serve.faults.FaultPlan``) and ``preempt``
+(paged only) are passed to the call's batcher: injected transient faults
+retry transparently, and preemption swaps a lower-priority request out
+under block pressure and restores it exactly. A request that ends failed
+(a quarantined non-finite lane, or retries exhausted) makes ``generate``
+raise ``RuntimeError``: a dense (B, num_tokens) array cannot hold a
+partial result.
+
 ``last_stats`` holds the dispatch counts, host seconds (``decode_s``,
 ``prefill_s``, and ``capture_s`` for the captures, which the other two do
-not hold), graph captures and (paged) admission waits of the last
+not hold), graph captures, (paged) admission waits, swap-outs and
+swap-ins, absorbed dispatch faults and quarantined requests of the last
 ``generate`` call.
 """
 from __future__ import annotations
@@ -47,12 +56,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.serve.batching import (
-    ContinuousBatcher,
-    Request,
-    check_adapters,
-    refuse_unported,
-)
+from repro_torch.serve.batching import ContinuousBatcher, Request, check_adapters
 from repro_torch.serve.paging import PagingSpec
 from repro_torch.serve.step import use_cuda_graphs
 
@@ -93,12 +97,14 @@ class ServeEngine:
     adapters: object = None
     # None: one CUDA-graph replay per step on a CUDA model, eager on the CPU
     cuda_graphs: bool | None = None
-    # later slices of the port; setting either raises
+    # optional repro_torch.serve.faults.FaultPlan: inject scripted or
+    # probabilistic faults at the executor's seams (None: no seam fires)
     faults: object = None
+    # paged only: swap out lower-priority running requests under block
+    # pressure instead of refusing admission
     preempt: bool = False
 
     def __post_init__(self):
-        refuse_unported(faults=self.faults is not None, preempt=self.preempt)
         check_adapters(self.adapters, self.model)
         use_cuda_graphs(self.cuda_graphs, self.model.device)
         self.last_stats = None
@@ -149,7 +155,7 @@ class ServeEngine:
             prefill_chunk=self.prefill_chunk, prefill_mode=self.prefill_mode,
             on_token=stream, sample_fn=sample_fn, paging=self.paging,
             prefix_cache=self.prefix_cache, adapters=self.adapters,
-            cuda_graphs=self.cuda_graphs,
+            faults=self.faults, preempt=self.preempt, cuda_graphs=self.cuda_graphs,
         )
         try:
             for i, uid in enumerate(uids):
@@ -168,6 +174,10 @@ class ServeEngine:
             "capture_s": batcher.capture_s,
             "captures": batcher.captures,
             "admission_waits": batcher.admission_waits,
+            "swap_outs": batcher.swap_outs,
+            "swap_ins": batcher.swap_ins,
+            "dispatch_faults": batcher.dispatch_faults,
+            "quarantined": batcher.quarantined,
         }
         self.last_prefix_stats = (
             {
@@ -180,4 +190,12 @@ class ServeEngine:
             if batcher.prefix is not None
             else None
         )
+        failed = [r for r in finished.values() if r.failed]
+        if failed:
+            # the uniform-batch contract returns a dense (B, num_tokens)
+            # array, so partial failure cannot be represented
+            raise RuntimeError(
+                "request(s) failed during generation: "
+                + "; ".join(f"uid {r.uid}: {r.error}" for r in failed)
+            )
         return np.stack([np.asarray(finished[uid].out, np.int32) for uid in uids])

@@ -20,7 +20,9 @@ Policies (``policy=``):
     10), arrival order as tie-break.
 
 Admission stops at the first request that cannot be placed rather than
-skipping it, so under sjf/priority large jobs are not starved.
+skipping it, so under sjf/priority large jobs are not starved. A request
+backing off after a transient fault (``not_before`` in the future) is
+skipped instead, so it cannot starve the rest of the queue.
 
 ``chunk_budget`` bounds the PROMPT tokens prefilled per tick across all
 slots; ``None`` disables chunk scheduling (admission prefills whole prompts
@@ -30,8 +32,8 @@ Deadlines: a request with ``timeout_s`` set expires ``timeout_s`` seconds
 after submission (wall clock via ``now_fn``, injectable for tests) whether
 it is still queued or mid-flight.
 
-Not ported yet (a later slice): the requeue / retry-backoff paths of
-preemption and fault tolerance.
+``requeue`` returns a preempted in-flight request to the queue at its
+original arrival position, its deadline clock untouched.
 """
 from __future__ import annotations
 
@@ -83,6 +85,20 @@ class Scheduler:
                 return req
         return None
 
+    def requeue(self, req) -> None:
+        """Return a preempted (or transiently faulted) in-flight request to
+        the queue at its original arrival position. The arrival stamp and
+        ``submit_time`` are PRESERVED: requeuing must not reset the
+        deadline clock or let the request jump (or lose) its place under
+        arrival-ordered policies."""
+        arrival = getattr(req, "_arrival", 0)
+        idx = len(self.queue)
+        for j, q in enumerate(self.queue):
+            if getattr(q, "_arrival", 0) > arrival:
+                idx = j
+                break
+        self.queue.insert(idx, req)
+
     # ---------------------------------------------------------- ordering
     def _cost(self, req) -> int:
         """Prefill cost of a request: prompt tokens that still need compute."""
@@ -109,15 +125,30 @@ class Scheduler:
     def admit(self, free_slots: list[int], try_bind) -> list:
         """Fill free slots in policy order. ``try_bind(slot, req)`` is the
         executor's placement callback; a False return STOPS admission
-        (head-of-line backpressure in policy order). Returns the
+        (head-of-line backpressure in policy order). A request whose
+        ``not_before`` lies in the future is skipped, and one the callback
+        removed from the queue (retired) is dropped. Returns the
         [(slot, request)] admitted."""
         admitted = []
         free = list(free_slots)
+        now = None
         for req in self.ordered_queue():
             if not free:
                 break
+            nb = getattr(req, "not_before", 0.0)
+            if nb:
+                # transient-fault backoff: SKIPPED, not head-of-line
+                # blocking — a backing-off request must not starve the rest
+                # of the queue while it waits out its delay
+                now = self.now() if now is None else now
+                if nb > now:
+                    continue
             if not try_bind(free[0], req):
                 break
+            if not any(q is req for q in self.queue):
+                # the bind callback retired it (retry exhaustion turned it
+                # terminally failed mid-admission)
+                continue
             slot = free.pop(0)
             self.queue.remove(req)
             admitted.append((slot, req))

@@ -1,9 +1,9 @@
 """SlotMap: pure host-side slot/position/live-mask bookkeeping.
 
-Copy of ``repro.serve.slots`` (numpy only), without its reconciliation
-check, which belongs with the fault-tolerance slice: which request occupies
-which decode slot, each slot's next write position, and the masks/vectors
-the serving steps consume. It holds no device tensors and knows nothing
+Copy of ``repro.serve.slots`` (numpy only): which request occupies which
+decode slot, each slot's next write position, and the masks/vectors the
+serving steps consume; ``check_consistent`` is the slot map's part of the
+executor's ``check_invariants()`` reconciliation. It holds no device tensors and knows nothing
 about the KV layout or the model; the executor (``ContinuousBatcher``) owns
 the device side.
 """
@@ -93,3 +93,31 @@ class SlotMap:
     def advance_live(self) -> None:
         """Advance every bound slot's position by one (a decode tick)."""
         self.pos = self.pos + self.live().astype(np.int32)
+
+    # ------------------------------------------------------ reconciliation
+    def check_consistent(self, capacity: int) -> None:
+        """Structural self-check: shapes intact, every bound slot's write
+        position within [0, capacity], no request bound to two slots.
+        Raises ``RuntimeError`` on the first violation; part of the
+        executor's ``check_invariants()``."""
+        if len(self.reqs) != self.num_slots or self.pos.shape != (self.num_slots,):
+            raise RuntimeError(
+                f"slot map shape drifted: {len(self.reqs)} request slots / "
+                f"pos shape {self.pos.shape} for num_slots={self.num_slots}"
+            )
+        seen: set = set()
+        for s, r in enumerate(self.reqs):
+            if r is None:
+                continue
+            if r.uid in seen:
+                raise RuntimeError(
+                    f"request {r.uid} is bound to two slots — its tokens "
+                    "would interleave through two cache stripes"
+                )
+            seen.add(r.uid)
+            p = int(self.pos[s])
+            if not 0 <= p <= capacity:
+                raise RuntimeError(
+                    f"slot {s} (request {r.uid}): write position {p} "
+                    f"outside [0, {capacity}]"
+                )

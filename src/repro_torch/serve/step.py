@@ -42,6 +42,10 @@ counterpart of ``jax.disable_jit``) the same buffers feed the eager pair.
 
 ``make_cow_copy(paging)`` returns the copy-on-write step of the prefix
 cache: rows ``[0, rows)`` of block ``src`` into block ``dst`` in every pool.
+``make_swap(paging)`` returns the pair of preemptive swap-out: a slot's
+blocks gathered to host memory, and written back into fresh blocks.
+Both run eagerly between replays and write the pools in place, so the
+captured graphs, which read the pools by address, stay valid.
 
 The weights live in the model, so unlike the JAX pair these take no params
 argument. Caches are updated in place and returned. The attention backend
@@ -360,3 +364,78 @@ def make_cow_copy(paging):
         return caches
 
     return cow_copy
+
+
+def make_swap(paging):
+    """The eager ``(swap_out, swap_in)`` pair of preemptive swap-out.
+
+    ``swap_out(caches, blocks)`` gathers the given physical blocks (a
+    slot's real blocks, host ints) of every pool into ONE device staging
+    tensor, one ``index_select`` per pool, and copies it to host memory in
+    one copy: the snapshot, a ``(2 * layers, len(blocks), block_size, KVH,
+    hd)`` tensor whose row ``2 i`` holds layer ``i``'s K pages and row
+    ``2 i + 1`` its V pages, in ``blocks`` order. On CUDA the snapshot is
+    pinned and the copy is asynchronous.
+
+    ``swap_in(caches, blocks, saved)`` is the inverse: one upload of the
+    snapshot and one ``index_copy_`` per pool into ``blocks`` (fresh ones,
+    as many as were saved). Every pool is written IN PLACE and keeps its
+    ``data_ptr``, so the CUDA graphs that read the pools by address read
+    the restored rows at their next replay.
+
+    No host sync is needed in either direction. Both run on the current
+    stream, between replays, like ``make_cow_copy``: the next replay's
+    writes into blocks the swap-out freed are stream-ordered after the
+    gather, and the swap-in's upload reads the snapshot only after the
+    swap-out's copy has filled it. The staging tensors return to torch's
+    stream-ordered caching allocator, and torch's pinned-memory cache does
+    not reuse a snapshot's memory before the copies that use it complete.
+    Only a reader on the host must synchronize before it looks at a
+    snapshot taken on CUDA.
+
+    Unlike the JAX pair, which pads the row to ``max_blocks_per_slot`` to
+    keep one trace, the eager pair moves only the blocks given. The port's
+    model is attention-only, so no dense per-slot state needs saving; dense
+    caches raise, as the reference's ``make_swap(None)`` does."""
+    if paging is None:
+        raise ValueError("swap-out requires a paged cache layout")
+    nb = paging.num_blocks
+
+    def _ids(blocks, device):
+        ids = [int(b) for b in blocks]
+        if not ids or not all(0 < b < nb for b in ids):
+            raise ValueError(
+                f"swap of blocks {ids}: want at least one block id in [1, {nb})"
+            )
+        return torch.tensor(ids, dtype=torch.long, device=device)
+
+    def swap_out(caches, blocks) -> torch.Tensor:
+        pools = [pool for kv in caches for pool in kv]
+        first = pools[0]
+        idx = _ids(blocks, first.device)
+        staging = torch.empty((len(pools), len(idx)) + tuple(first.shape[1:]),
+                              dtype=first.dtype, device=first.device)
+        for j, pool in enumerate(pools):
+            torch.index_select(pool, 0, idx, out=staging[j])
+        if first.device.type != "cuda":
+            return staging
+        saved = torch.empty(staging.shape, dtype=staging.dtype, pin_memory=True)
+        saved.copy_(staging, non_blocking=True)
+        return saved
+
+    def swap_in(caches, blocks, saved: torch.Tensor):
+        pools = [pool for kv in caches for pool in kv]
+        first = pools[0]
+        idx = _ids(blocks, first.device)
+        want = (len(pools), len(idx)) + tuple(first.shape[1:])
+        if tuple(saved.shape) != want or saved.dtype != first.dtype:
+            raise ValueError(
+                f"swap-in of a {saved.dtype} snapshot of shape {tuple(saved.shape)} into "
+                f"{len(idx)} blocks: want {first.dtype} of shape {want}"
+            )
+        rows = saved.to(first.device, non_blocking=True)
+        for j, pool in enumerate(pools):
+            pool.index_copy_(0, idx, rows[j])
+        return caches
+
+    return swap_out, swap_in

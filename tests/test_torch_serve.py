@@ -4,8 +4,9 @@ tokens from ServeEngine.generate and from the staggered ContinuousBatcher
 workload of tests/test_serve_backend.py, token for token and with the same
 dispatch counts, in both chunk_budget regimes and both prefill modes; plus
 the executor's contracts (cancel, timeout, streaming, tick budget, sampling
-stability, refusal of the options of later slices and of an adapter
-store built for another task count). CPU, float32."""
+stability, validation of the fault options, a quarantined request
+surfacing from ServeEngine, refusal of an adapter store built for another
+task count). CPU, float32."""
 import dataclasses
 
 import pytest
@@ -26,6 +27,7 @@ from repro_torch.core.graph import ring_graph  # noqa: E402
 from repro_torch.models import TransformerLM  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     ContinuousBatcher,
+    FaultPlan,
     Request,
     ServeEngine,
     TaskAdapterStore,
@@ -188,13 +190,26 @@ def test_submit_validation():
         batcher.submit(Request(uid=2, tokens=np.ones(5, np.int32), max_new=4))
 
 
-@pytest.mark.parametrize("option", [{"faults": object()}, {"preempt": True}])
-def test_unported_options_raise(option):
+def test_fault_options_are_validated():
+    """As in the reference: preemption needs a paged pool, and a retry
+    budget cannot be negative."""
     _, _, tm = _models("olmo_1b")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousBatcher(tm, num_slots=1, max_seq=8, **option)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServeEngine(tm, max_seq=8, **option)
+    with pytest.raises(ValueError, match="paged"):
+        ContinuousBatcher(tm, num_slots=1, max_seq=8, preempt=True)
+    with pytest.raises(ValueError, match="max_retries"):
+        ContinuousBatcher(tm, num_slots=1, max_seq=8, max_retries=-1)
+
+
+def test_engine_raises_for_a_quarantined_request():
+    """ServeEngine passes its fault plan to the batcher, and a request the
+    quarantine failed makes generate raise; the others' stats are kept."""
+    _, _, tm = _models("olmo_1b")
+    plan = FaultPlan().script("nan", uid=1, count=1)
+    engine = ServeEngine(tm, max_seq=16, prefill_chunk=4, faults=plan)
+    toks = np.arange(12, dtype=np.int32).reshape(3, 4)
+    with pytest.raises(RuntimeError, match="uid 1: non-finite logits"):
+        engine.generate({"tokens": toks}, 3)
+    assert engine.last_stats["quarantined"] == 1 and plan.fired == 1
 
 
 def test_adapter_store_of_another_task_count_raises():

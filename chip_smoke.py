@@ -116,8 +116,39 @@ Phases; each raises on failure, and then no result line is printed:
                 unchanged, check_invariants() clean; it logs the
                 synchronized swap-out and swap-in times, the snapshot's size
                 and rate. Launch counts are checked in every run.
+  9. paper    — run right after phase 2, before any model is built: the
+                paper's own solvers at its workload (Appendix I: m=100
+                tasks, d=100, n=500 per task, the 10-NN graph of 10
+                clusters, numpy seed 0; eta, tau from Corollary 2), plain
+                torch in f32 (TF32 off), through repro_torch.core: bsr, bol
+                (exact and inexact prox), gd, admm, consensus_sgd,
+                bol_delayed (fixed and random delays, Gamma 3, on the graph
+                over its largest degree with tau times it: the same
+                objective with rows summing to at most 1, as Theorem 7
+                asks), ssr / sol / minibatch_prox on numpy-drawn replayed
+                minibatches and again on minibatch_sampler with a CUDA
+                generator, sdca (5 rounds), logistic bsr / bol (labels: the
+                sign of y), alternating graph learning (3 rounds). Each run
+                is timed, synchronized, on the card and on the machine's
+                CPU; f* is the float64 closed form. Fails unless: every
+                run the CPU can repeat exactly (all but sdca, random
+                delays and the generator-sampled runs) gives on the card
+                the CPU's objective trace within rtol 1e-4 and its final
+                iterate within atol 1e-4; every gap to f* is at most the
+                JAX reference's on the same workload and iterations
+                (scripts/paper_reference.py) plus 3e-4, or 1.5 times it
+                plus 3e-4 for runs whose draws the reference cannot
+                replay; the learned graph's within/across-cluster
+                affinity ratio is the reference's within 1e-3; and a bol
+                call makes as many host syncs (torch's sync debug mode,
+                after a first call that also reports one-time syncs) at 10
+                iterations as at 40. Logs, on the card and on the CPU, ms
+                per iteration (a run of the set count less one of 2
+                iterations) and the set-up of a call, the gaps, where the
+                syncs happen, and one {"paper": ...} JSON line.
 
-Output: the card's name and power limit first, per-phase lines, then one
+Output: the card's name and power limit first, per-phase lines, the
+{"paper": ...} and {"serve_rates": ...} JSON lines, then one
 {"kernels": [...]} JSON line with the five kernels, and last
 {"ok": true, "device": {...}}.
 Exits non-zero without a result when there is no CUDA device or no
@@ -133,6 +164,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -464,6 +496,243 @@ def phase_graph_mix(torch, mix_ops, mix_ref, band_graph, cfg):
                      "bound_by": bound_by, "library_ms": lib_ms,
                      "library": "torch.matmul(mu.t(), theta)"}
     return entry
+
+
+# ------------------------------------------------------- phase 9: the paper
+# The paper's own workload (Appendix I; src/repro_torch/configs/multitask_linreg.py):
+# m = 100 tasks, d = 100, n = 500 samples per task, the 10-NN graph of 10 clusters.
+PAPER_SEED = 0
+PAPER_BATCH = 50  # minibatch per task of the sampled solvers
+PAPER_DELAY = 3  # Gamma of delayed BOL
+# iterations (rounds for sdca and graph learning) of each run
+PAPER_ITERS = {
+    "bsr": 300, "bol": 40, "bol_inexact": 20, "gd": 500, "admm": 300, "consensus_sgd": 300,
+    "bol_delayed_fixed": 100, "bol_delayed_random": 100, "ssr": 300, "sol": 100,
+    "minibatch_prox": 30, "ssr_generator": 300, "sol_generator": 100,
+    "minibatch_prox_generator": 30, "sdca": 5, "bsr_logistic": 200, "bol_logistic": 20,
+    "graph_learning": 3,
+}
+# seeds of the numpy-drawn minibatch indices the replayed solvers consume
+PAPER_REPLAY_SEED = {"ssr": 1, "sol": 2, "minibatch_prox": 3}
+PAPER_SOLVER_ITERS = 40  # bol iterations per graph-learning round
+PAPER_TRACE_RTOL = 1e-4  # card against the machine's CPU: objective traces
+PAPER_W_ATOL = 1e-4  # and final iterates
+PAPER_GAP_TOL = 3e-4  # 1e-4 of f* (3.23): a gap may exceed the reference's by this
+# runs whose draws the reference cannot replay (its permutations, delays and
+# keys are JAX's): gap <= PAPER_RANDOM_SLACK * the reference's gap + PAPER_GAP_TOL
+PAPER_RANDOM_SLACK = 1.5
+PAPER_REPLAYED = ("ssr", "sol", "minibatch_prox")
+PAPER_UNREPLAYABLE = ("bol_delayed_random", "sdca", "ssr_generator", "sol_generator",
+                      "minibatch_prox_generator")
+# what the JAX reference reaches on this workload (scripts/paper_reference.py):
+# the gap to f* of each run, and the learned graph's cluster contrast
+# (JAX 0.9.0, CPU, float32, f* 3.2288806438446045)
+PAPER_REF = {
+    "bsr": 2.384185791015625e-07, "bol": 0.0, "bol_inexact": 0.00026988983154296875,
+    "gd": 4.76837158203125e-07, "admm": 0.006670713424682617,
+    "consensus_sgd": 6.681599855422974, "bol_delayed_fixed": 2.384185791015625e-07,
+    "bol_delayed_random": 2.384185791015625e-07, "ssr": 0.874521017074585,
+    "sol": 1.6410658359527588, "minibatch_prox": 0.5761933326721191,
+    "ssr_generator": 0.875478982925415, "sol_generator": 1.5777428150177002,
+    "minibatch_prox_generator": 0.5497541427612305, "sdca": 5.185518503189087,
+    "bsr_logistic": -2.9802322387695312e-08, "bol_logistic": 0.0,
+    "graph_learning": 14.366122224252907,
+}
+# f* of the logistic problem: the reference's bsr after 3000 iterations
+PAPER_F_LOGISTIC = 0.48871082067489624
+
+
+def paper_data(np, core, data, device):
+    """The paper's workload on ``device``: data, the three problems and f*."""
+    rng = np.random.default_rng(PAPER_SEED)
+    tasks = data.generate_clustered_tasks(rng, m=100, d=100, num_clusters=10, knn=10)
+    x, y = tasks.sample(rng, 500, device=device)
+    b, s = tasks.bs_constants()
+    eta, tau = core.theory.corollary2_parameters(tasks.graph, b, max(s, 1e-2), 8.0, 500)
+    problem = core.MultiTaskProblem(tasks.graph, core.SQUARED, eta, tau)
+    # Theorem 7 asks rows of A to sum to at most 1: the graph over its largest
+    # degree with tau times that degree is the same objective, so the same f*
+    deg = float(tasks.graph.adjacency.sum(axis=1).max())
+    delayed = core.MultiTaskProblem(core.TaskGraph(tasks.graph.adjacency / deg), core.SQUARED,
+                                    eta, tau * deg)
+    logistic = core.MultiTaskProblem(tasks.graph, core.LOGISTIC, eta, tau)
+    return {"tasks": tasks, "x": x, "y": y, "y_cls": (y > 0).float() * 2 - 1, "B": b, "S": s,
+            "problem": problem, "delayed": delayed, "logistic": logistic}
+
+
+def paper_replay(torch, np, x, y, name, iters):
+    """A sampler that ignores its generator and hands out, in turn, the
+    minibatches of indices drawn with numpy from PAPER_REPLAY_SEED[name]."""
+    m, n, d = x.shape
+    idx = torch.as_tensor(np.random.default_rng(PAPER_REPLAY_SEED[name]).integers(
+        0, n, (iters, m, PAPER_BATCH)), device=x.device)
+    step = iter(range(iters))
+
+    def sample(generator, b):
+        i = idx[next(step)]
+        return torch.gather(x, 1, i[:, :, None].expand(m, b, d)), torch.gather(y, 1, i)
+
+    return sample
+
+
+def paper_call(torch, np, core, s, name, iters):
+    """Run ``name`` for ``iters`` on the device of s's tensors; (w, trace)."""
+    p, x, y = s["problem"], s["x"], s["y"]
+    dev = x.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ev = lambda w: p.erm_objective(w, x, y)  # noqa: E731
+    base = name.removesuffix("_generator")
+    if base in PAPER_REPLAYED:
+        sampler = (core.minibatch_sampler(x, y) if name.endswith("_generator")
+                   else paper_replay(torch, np, x, y, base, iters))
+        if base == "ssr":
+            r = core.ssr(p, sampler, PAPER_BATCH, iters, gen, ev, p.smoothness_loss(x), s["B"],
+                         d=x.shape[-1])
+        elif base == "sol":
+            r = core.sol(p, sampler, PAPER_BATCH, iters, gen, ev, d=x.shape[-1])
+        else:
+            r = core.minibatch_prox(p, sampler, PAPER_BATCH, iters, gen, ev, s["B"],
+                                    max(s["S"], 1e-2), 8.0, inner_iters=15, d=x.shape[-1])
+    elif name == "bsr":
+        r = core.bsr(p, x, y, iters)
+    elif name == "bol":
+        r = core.bol(p, x, y, iters)
+    elif name == "bol_inexact":
+        r = core.bol(p, x, y, iters, exact_prox=False, inner_steps=40)
+    elif name == "gd":
+        r = core.gd(p, x, y, iters)
+    elif name == "admm":
+        r = core.admm(p, x, y, iters, rho=0.05)
+    elif name == "consensus_sgd":
+        r = core.consensus_sgd(p, x, y, iters)
+    elif name.startswith("bol_delayed"):
+        r = core.bol_delayed(s["delayed"], x, y, iters, PAPER_DELAY, generator=gen,
+                             fixed_delay=name.endswith("fixed"))
+    elif name == "sdca":
+        r = core.sdca(p, x, y, iters, generator=gen)
+    elif name == "bsr_logistic":
+        r = core.bsr(s["logistic"], x, s["y_cls"], iters)
+    elif name == "bol_logistic":
+        r = core.bol(s["logistic"], x, s["y_cls"], iters, exact_prox=False, inner_steps=30)
+    elif name == "graph_learning":
+        w, graph, hist = core.alternating_graph_learning(
+            x, y, p.eta, p.tau, num_rounds=iters, solver_iters=PAPER_SOLVER_ITERS)
+        return w, torch.tensor([h["objective"] for h in hist]), graph
+    else:
+        raise ValueError(name)
+    return r.w, r.objective_trace, None
+
+
+def cluster_contrast(np, tasks, graph):
+    """Mean learned affinity within the true clusters over that across them."""
+    same = tasks.cluster_of[:, None] == tasks.cluster_of[None, :]
+    np.fill_diagonal(same, False)
+    across = ~same & ~np.eye(tasks.m, dtype=bool)
+    return float(graph.adjacency[same].mean() / graph.adjacency[across].mean())
+
+
+def sync_sites(torch, fn):
+    """Where fn's host syncs happen: the Python file:line of each one torch
+    reports in its sync debug mode."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def paper_gap_ok(name, gap, ref):
+    """The gap to f* against the reference's on the same workload (see PAPER_REF)."""
+    slack = PAPER_RANDOM_SLACK if name in PAPER_UNREPLAYABLE else 1.0
+    return -PAPER_GAP_TOL <= gap <= slack * max(ref, 0.0) + PAPER_GAP_TOL
+
+
+def phase_paper(torch, np, core, data, device="cuda"):
+    """Phase 9: every solver of the paper on the card, held to the same call
+    on the machine's CPU, to f*, and to the gaps the reference reaches."""
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    card, host = paper_data(np, core, data, dev), paper_data(np, core, data, "cpu")
+    t0 = time.perf_counter()
+    w_star = core.centralized_solution(host["problem"], host["x"], host["y"])  # float64 solve
+    closed_s = time.perf_counter() - t0
+    f_star = {side: s["problem"].erm_objective(w_star.to(s["x"].device), s["x"], s["y"]).item()
+              for side, s in (("card", card), ("cpu", host))}
+    log(f"paper: m=100 d=100 n=500, 10-NN graph ({card['problem'].graph.num_edges} edges), "
+        f"eta {card['problem'].eta:.6f} tau {card['problem'].tau:.6f}; f* {f_star['card']:.7f} "
+        f"on the card, {f_star['cpu']:.7f} on the CPU (closed form, float64, {closed_s:.2f} s)")
+    for name in PAPER_ITERS:  # warm-up: library handles, allocator, first launches
+        paper_call(torch, np, core, card, name, 2)
+    sync()
+    solvers = {}
+    for name, iters in PAPER_ITERS.items():
+        runs, rec = {}, {"iters": iters}
+        for side, s in (("card", card), ("cpu", host)):
+            secs = []
+            # the 2-iteration calls (the fastest of three: the host's share
+            # varies) give the set-up of a call apart from its iterations
+            for n in (iters, 2, 2, 2):
+                sync()
+                t0 = time.perf_counter()
+                w, trace, graph = paper_call(torch, np, core, s, name, n)
+                sync()
+                secs.append(time.perf_counter() - t0)
+                if n == iters:
+                    runs[side] = (w.cpu(), trace.cpu().double().numpy(), graph)
+            short = min(secs[1:])
+            per_iter = (secs[0] - short) / (iters - 2)
+            rec[f"{side}_ms_per_iter"] = per_iter * 1e3
+            rec[f"{side}_setup_ms"] = (short - 2 * per_iter) * 1e3
+        (w_c, tr_c, g_c), (w_h, tr_h, g_h) = runs["card"], runs["cpu"]
+        if not (np.isfinite(tr_c).all() and torch.isfinite(w_c).all()):
+            raise AssertionError(f"paper {name}: non-finite result on the card")
+        ref = rec["reference"] = PAPER_REF[name]
+        if name == "graph_learning":
+            rec["contrast"] = cluster_contrast(np, card["tasks"], g_c)
+            rec["objective"] = float(tr_c[-1])
+            ok = abs(rec["contrast"] - ref) <= 1e-3 * ref
+        else:
+            f0 = PAPER_F_LOGISTIC if name.endswith("logistic") else None
+            rec["gap"] = float(tr_c[-1]) - (f0 if f0 is not None else f_star["card"])
+            rec["gap_cpu"] = float(tr_h[-1]) - (f0 if f0 is not None else f_star["cpu"])
+            ok = paper_gap_ok(name, rec["gap"], ref) and paper_gap_ok(name, rec["gap_cpu"], ref)
+        if name not in PAPER_UNREPLAYABLE:  # the same arithmetic on both sides
+            rec["trace_rel_err"] = float(np.max(np.abs(tr_c - tr_h) / np.abs(tr_h)))
+            rec["w_err"] = (w_c - w_h).abs().max().item()
+            ok = ok and rec["trace_rel_err"] <= PAPER_TRACE_RTOL and rec["w_err"] <= PAPER_W_ATOL
+        log(f"paper {name}: {iters} iterations, card {rec['card_ms_per_iter']:.3f} ms/iter "
+            f"+ {rec['card_setup_ms']:.1f} ms set-up, CPU {rec['cpu_ms_per_iter']:.3f} ms/iter "
+            f"+ {rec['cpu_setup_ms']:.1f} ms; "
+            + ", ".join(f"{k} {v:.4g}" for k, v in rec.items()
+                        if k in ("gap", "gap_cpu", "reference", "contrast", "objective",
+                                 "trace_rel_err", "w_err")))
+        if not ok:
+            raise AssertionError(f"paper {name}: {rec}")
+        solvers[name] = rec
+    syncs = {}
+    if dev.type == "cuda":
+        p, x, y = card["problem"], card["x"], card["y"]
+        # the first call under the debug mode also reports one-time syncs
+        sites = {t: sync_sites(torch, lambda t=t: core.bol(p, x, y, t)) for t in (1, 10, 40)}
+        syncs = {str(t): len(v) for t, v in sites.items()}
+        log(f"paper: host syncs per bol call by iterations (torch sync debug mode): {syncs}; "
+            f"sites {sites}")
+        if len(sites[10]) != len(sites[40]):
+            raise AssertionError(f"paper: host syncs grow with the iterations: {sites}")
+    secs = time.perf_counter() - t_phase
+    log(f"paper: phase passed in {secs:.1f} s")
+    return {"f_star": f_star, "closed_form_s": closed_s, "syncs_per_bol_call": syncs,
+            "solvers": solvers, "seconds": secs}
 
 
 COUNTED = ("decode_attention", "prefill_attention", "paged_decode_attention",
@@ -1262,6 +1531,8 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from repro_torch import core as core_lib
+    from repro_torch import data as data_lib
     from repro_torch import tree as tree_lib
     from repro_torch.configs import get
     from repro_torch.core.graph import band_graph
@@ -1306,6 +1577,7 @@ def main() -> int:
                             breakdown)
     entries["graph_mix"] = phase_graph_mix(torch, mix_ops, mix_ref, band_graph,
                                            get("multitask_lm"))
+    paper = phase_paper(torch, np, core_lib, data_lib)
     phase_small_reference(torch, get, TransformerLM, PagingSpec)
     t1 = time.perf_counter()
     model = TransformerLM(get("olmo_1b"), device="cuda", seed=0)
@@ -1333,6 +1605,7 @@ def main() -> int:
                               tree_lib, ContinuousBatcher, Request, ops)
     phase_breakdown(torch, breakdown)
     del breakdown  # its closures hold the phase-2 inputs
+    log(json.dumps({"paper": {"device": smi, **paper}}))
     log(json.dumps({"serve_rates": {"dense": dense["rates"], "paged": paged["rates"],
                                     "prefix": prefix["rates"], "faults": faults["rates"],
                                     "adapters": adapters["rates"]},

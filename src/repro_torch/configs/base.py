@@ -9,7 +9,8 @@ kernels and mixes task adapters (``repro_torch.serve.adapters``) with the
 CUDA graph-mix kernel; ``"plain"`` runs the plain PyTorch version of each
 (the masked-softmax attention that plays the role of the JAX package's
 ``"jnp"``, and the einsum graph mix). ``get(name, smoke=)`` resolves either
-variant.
+variant; ``multitask_linreg`` resolves to the paper's own workload, a
+``LinRegConfig`` (``repro_torch.configs.multitask_linreg``).
 """
 from __future__ import annotations
 
@@ -63,14 +64,14 @@ class ArchConfig:
             )
 
 
-_ARCHS = ["multitask_lm", "olmo_1b", "qwen2_5_14b"]
+_ARCHS = ["multitask_linreg", "multitask_lm", "olmo_1b", "qwen2_5_14b"]
 
 
 def canonical(name: str) -> str:
     return name.replace("-", "_").replace(".", "_")
 
 
-def get(name: str, smoke: bool = False) -> ArchConfig:
+def get(name: str, smoke: bool = False):
     if canonical(name) not in _ARCHS:
         raise ValueError(f"unknown arch {name!r}; the port has {_ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{canonical(name)}")

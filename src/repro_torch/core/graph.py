@@ -11,7 +11,8 @@ tasks, its Laplacian ``L = diag(A 1) - A``, the induced metric matrix
 
 The graph and its matrices are numpy float64, computed once on the host as
 in the reference; only the regularizer (``penalty``, ``penalty_grad``) acts
-on torch tensors.
+on torch tensors, through a float32 copy of ``L`` kept per device, so that
+a solver's loop copies nothing from the host after its first iteration.
 """
 from __future__ import annotations
 
@@ -26,6 +27,10 @@ class TaskGraph:
     """A weighted, undirected task-relatedness graph over ``m`` tasks."""
 
     adjacency: np.ndarray  # (m, m) symmetric, non-negative, zero diagonal
+    # device copies of the Laplacian, keyed by (device, dtype)
+    _lap_cache: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False
+    )
 
     def __post_init__(self):
         a = np.asarray(self.adjacency, dtype=np.float64)
@@ -44,14 +49,31 @@ class TaskGraph:
     def m(self) -> int:
         return self.adjacency.shape[0]
 
+    @property
+    def num_edges(self) -> int:
+        return int(np.count_nonzero(np.triu(self.adjacency, k=1)))
+
     def laplacian(self) -> np.ndarray:
         a = self.adjacency
         return np.diag(a.sum(axis=1)) - a
 
+    def laplacian_eigvals(self) -> np.ndarray:
+        """Eigenvalues 0 = lam_1 <= ... <= lam_m of the Laplacian."""
+        return np.linalg.eigvalsh(self.laplacian())
+
     @property
     def lambda_max(self) -> float:
         """The largest eigenvalue of the Laplacian."""
-        return float(np.linalg.eigvalsh(self.laplacian())[-1])
+        return float(self.laplacian_eigvals()[-1])
+
+    def is_connected(self) -> bool:
+        """Connected iff the second-smallest Laplacian eigenvalue is positive."""
+        ev = self.laplacian_eigvals()
+        return bool(ev[1] > 1e-10 * max(1.0, ev[-1]))
+
+    def is_doubly_stochastic(self, atol: float = 1e-8) -> bool:
+        """Row sums == 1 (symmetric, so column sums too): Appendix G's regime."""
+        return bool(np.allclose(self.adjacency.sum(axis=1), 1.0, atol=atol))
 
     # ----------------------------------------------------------- paper terms
     def metric_matrix(self, eta: float, tau: float) -> np.ndarray:
@@ -79,10 +101,20 @@ class TaskGraph:
         return np.eye(self.m) - self.laplacian() / self.lambda_max
 
     # ------------------------------------------------------------ regularizer
+    def laplacian_on(self, like: torch.Tensor) -> torch.Tensor:
+        """``L`` as a tensor of ``like``'s dtype on its device, copied from
+        the host once per (device, dtype)."""
+        key = (like.device, like.dtype)
+        if key not in self._lap_cache:
+            self._lap_cache[key] = torch.as_tensor(
+                self.laplacian(), dtype=like.dtype, device=like.device
+            )
+        return self._lap_cache[key]
+
     def penalty(self, w_stack: torch.Tensor, eta: float, tau: float) -> torch.Tensor:
         """``R(W) = eta/(2m) ||W||_F^2 + tau/(2m) tr(W^T L W)`` for the
         task-stacked ``w_stack`` (m, d) (row i is task i's predictor)."""
-        lap = torch.as_tensor(self.laplacian(), dtype=w_stack.dtype, device=w_stack.device)
+        lap = self.laplacian_on(w_stack)
         m = self.m
         sq = torch.sum(w_stack * w_stack)
         smooth = torch.sum(w_stack * (lap @ w_stack))
@@ -90,7 +122,7 @@ class TaskGraph:
 
     def penalty_grad(self, w_stack: torch.Tensor, eta: float, tau: float) -> torch.Tensor:
         """``grad_W R(W) = (1/m) (eta I + tau L) W`` (tasks stacked on axis 0)."""
-        lap = torch.as_tensor(self.laplacian(), dtype=w_stack.dtype, device=w_stack.device)
+        lap = self.laplacian_on(w_stack)
         return (eta * w_stack + tau * (lap @ w_stack)) / self.m
 
 

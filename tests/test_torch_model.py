@@ -179,7 +179,7 @@ def test_unported_block_patterns_and_backends_raise():
 
 
 def test_configs_mirror_jax_values():
-    for arch in ARCHS:
+    for arch in ARCHS + ["multitask_linreg"]:
         for smoke in (False, True):
             j, t = jax_get(arch, smoke=smoke), get(arch, smoke=smoke)
             for f in dataclasses.fields(t):

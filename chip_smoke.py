@@ -146,9 +146,37 @@ Phases; each raises on failure, and then no result line is printed:
                 per iteration (a run of the set count less one of 2
                 iterations) and the set-up of a call, the gaps, where the
                 syncs happen, and one {"paper": ...} JSON line.
+ 10. train    — run after phase 7, before the profiler breakdown; f32, TF32
+                off, the port's trainer (AdamW at TRAIN_LR, the graph-mixed
+                update over band_graph(num_tasks, 1), eta 0.1, tau 1):
+                (a) multitask-LM at full width (256.47 M parameters, 256
+                tasks) on numpy weights (train_weights), TokenPipeline
+                batches of 8 x 128, 2 microbatches, 4 steps: the loss,
+                nll and task-leaf norms within rtol 1e-4 of the JAX
+                reference's (TRAIN_REF, from scripts/train_reference.py);
+                (b) batch 32 x 256, 2 warm-up and 10 timed steps,
+                synchronized, with remat on and off: ms/step, tokens/s,
+                MFU against the f32 CUDA-core peak (6 N T + attention),
+                peak memory; host syncs per step the same over 5 and 10
+                steps; causal_attend against SDPA at that shape (logged);
+                (c) OLMo-1B at full width (tied embeddings, parameter-free
+                LayerNorm), 3 steps of 8 x 256: finite losses, peak
+                memory; (d) `python -m repro_torch.launch.train --arch
+                multitask_lm --no-smoke --steps 3 --batch 16 --seq 128
+                --ckpt ...` as a subprocess exits 0, and its checkpoint,
+                and that of the same run in this process, load with
+                load_pytree into fresh models whose logits equal the
+                trained model's (in-process: exactly; the launcher's:
+                within 1e-3); (e) a multitask-LM batcher captured (CUDA
+                graphs, kernel backend) and serving 4 greedy requests,
+                then 2 train steps, then the requests again with no
+                recapture: tokens == a fresh batcher's (logits rows
+                within 1e-5), == the plain path's (margin rule), some
+                logit moved by 1e-3, every parameter's data_ptr
+                unchanged. Logs one {"train": ...} JSON line.
 
 Output: the card's name and power limit first, per-phase lines, the
-{"paper": ...} and {"serve_rates": ...} JSON lines, then one
+{"paper": ...}, {"serve_rates": ...} and {"train": ...} JSON lines, then one
 {"kernels": [...]} JSON line with the five kernels, and last
 {"ok": true, "device": {...}}.
 Exits non-zero without a result when there is no CUDA device or no
@@ -160,6 +188,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1518,6 +1547,400 @@ def _admitted(bt):
     return bt
 
 
+TRAIN_SEED = 0  # numpy seed of the lockstep weights and of every token pipeline
+TRAIN_LR = 1e-3  # adamw at a constant rate (cosine_schedule's step 0 has lr 0)
+TRAIN_ETA, TRAIN_TAU = 0.1, 1.0  # GraphMultiTask over band_graph(num_tasks, 1)
+TRAIN_LOCKSTEP = {"batch": 8, "seq": 128, "microbatches": 2, "steps": 4}
+TRAIN_TASK_SCALE = 0.1  # std of the lockstep's per-task leaves (mixing acts from step 0)
+TRAIN_RTOL = 1e-4  # the card's loss, nll and task-leaf norms against TRAIN_REF
+# scripts/train_reference.py: the JAX package on the CPU (float32, matmul
+# precision "highest") at multitask-LM full width, TRAIN_LOCKSTEP, the
+# weights of train_weights: per step the loss, nll and Frobenius norm of
+# each task leaf after the step
+TRAIN_REF = {
+    "loss": [10.851442337036133, 10.908153533935547, 10.815141677856445, 10.78341293334961],
+    "nll": [10.851442337036133, 10.908153533935547, 10.815141677856445, 10.78341293334961],
+    "task_norms": {
+        "final_gain": [30.591598510742188, 25.48238182067871, 22.580623626708984,
+                       20.554107666015625],
+        "head_bias": [171.08509826660156, 142.5448455810547, 126.32621765136719,
+                      114.99891662597656],
+    },
+}
+
+
+def train_weights(np, leaves):
+    """The lockstep's weights, drawn with numpy for both packages: leaves
+    (path, shape) of the JAX params tree, drawn one at a time in sorted path
+    order from one generator (TRAIN_SEED), float32: per-task leaves
+    ("task/...") normal * TRAIN_TASK_SCALE, norm gains zero, weights normal
+    / sqrt(fan_in) (the embedding's fan-in is its width). Returns {path:
+    array}."""
+    rng = np.random.default_rng(TRAIN_SEED)
+    out = {}
+    for path, shape in sorted(leaves):
+        name = path.split("/")[-1]
+        if path.startswith("task/"):
+            scale = TRAIN_TASK_SCALE
+        elif name == "gain":
+            out[path] = np.zeros(shape, np.float32)
+            continue
+        else:
+            scale = 1.0 / np.sqrt(shape[-1] if name == "embed" else shape[-2])
+        out[path] = (rng.standard_normal(shape, dtype=np.float32) * np.float32(scale))
+    return out
+
+
+TRAIN_SPEED = {"batch": 32, "seq": 256, "warmup": 2, "steps": 10}
+TRAIN_SYNC_STEPS = (5, 10)  # host syncs per step must be the same over both
+TRAIN_OLMO = {"batch": 8, "seq": 256, "steps": 3}
+TRAIN_LAUNCH = ["--arch", "multitask_lm", "--no-smoke", "--steps", "3", "--batch", "16",
+                "--seq", "128"]
+# the launcher's run and the same run in this process: logits of the two
+# checkpoints' models (only the order of the card's atomic sums may differ)
+TRAIN_LAUNCH_ATOL = 1e-3
+TRAIN_SERVE_LENS = [300, 64, 500, 128]
+TRAIN_SERVE_TASKS = [0, 85, 170, 255]
+TRAIN_MOVED = 1e-3  # two steps must move some logit of the served requests by this
+
+
+def train_flops(cfg, b, s):
+    """(model FLOPs of one step, N): 6 N T for the N weights of the
+    products (the layers' projections and MLP, the lm head; not the
+    embedding gather, the norms or the per-task vectors) over T = b s
+    tokens, plus the attention products as the reference computes them
+    (every query against all S keys, masked): 4 b H S^2 hd a layer forward,
+    three times that with the backward."""
+    d, hd = cfg.d_model, cfg.head_dim
+    mlp = 3 if cfg.mlp_kind == "swiglu" else 2
+    per_layer = 2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd + mlp * d * cfg.d_ff
+    n = cfg.num_layers * per_layer + d * cfg.vocab_size
+    attn = 3 * cfg.num_layers * 4 * b * cfg.num_heads * s * s * hd
+    return 6 * n * b * s + attn, n
+
+
+def train_model(np, tr, cfg, dev, lockstep=False):
+    """A full-width model on ``dev``: the port's seeded init, or with
+    ``lockstep`` the weights of train_weights, loaded through convert."""
+    model = tr["TransformerLM"](cfg, device=dev, seed=0)
+    if lockstep:
+        template = tr["convert"].params_to_numpy(model)
+        leaves = [(p, leaf.shape) for p, leaf in tr["tree"].paths(template)]
+        drawn = train_weights(np, leaves)
+        tr["convert"].load_numpy_params(
+            model, tr["tree"].unflatten(template, [drawn[p] for p, _ in leaves]))
+    return model
+
+
+def train_steps(tr, model, microbatches=1):
+    """The smoke's train step on ``model`` (adamw(TRAIN_LR), the graph-mixed
+    update over band_graph(num_tasks, 1)) and its fresh state."""
+    opt = tr["adamw"](TRAIN_LR)
+    gmt = tr["GraphMultiTask"](tr["band_graph"](model.cfg.num_tasks, 1), eta=TRAIN_ETA,
+                               tau=TRAIN_TAU)
+    return (tr["make_train_step"](model, opt, gmt, microbatches=microbatches),
+            tr["init_state"](model, opt))
+
+
+def train_batches(tr, cfg, batch, seq, n):
+    """The first n host batches of the token pipeline (seed TRAIN_SEED)."""
+    pipe = iter(tr["TokenPipeline"](cfg.vocab_size, seq_len=seq, global_batch=batch,
+                                    num_tasks=cfg.num_tasks, seed=TRAIN_SEED))
+    return [next(pipe) for _ in range(n)]
+
+
+def free_card(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def phase_train_lockstep(torch, np, tr, cfg, dev):
+    """10(a): multitask-LM at full width on the lockstep weights, the
+    reference's batches and settings: loss, nll and task-leaf norms within
+    TRAIN_RTOL of TRAIN_REF (scripts/train_reference.py)."""
+    lock = TRAIN_LOCKSTEP
+    model = train_model(np, tr, cfg, dev, lockstep=True)
+    step, state = train_steps(tr, model, lock["microbatches"])
+    got = {"loss": [], "nll": [], "task_norms": {k: [] for k in TRAIN_REF["task_norms"]}}
+    for batch in train_batches(tr, cfg, lock["batch"], lock["seq"], lock["steps"]):
+        state, m = step(state, tr["batch_to_device"](batch, dev))
+        got["loss"].append(float(m["loss"]))
+        got["nll"].append(float(m["nll"]))
+        for name, trace in got["task_norms"].items():
+            trace.append(float(model.task[name].detach().norm()))
+    pairs = [(got["loss"], TRAIN_REF["loss"]), (got["nll"], TRAIN_REF["nll"])]
+    pairs += [(got["task_norms"][k], TRAIN_REF["task_norms"][k]) for k in got["task_norms"]]
+    rel = max(abs(a - b) / abs(b) for g, r in pairs for a, b in zip(g, r, strict=True))
+    log(f"train (a): multitask-LM full width, {sum(p.numel() for p in model.parameters())} "
+        f"params, {lock['steps']} steps of batch {lock['batch']} x {lock['seq']}, "
+        f"{lock['microbatches']} microbatches: loss {got['loss']} against the reference's "
+        f"{TRAIN_REF['loss']}; max relative difference of loss, nll and task-leaf norms "
+        f"{rel:.3e} (limit {TRAIN_RTOL})")
+    if not rel <= TRAIN_RTOL:
+        raise AssertionError(f"train (a): the card's trace is {rel:.3e} from the reference's: "
+                             f"{got}")
+    return model, {"trace": got, "max_rel_err": rel}
+
+
+def phase_train_speed(torch, np, tr, model, smi, dev):
+    """10(b): steps of batch 32 x 256 on (a)'s model, synchronized, with
+    remat on and off; host syncs per step over 5 and 10 steps; the
+    reference's query-chunked attention against SDPA at this shape."""
+    cfg, sp = model.cfg, TRAIN_SPEED
+    flops, n_weights = train_flops(cfg, sp["batch"], sp["seq"])
+    tokens = sp["batch"] * sp["seq"]
+    batches = train_batches(tr, cfg, sp["batch"], sp["seq"], sp["warmup"] + sp["steps"])
+    to_dev = tr["batch_to_device"]
+    out = {"batch": sp["batch"], "seq": sp["seq"], "model_flops_per_step": flops,
+           "product_weights": n_weights, "peak_flops_f32": PEAK_FLOPS["float32"]}
+    for remat in (True, False):
+        model.cfg = dataclasses.replace(cfg, remat=remat)
+        step, state = train_steps(tr, model)
+        for b in batches[: sp["warmup"]]:
+            state, _ = step(state, to_dev(b, dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for b in batches[sp["warmup"]:]:
+            state, m = step(state, to_dev(b, dev))
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / sp["steps"]
+        rec = {"ms_per_step": secs * 1e3, "tokens_per_s": tokens / secs,
+               "mfu": flops / secs / PEAK_FLOPS["float32"],
+               "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 1e6,
+               "last_loss": float(m["loss"])}
+        if not np.isfinite(rec["last_loss"]):
+            raise AssertionError(f"train (b): non-finite loss with remat={remat}")
+        out["remat_on" if remat else "remat_off"] = rec
+        log(f"train (b): remat {'on' if remat else 'off'}: {rec['ms_per_step']:.2f} ms/step, "
+            f"{rec['tokens_per_s']:.1f} tokens/s, MFU {rec['mfu']:.4f} of the f32 CUDA-core "
+            f"peak ({flops / 1e12:.4f} TFLOP a step: 6 x {n_weights} x {tokens} + attention), "
+            f"torch.cuda.max_memory_allocated {rec['max_memory_allocated_mb']:.1f} MB; {smi}")
+        del step, state
+    model.cfg = cfg
+
+    step, state = train_steps(tr, model)
+
+    def run(n):
+        def go():
+            nonlocal state
+            for b in batches[:n]:
+                state, _ = step(state, to_dev(b, dev))
+        return go
+
+    sync_sites(torch, run(1))  # the first call under the debug mode also reports one-time syncs
+    sites = {n: sync_sites(torch, run(n)) for n in TRAIN_SYNC_STEPS}
+    out["syncs"] = {str(n): len(v) for n, v in sites.items()}
+    log(f"train (b): host syncs by steps (torch sync debug mode): {out['syncs']}; "
+        f"sites {sorted(set(x for v in sites.values() for x in v))}")
+    lo, hi = TRAIN_SYNC_STEPS
+    if len(sites[hi]) * lo != len(sites[lo]) * hi:
+        raise AssertionError(f"train (b): host syncs per step differ over {lo} and {hi} steps")
+    del step, state
+
+    h, kvh, hd, s, b = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, sp["seq"], sp["batch"]
+    g = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    q = torch.randn(b, s, h, hd, device=dev, generator=g)
+    k, v = (torch.randn(b, s, kvh, hd, device=dev, generator=g) for _ in range(2))
+    attend = tr["causal_attend"]
+    # SDPA on (B, H, S, hd) with the KV heads expanded beforehand: its fused
+    # f32 kernels take no grouped heads
+    qh, kh, vh = (t.transpose(1, 2).repeat_interleave(h // t.shape[2], dim=1).contiguous()
+                  for t in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+    ref = attend(q, k, v, q_chunk=cfg.q_chunk)
+    out["attention_ms"] = {
+        "causal_attend": event_ms(torch, lambda: attend(q, k, v, q_chunk=cfg.q_chunk)),
+        "sdpa": event_ms(torch, sdpa),
+        "max_abs_diff": (ref - sdpa().transpose(1, 2)).abs().max().item()}
+    log(f"train (b): one layer's attention forward at ({b}, {s}, {h}/{kvh}, {hd}) f32: "
+        f"causal_attend {out['attention_ms']['causal_attend']:.3f} ms, SDPA (a yardstick the "
+        f"port does not call) {out['attention_ms']['sdpa']:.3f} ms, max abs diff "
+        f"{out['attention_ms']['max_abs_diff']:.2e}")
+    return out
+
+
+def event_ms(torch, fn, reps=10):
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_train_olmo(torch, np, tr, get, smi, dev):
+    """10(c): OLMo-1B at full width (tied embeddings, non-parametric
+    LayerNorm), the port's seeded init: finite losses, the tied table
+    trained."""
+    cfg, ol = get("olmo_1b"), TRAIN_OLMO
+    model = train_model(np, tr, cfg, dev)
+    embed0 = model.embed.detach().norm().item()
+    step, state = train_steps(tr, model)
+    losses, secs = [], []
+    for b in train_batches(tr, cfg, ol["batch"], ol["seq"], ol["steps"]):
+        t0 = time.perf_counter()
+        state, m = step(state, tr["batch_to_device"](b, dev))
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    moved = abs(model.embed.detach().norm().item() - embed0)
+    rec = {"losses": losses, "s_per_step": secs, "embed_norm_moved": moved,
+           "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 1e6,
+           "params": sum(p.numel() for p in model.parameters())}
+    log(f"train (c): OLMo-1B full width ({rec['params']} params), batch {ol['batch']} x "
+        f"{ol['seq']}: losses {losses}, s/step {[round(x, 3) for x in secs]}, tied embedding "
+        f"norm moved {moved:.3e}, torch.cuda.max_memory_allocated "
+        f"{rec['max_memory_allocated_mb']:.1f} MB; {smi}")
+    if not (np.isfinite(losses).all() and moved > 0 and not hasattr(model, "head")):
+        raise AssertionError(f"train (c): {rec}")
+    return rec
+
+
+def phase_train_launch(torch, np, tr, dev):
+    """10(d): ``python -m repro_torch.launch.train`` as a subprocess with a
+    checkpoint; the same run in this process; each checkpoint loaded into a
+    fresh model with the port's load_pytree: the in-process one gives its
+    trained model's logits exactly, the launcher's within
+    TRAIN_LAUNCH_ATOL."""
+    out_dir = ROOT / "build" / "train_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ckpt_launch, ckpt_here = out_dir / "launch.npz", out_dir / "here.npz"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *TRAIN_LAUNCH,
+                           "--ckpt", str(ckpt_launch)], env=env, capture_output=True,
+                          text=True, timeout=600, cwd=ROOT)
+    launch_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"train (d): the launcher exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    log(f"train (d): launcher exited 0 in {launch_s:.1f} s: "
+        + " | ".join(proc.stdout.strip().splitlines()))
+    trained = tr["launch_main"]([*TRAIN_LAUNCH, "--ckpt", str(ckpt_here)])
+    rng = np.random.default_rng(TRAIN_SEED)
+    cfg = trained.cfg
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 64)), device=dev),
+             "task_ids": torch.arange(4, device=dev) % cfg.num_tasks}
+    with torch.no_grad():
+        want = trained.forward(batch)[0]
+    diffs = {}
+    for name, path in (("here", ckpt_here), ("launch", ckpt_launch)):
+        fresh = tr["TransformerLM"](cfg, device=dev, seed=7)
+        tree, step = tr["load_pytree"](str(path), tr["convert"].params_to_numpy(fresh))
+        tr["convert"].load_numpy_params(fresh, tree)
+        with torch.no_grad():
+            diffs[name] = (fresh.forward(batch)[0] - want).abs().max().item()
+        if step != 3:
+            raise AssertionError(f"train (d): {name} checkpoint at step {step}")
+        del fresh, tree
+    log(f"train (d): logits of fresh models from the checkpoints against the trained model's: "
+        f"in-process {diffs['here']:.3e}, launcher's {diffs['launch']:.3e} "
+        f"(limits 0 and {TRAIN_LAUNCH_ATOL})")
+    if diffs["here"] != 0.0 or not diffs["launch"] <= TRAIN_LAUNCH_ATOL:
+        raise AssertionError(f"train (d): checkpoint logits differ: {diffs}")
+    for path in (ckpt_launch, ckpt_here):
+        path.unlink()
+    return {"launch_s": launch_s, "logits_diff": diffs}
+
+
+def phase_train_serve(torch, np, tr, get, ContinuousBatcher, Request, ops, dev):
+    """10(e): a batcher captured (CUDA graphs, kernel backend) before
+    training serves after 2 train steps with no recapture: the same greedy
+    tokens as a fresh batcher on the trained weights (every logits row
+    within GRAPH_TOL), as the plain path (margin rule), some logits moved
+    by training, every parameter's data_ptr unchanged."""
+    cfg = get("multitask_lm")
+    model = train_model(np, tr, cfg, dev)
+    rng = np.random.default_rng(TRAIN_SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in TRAIN_SERVE_LENS]
+    ptrs = {n: p.data_ptr() for n, p in model.named_parameters()}
+    rows: dict = {}
+
+    def keep(req, row):
+        rows[(req.uid, len(req.out))] = row.copy()
+        return int(np.argmax(row))
+
+    def serve(bt, base):
+        for i, (p, t) in enumerate(zip(prompts, TRAIN_SERVE_TASKS)):
+            bt.submit(Request(uid=base + i, tokens=p, max_new=NEW, task_id=t))
+        done = {r.uid: r.out for r in bt.run()}
+        return [done[base + i] for i in range(len(prompts))]
+
+    kw = dict(num_slots=4, max_seq=1024, prefill_chunk=32, sample_fn=keep)
+    early = ContinuousBatcher(model, **kw)
+    before = serve(early, 0)
+    captures = early.captures
+    step, state = train_steps(tr, model)
+    for b in train_batches(tr, cfg, 8, 128, 2):
+        state, _ = step(state, tr["batch_to_device"](b, dev))
+    del step, state
+    torch.cuda.synchronize()
+    zero_counts(ops)
+    after = serve(early, 100)
+    torch.cuda.synchronize()
+    launches = read_counts(ops)
+    fresh = ContinuousBatcher(model, **kw)
+    want = serve(fresh, 200)
+    fresh.close()
+    early.close()
+    n = len(prompts)
+    graph_diff = max(float(np.abs(rows[(100 + i, t)] - rows[(200 + i, t)]).max())
+                     for i in range(n) for t in range(NEW))
+    moved = max(float(np.abs(rows[(100 + i, t)] - rows[(i, t)]).max())
+                for i in range(n) for t in range(NEW))
+    changed = sum(a != b for x, y in zip(after, before) for a, b in zip(x, y))
+    log(f"train (e): a batcher captured before training ({captures} graphs) served after 2 "
+        f"steps with {early.captures} graphs: tokens == a fresh batcher's: {after == want}; "
+        f"logits rows max abs diff {graph_diff:.3e} (limit {GRAPH_TOL}); training moved the "
+        f"logits by up to {moved:.3e} and changed {changed}/{n * NEW} tokens; launches {launches}")
+    if captures != 2 or early.captures != 2:
+        raise AssertionError(f"train (e): {early.captures} captures, want 2 and no recapture")
+    if after != want or not graph_diff <= GRAPH_TOL:
+        raise AssertionError("train (e): the replay after training differs from a fresh capture")
+    if not moved > TRAIN_MOVED:
+        raise AssertionError(f"train (e): training moved no logit by {TRAIN_MOVED}")
+    if {nm: p.data_ptr() for nm, p in model.named_parameters()} != ptrs:
+        raise AssertionError("train (e): a parameter moved in memory during training")
+    per = {nm: launches[nm] for nm in ("decode_attention", "prefill_attention")}
+    if (min(per.values()) == 0 or any(c % cfg.num_layers for c in per.values())
+            or launches["paged_decode_attention"] or launches["paged_prefill_attention"]
+            or launches["graph_mix"]):
+        raise AssertionError(f"train (e): launches {launches}")
+    ref, margins = plain_run(np, model, prompts, NEW, ContinuousBatcher, Request,
+                             task_ids=TRAIN_SERVE_TASKS)
+    compared = compare("train (e)", "plain path", after, ref, margins, NEW)
+    return {"launches": launches, "graph_logits_diff": graph_diff, "logits_moved": moved,
+            "tokens_changed_by_training": changed, "plain_compared": compared}
+
+
+def phase_train(torch, np, tr, get, ContinuousBatcher, Request, ops, smi,
+                dev="cuda"):
+    """Phase 10: training (see the docstring). ``dev`` "cpu" rehearses it
+    off the card (smoke configs through ``get``, the card's calls patched)."""
+    t_phase = time.perf_counter()
+    free_card(torch)
+    model, lockstep = phase_train_lockstep(torch, np, tr, get("multitask_lm"), dev)
+    speed = phase_train_speed(torch, np, tr, model, smi, dev)
+    del model
+    free_card(torch)
+    olmo = phase_train_olmo(torch, np, tr, get, smi, dev)
+    free_card(torch)
+    launch = phase_train_launch(torch, np, tr, dev)
+    free_card(torch)
+    serve = phase_train_serve(torch, np, tr, get, ContinuousBatcher, Request, ops, dev)
+    free_card(torch)
+    secs = time.perf_counter() - t_phase
+    log(f"train: phase passed in {secs:.1f} s")
+    return {"device": smi, "lockstep": lockstep, "speed": speed, "olmo_1b": olmo,
+            "launch": launch, "serve": serve, "seconds": secs}
+
+
 def main() -> int:
     import torch
 
@@ -1552,6 +1975,19 @@ def main() -> int:
         ServeEngine,
         TaskAdapterStore,
     )
+    from repro_torch import convert, optim, train as trainer
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.core import GraphMultiTask
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import main as launch_main
+    from repro_torch.models.attention import causal_attend
+
+    train_lib = {"TransformerLM": TransformerLM, "convert": convert, "tree": tree_lib,
+                 "adamw": optim.adamw, "GraphMultiTask": GraphMultiTask,
+                 "band_graph": band_graph, "make_train_step": trainer.make_train_step,
+                 "init_state": trainer.init_state, "batch_to_device": trainer.batch_to_device,
+                 "TokenPipeline": TokenPipeline, "causal_attend": causal_attend,
+                 "launch_main": launch_main, "load_pytree": load_pytree}
 
     # full f32 products everywhere: no TF32, no reduced-precision bf16 sums
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1603,6 +2039,8 @@ def main() -> int:
         f"params, f32) initialised in {time.perf_counter() - t1:.1f} s")
     adapters = phase_adapters(torch, np, mt_model, ServeEngine, TaskAdapterStore, band_graph,
                               tree_lib, ContinuousBatcher, Request, ops)
+    del mt_model
+    train = phase_train(torch, np, train_lib, get, ContinuousBatcher, Request, ops, smi)
     phase_breakdown(torch, breakdown)
     del breakdown  # its closures hold the phase-2 inputs
     log(json.dumps({"paper": {"device": smi, **paper}}))
@@ -1610,13 +2048,15 @@ def main() -> int:
                                     "prefix": prefix["rates"], "faults": faults["rates"],
                                     "adapters": adapters["rates"]},
                     "profile": profiles}))
+    log(json.dumps({"train": train}))
     log(f"smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     # launches of each kernel on the main paths, each counted from zero:
-    # the dense and adapters phases for the dense kernels, the paged and
-    # prefix phases for the paged ones, the faults phase for both, the
-    # adapters phase for the graph mix
+    # the dense, adapters and train (serving after training) phases for the
+    # dense kernels, the paged and prefix phases for the paged ones, the
+    # faults phase for both, the adapters phase for the graph mix
     launches = {
-        name: sum(ph["launches"][name] for ph in (dense, paged, prefix, faults, adapters))
+        name: sum(ph["launches"][name]
+                  for ph in (dense, paged, prefix, faults, adapters, train["serve"]))
         for name in COUNTED
     }
     meta = {

@@ -1,12 +1,12 @@
 """Architecture config schema + registry of the port.
 
 The port's own copy of the fields of ``repro.configs.base.ArchConfig`` that
-the dense serving path reads (plus ``num_tasks``, ``adapter_rank`` and
-``q_chunk``), with the same values per architecture. The backend flag
-``attn_backend`` is the port's, and it selects every hand-written kernel,
-not only attention's: ``"kernel"`` serves attention from the CUDA attention
-kernels and mixes task adapters (``repro_torch.serve.adapters``) with the
-CUDA graph-mix kernel; ``"plain"`` runs the plain PyTorch version of each
+the dense serving and training paths read (plus ``num_tasks``,
+``adapter_rank``, ``q_chunk`` and ``remat``), with the same values per
+architecture. The backend flag ``attn_backend`` is the port's, and it
+selects every hand-written kernel, not only attention's: ``"kernel"``
+serves attention from the CUDA attention kernels and mixes task adapters
+(``repro_torch.serve.adapters``) with the CUDA graph-mix kernel; ``"plain"`` runs the plain PyTorch version of each
 (the masked-softmax attention that plays the role of the JAX package's
 ``"jnp"``, and the einsum graph mix). ``get(name, smoke=)`` resolves either
 variant; ``multitask_linreg`` resolves to the paper's own workload, a
@@ -44,6 +44,9 @@ class ArchConfig:
     # must pass an explicit rank
     adapter_rank: int = 0
     q_chunk: int = 1024
+    # rematerialize each layer's activations in the backward of ``forward``
+    # (the JAX package's jax.checkpoint of its layer scan)
+    remat: bool = True
     attn_backend: str = "kernel"
     source: str = ""
 

@@ -1,11 +1,13 @@
-"""Weights from the JAX package into the port.
+"""Weights between the JAX package and the port.
 
 ``params_from_numpy(tree)`` takes the JAX model's params pytree with numpy
 leaves (``jax.tree.map(np.asarray, params)``) and returns the state dict of
 ``repro_torch.models.TransformerLM``. Leaves are found by the same flat
 paths as ``repro/checkpoint/npz.py::_paths`` ("stages/0/slot0/attn/wq"); the
 (P, ...) period axis of the one stage of an ("attn",) model is unstacked
-into per-layer weights ("layers.3.attn.wq").
+into per-layer weights ("layers.3.attn.wq"). ``params_to_numpy(model)`` is
+its inverse: the port's weights as the JAX params tree with numpy leaves,
+so trained weights or a checkpoint cross back to JAX.
 
 ``adapters_from_numpy(store, tree)`` carries a JAX ``TaskAdapterStore``'s
 raw tree (numpy leaves, ``jax.tree.map(np.asarray, store.raw)``) into the
@@ -44,6 +46,40 @@ def params_from_numpy(tree) -> dict[str, torch.Tensor]:
         for i in range(stacked.shape[0]):
             state[f"layers.{i}.{group}.{name}"] = _tensor(stacked[i])
     return state
+
+
+def to_numpy(leaf) -> np.ndarray:
+    """A tensor (any device) or array as a host numpy array; bfloat16 as
+    float32, which holds it exactly (numpy has no bfloat16)."""
+    if not isinstance(leaf, torch.Tensor):
+        return np.asarray(leaf)
+    leaf = leaf.detach()
+    if leaf.dtype == torch.bfloat16:
+        leaf = leaf.float()
+    return leaf.cpu().numpy()
+
+
+def params_to_numpy(model) -> dict:
+    """The model's weights as the JAX model's params tree with numpy leaves:
+    the per-layer weights restacked into the one stage's (P, ...) leaves
+    ("stages/0/slot0/attn/wq"), a parameter-free norm as an empty dict, as
+    the JAX ``init`` leaves it. bfloat16 weights come out as float32."""
+    tree: dict = {"final_norm": {}}
+    slot: dict = {group: {} for group in model.layers[0]._modules}
+    per_layer: dict = {}
+    for name, t in model.state_dict().items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            per_layer.setdefault((parts[2], parts[3]), {})[int(parts[1])] = to_numpy(t)
+            continue
+        node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = to_numpy(t)
+    for (group, leaf), by_layer in per_layer.items():
+        slot[group][leaf] = np.stack([by_layer[i] for i in range(len(by_layer))])
+    tree["stages"] = [{"slot0": slot}]
+    return tree
 
 
 def load_numpy_params(model, tree):

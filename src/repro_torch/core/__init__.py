@@ -4,10 +4,11 @@ graph and its mixing matrices (``graph``), the objective and losses
 stochastic solvers of Section 4 (``stochastic``), the baselines of Section 6
 (``baselines``), the consensus limit of Section 5 (``consensus``),
 delay-tolerant BOL of Appendix G (``delayed``), alternating graph learning
-(``graph_learning``) and the statistical theory (``theory``). They run in
+(``graph_learning``), the statistical theory (``theory``) and the mixed
+update of the LM trainer (``distributed.GraphMultiTask``). They run in
 plain torch where the reference runs plain ``jnp``, on the inputs' device.
-The sharded solvers (``GraphMultiTask``, ``mix_all_gather``, ``mix_ring``,
-``bol_sharded``, ``bsr_sharded``) are not ported yet."""
+The sharded solvers (``mix_all_gather``, ``mix_ring``, ``bol_sharded``,
+``bsr_sharded``) are not ported yet."""
 from repro_torch.core.graph import (
     TaskGraph,
     band_graph,
@@ -34,4 +35,5 @@ from repro_torch.core.graph_learning import (
     laplacian_from_relationship,
     mtrl_relationship,
 )
+from repro_torch.core.distributed import GraphMultiTask, mixing_spec_for_band_graph
 from repro_torch.core import theory

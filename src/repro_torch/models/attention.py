@@ -1,7 +1,11 @@
-"""GQA attention (± QKV bias, ± sliding window) over a dense KV cache or a
-paged KV pool.
+"""GQA attention (± QKV bias, ± sliding window): full-sequence causal
+attention for training, and attention over a dense KV cache or a paged KV
+pool for serving.
 
-Counterpart of the serving part of ``repro.models.attention``. The serving
+Counterpart of the GQA part of ``repro.models.attention``. The training
+forward attends through ``causal_attend``: query-chunked masked softmax in
+plain torch, the reference's arithmetic (no kernel: the reference's is plain
+``jnp`` too, whatever ``attn_backend`` says). The serving
 cache paths (decode tick + parallel prefill chunk) dispatch through
 ``cached_attend`` on ``ArchConfig.attn_backend``: ``"plain"`` runs the
 masked-softmax ``decode_attend`` below (the reference semantics; over the
@@ -61,6 +65,40 @@ def gqa_project(params, x, n_heads, n_kv, head_dim):
         k.reshape(b, s, n_kv, head_dim),
         v.reshape(b, s, n_kv, head_dim),
     )
+
+
+def causal_attend(q, k, v, *, sliding_window=None, q_chunk: int = 1024):
+    """Query-chunked causal (optionally windowed) attention, the reference's
+    ``causal_attend`` op for op: chunks of ``q_chunk`` queries (one chunk
+    when ``q_chunk`` does not divide S), each against all S keys, with the
+    GQA group kept as an explicit (KVH, G) split; float32 scores, masked to
+    ``NEG_INF`` (never -inf, so a row stays finite), the probabilities cast
+    to q's dtype before the second product, accumulated in float32.
+
+    q: (B, S, H, hd); k, v: (B, S, KVH, hd). Returns (B, S, H, hd_v)."""
+    b, s, h, hd = q.shape
+    hd_v = v.shape[-1]
+    kvh = k.shape[2]
+    g = h // kvh
+    scale = scale_for(hd)
+    q_chunk = min(q_chunk, s)
+    if s % q_chunk != 0:  # fall back to one chunk when not divisible
+        q_chunk = s
+    qg = q.reshape(b, s // q_chunk, q_chunk, kvh, g, hd)
+    kv_pos = torch.arange(s, device=q.device)
+    kf, vf = k.float(), v.float()
+    outs = []
+    for ci in range(s // q_chunk):
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qg[:, ci].float(), kf) * scale
+        q_pos = ci * q_chunk + torch.arange(q_chunk, device=q.device)
+        mask = kv_pos[None, :] <= q_pos[:, None]
+        if sliding_window is not None:
+            mask &= kv_pos[None, :] > q_pos[:, None] - sliding_window
+        scores = torch.where(mask, scores, NEG_INF)
+        w = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bkgqs,bskd->bqkgd", w.to(q.dtype).float(), vf)
+        outs.append(out.to(q.dtype))  # (B, qc, KVH, G, hd_v)
+    return torch.cat(outs, dim=1).reshape(b, s, h, hd_v)
 
 
 def decode_attend(q, k_cache, v_cache, pos, *, sliding_window=None):

@@ -1,5 +1,5 @@
-"""Dense decoder LM for serving: the ``pattern == ("attn",)`` part of
-``repro.models.model.TransformerLM``.
+"""Dense decoder LM for training and serving: the ``pattern == ("attn",)``
+part of ``repro.models.model.TransformerLM``.
 
 The JAX model keeps period-stacked (P, ...) params and ``lax.scan``s over
 them; here each layer is its own ``_Block`` module and the stack is a
@@ -7,7 +7,17 @@ Python loop. Weights come from a seeded ``torch.Generator`` on the model's
 device (the JAX package's ``dense_init`` law, other random numbers) or from
 the JAX params through ``repro_torch.convert``.
 
-Serving entry points, counterparts of the JAX ones:
+Every weight is a trainable ``nn.Parameter``. Training entry points,
+counterparts of the JAX ones:
+  * ``forward``  — full-sequence logits (B, S, V) float32 and the MoE aux
+    loss (0 here), each layer rematerialized in the backward when
+    ``cfg.remat`` (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint``).
+  * ``loss_fn``  — softmax cross-entropy (+ ``aux_weight`` * aux) and its
+    metrics.
+
+Serving entry points, counterparts of the JAX ones, all under
+``torch.no_grad()``:
   * ``init_cache`` / ``reset_slot_state`` — one (k, v) pair per layer:
     dense per-slot stripes (B, max_seq, KVH, hd), or, given a
     ``PagingSpec``, shared pools (num_blocks, block_size, KVH, hd) that
@@ -31,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
@@ -48,10 +59,8 @@ from repro_torch.models.layers import (
 )
 
 
-def _frozen(tensors: dict) -> nn.ParameterDict:
-    return nn.ParameterDict(
-        {k: nn.Parameter(v, requires_grad=False) for k, v in tensors.items()}
-    )
+def _params(tensors: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors.items()})
 
 
 class _Block(nn.Module):
@@ -60,13 +69,13 @@ class _Block(nn.Module):
     def __init__(self, cfg: ArchConfig, dtype, generator: torch.Generator):
         super().__init__()
         dev = generator.device
-        self.norm1 = _frozen(init_norm(cfg.norm_kind, cfg.d_model, dtype, dev))
-        self.attn = _frozen(attn_lib.init_gqa(
+        self.norm1 = _params(init_norm(cfg.norm_kind, cfg.d_model, dtype, dev))
+        self.attn = _params(attn_lib.init_gqa(
             cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
             cfg.qkv_bias, dtype, generator,
         ))
-        self.norm2 = _frozen(init_norm(cfg.norm_kind, cfg.d_model, dtype, dev))
-        self.mlp = _frozen(init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, generator))
+        self.norm2 = _params(init_norm(cfg.norm_kind, cfg.d_model, dtype, dev))
+        self.mlp = _params(init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, generator))
 
 
 class TransformerLM(nn.Module):
@@ -76,7 +85,7 @@ class TransformerLM(nn.Module):
         if tuple(cfg.pattern) != ("attn",):
             raise NotImplementedError(
                 f"{cfg.name}: block pattern {cfg.pattern} is not ported yet; "
-                "the port serves dense attention-only decoders (pattern ('attn',))"
+                "the port trains and serves dense attention-only decoders (pattern ('attn',))"
             )
         cfg.validate()
         self.cfg = cfg
@@ -85,22 +94,18 @@ class TransformerLM(nn.Module):
         gen = torch.Generator(device=self.device).manual_seed(seed)
         c = cfg
         self.embed = nn.Parameter(
-            dense_init((c.vocab_size, c.d_model), gen, in_axis=1, dtype=dtype),
-            requires_grad=False,
+            dense_init((c.vocab_size, c.d_model), gen, in_axis=1, dtype=dtype)
         )
         self.layers = nn.ModuleList(_Block(c, dtype, gen) for _ in range(c.num_layers))
-        self.final_norm = _frozen(init_norm(c.norm_kind, c.d_model, dtype, self.device))
+        self.final_norm = _params(init_norm(c.norm_kind, c.d_model, dtype, self.device))
         if not c.tie_embeddings:
-            self.head = nn.Parameter(
-                dense_init((c.d_model, c.vocab_size), gen, dtype=dtype),
-                requires_grad=False,
-            )
+            self.head = nn.Parameter(dense_init((c.d_model, c.vocab_size), gen, dtype=dtype))
         task = {"head_bias": torch.zeros((c.num_tasks, c.vocab_size), dtype=dtype,
                                          device=self.device)}
         if c.norm_kind != "nonparam_ln":
             task["final_gain"] = torch.zeros((c.num_tasks, c.d_model), dtype=dtype,
                                              device=self.device)
-        self.task = _frozen(task)
+        self.task = _params(task)
 
     # ----------------------------------------------------------------- embed
     def _embed(self, batch) -> torch.Tensor:
@@ -158,6 +163,56 @@ class TransformerLM(nn.Module):
             tree_lib.map_(lambda t, i=i: t[:, i], slot) for i in range(self.cfg.num_layers)
         ]
         return layers, tree_lib.map_(take, adapters["task"])
+
+    # ------------------------------------------------------------ training
+    def _block_full(self, p: _Block, x, positions):
+        """One layer over the whole sequence: the reference's
+        ``_block_full`` "attn" branch, causal attention through
+        ``causal_attend``. x: (B, S, d); positions: (B, S)."""
+        c = self.cfg
+        b, s = x.shape[:2]
+        h = apply_norm(c.norm_kind, x, p.norm1 or None)
+        q, k, v = attn_lib.gqa_project(p.attn, h, c.num_heads, c.num_kv_heads, c.head_dim)
+        q = apply_rope(q, positions, c.rope_theta)
+        k = apply_rope(k, positions, c.rope_theta)
+        o = attn_lib.causal_attend(q, k, v, sliding_window=c.sliding_window,
+                                   q_chunk=c.q_chunk)
+        x = x + matmul(o.reshape(b, s, c.num_heads * c.head_dim), p.attn["wo"])
+        h = apply_norm(c.norm_kind, x, p.norm2 or None)
+        return x + apply_mlp(p.mlp, h, c.mlp_kind)
+
+    def forward(self, batch):
+        """Training/eval forward. batch: {'tokens': (B, S) [, 'task_ids':
+        (B,)]}. Returns (logits (B, S, V) float32, aux loss () float32: 0,
+        the port has no MoE layer). With ``cfg.remat`` and grad enabled each
+        layer keeps only its input for the backward and recomputes the
+        rest."""
+        x = self._embed(batch)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for p in self.layers:
+            if remat:
+                x = checkpoint(self._block_full, p, x, positions, use_reentrant=False)
+            else:
+                x = self._block_full(p, x, positions)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._logits(x, batch), aux
+
+    def loss_fn(self, batch, aux_weight: float = 0.01):
+        """Mean softmax cross-entropy of ``batch['labels']`` (B, S), plus
+        ``aux_weight`` * aux. The label logit is the reference's masked
+        reduction over the vocab, taken as a gather of the one entry that
+        can match and a select: a label outside [0, V) matches no entry and
+        contributes 0 (it is not clamped). Returns (loss, {'nll', 'aux'})."""
+        logits, aux = self.forward(batch)
+        labels = batch["labels"].long()
+        v = logits.shape[-1]
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, labels.clamp(0, v - 1)[..., None])[..., 0]
+        label_logit = torch.where((labels >= 0) & (labels < v), picked, 0.0)
+        nll = (lse - label_logit).mean()
+        return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
     # ------------------------------------------------------------- caches
     def init_cache(self, batch_size: int, max_seq: int, paging=None) -> list:

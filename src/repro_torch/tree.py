@@ -31,3 +31,19 @@ def map_(fn, tree, *rest):
     if isinstance(tree, (list, tuple)):
         return type(tree)(map_(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree))
     return fn(tree, *rest)
+
+
+def map_with_path(fn, tree, prefix=()):
+    """``fn(path, leaf)`` applied leafwise, ``path`` as ``paths`` gives it."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, tree[k], prefix + (str(k),)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, t, prefix + (str(i),)) for i, t in enumerate(tree))
+    return fn("/".join(prefix), tree)
+
+
+def unflatten(template, leaves_):
+    """A tree of ``template``'s structure holding ``leaves_`` in the order
+    of ``leaves(template)``."""
+    it = iter(leaves_)
+    return map_(lambda _: next(it), template)

@@ -1,7 +1,7 @@
 """The port stands alone: no module of src/repro_torch, and not
 chip_smoke.py, imports jax, jaxlib or the JAX package repro — checked on
 the source (every import statement) and at run time (importing the serving
-stack, or the paper's core and data, loads no jax)."""
+stack, the paper's core and data, or the training stack loads no jax)."""
 import ast
 import os
 import subprocess
@@ -60,6 +60,20 @@ def test_importing_the_paper_core_and_data_loads_no_jax():
     code = (
         "import sys, repro_torch.core, repro_torch.data, repro_torch.configs; "
         "repro_torch.configs.get('multitask_linreg'); "
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')); "
+        "assert not bad, bad"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_importing_the_training_stack_loads_no_jax():
+    code = (
+        "import sys, repro_torch.train, repro_torch.optim, repro_torch.checkpoint, "
+        "repro_torch.launch.train, repro_torch.data.tokens, repro_torch.core.distributed; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')); "
         "assert not bad, bad"

@@ -12,7 +12,9 @@ Phases; each raises on failure, and then no result line is printed:
                 (B=4, S=1024, KVH=16, G=1, hd=128, ragged pos; prefill
                 C=32), Qwen2.5-14B GQA (KVH=8, G=5), multitask-LM's decode
                 and prefill (KVH=4, G=4, hd=64; prefill C=32: 128 rows in
-                one block), a sliding window, and every head-dim
+                one block), Mixtral-8x22B's (KVH=8, G=6, S=8192, the
+                4096-token window with positions past it; prefill C=32:
+                192 rows), a sliding window, and every head-dim
                 instantiation; the paged kernels over a pool of 16-token
                 blocks with shuffled ids (1024 logical rows per slot); f32
                 (atol 2e-5) and bf16 (atol 2e-2). At the OLMo-1B f32
@@ -174,9 +176,39 @@ Phases; each raises on failure, and then no result line is printed:
                 within 1e-5), == the plain path's (margin rule), some
                 logit moved by 1e-3, every parameter's data_ptr
                 unchanged. Logs one {"train": ...} JSON line.
+ 11. moe      — run after phase 10, every earlier model freed (memory logged
+                before and after): (a) Mixtral-8x22B at full width (d_model
+                6144, d_ff 16384, 8 experts top-2, 48/8 heads, vocab 32768)
+                and 4 of its 56 layers (the card holds ~41.7 GB of f32
+                weights), capacity_factor 1.25, random weights from seed 0,
+                max_seq 8192, prefill chunk 32, 4 slots: 6 requests of
+                4500, 700, 64, 413, 257, 590 prompt tokens, 16 new tokens
+                each, dense and paged (16-token blocks, a 32768-token
+                pool), each with CUDA graphs and with cuda_graphs=False:
+                4 attention launches per dispatch (and per warm-up), graph
+                tokens == eager tokens, dense step logits with graphs
+                within 1e-5 of eager, the same greedy tokens as the plain
+                path (dense) and paged as dense (margin rule); the
+                4500-token request's first-token logits with the window
+                and without must differ by more than 1e-3 (the window
+                masks on the card); a profile of 8 graph decode ticks, its
+                device ms per tick against the bound of reading every
+                weight (the capacity dispatch reads every expert) and the
+                visible K/V once; (b) two requests (64, 100 tokens) at
+                dropless capacity: prefill_mode "scan" gives the parallel
+                mode's tokens (margin rule); (c) phi4-mini at full width
+                (32 layers, tied embeddings at vocab 200064, f32): 4
+                requests, 32 launches per dispatch, the plain path's
+                tokens; (d) make_train_step with SGD and the graph-mixed
+                update on Mixtral-8x22B at full width and 1 layer, 2 steps
+                of batch 2 x 256: finite loss and aux, aux > 0, the router
+                and task.router_bias moved (nonzero gradients); ms per
+                step and peak memory logged. Logs one {"moe": ...} JSON
+                line.
 
 Output: the card's name and power limit first, per-phase lines, the
-{"paper": ...}, {"serve_rates": ...} and {"train": ...} JSON lines, then one
+{"paper": ...}, {"serve_rates": ...}, {"train": ...} and {"moe": ...} JSON
+lines, then one
 {"kernels": [...]} JSON line with the five kernels, and last
 {"ok": true, "device": {...}}.
 Exits non-zero without a result when there is no CUDA device or no
@@ -396,6 +428,12 @@ def phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, gather_pages, br
         ("qwen2_5_14b_window256", 4, 1024, 8, 5, 128, 32, [100, 992, 0, 431], 256, 16),
         ("hd64_stale_pos", 3, 96, 2, 4, 64, 1, [396, 40, 95], 16, 8),  # slot 0 sees no key
         ("hd32_block8", 2, 200, 4, 2, 32, 3, [5, 197], None, 8),
+        # Mixtral-8x22B: G 6, the 4096-token window over 8192 rows, positions
+        # past it; prefill C 32 (192 slab rows, several row tiles); dense and paged
+        ("mixtral_8x22b", 4, 8192, 8, 6, 128, 1, [4500, 8191, 100, 4095], 4096, None),
+        ("mixtral_8x22b", 4, 8192, 8, 6, 128, 32, [0, 4480, 8160, 4000], 4096, None),
+        ("mixtral_8x22b", 4, 8192, 8, 6, 128, 1, [4500, 8191, 100, 4095], 4096, 16),
+        ("mixtral_8x22b", 4, 8192, 8, 6, 128, 32, [0, 4480, 8160, 4000], 4096, 16),
     ]
     entries = {}
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -849,7 +887,8 @@ def eager_parity(torch, phase, engine, prompts, new, ops, toks, task_ids=None):
     return report_rates(f"{phase} (eager)", engine.last_stats, len(prompts), new, ettft, ewall)
 
 
-def logits_parity(np, phase, model, ContinuousBatcher, Request, prompts, **batcher_kw):
+def logits_parity(np, phase, model, ContinuousBatcher, Request, prompts, max_seq=1024,
+                  **batcher_kw):
     """Every logits row every dispatch hands the sampler (greedy), with
     CUDA graphs against eager, for the same requests: within GRAPH_TOL.
     Returns the largest absolute difference."""
@@ -861,7 +900,7 @@ def logits_parity(np, phase, model, ContinuousBatcher, Request, prompts, **batch
             rows[(req.uid, len(req.out))] = row.copy()
             return int(np.argmax(row))
 
-        bt = ContinuousBatcher(model, num_slots=4, max_seq=1024, prefill_chunk=32,
+        bt = ContinuousBatcher(model, num_slots=4, max_seq=max_seq, prefill_chunk=32,
                                sample_fn=keep, cuda_graphs=graphs, **batcher_kw)
         for uid, p in enumerate(prompts):
             bt.submit(Request(uid=uid, tokens=p, max_new=NEW))
@@ -898,10 +937,10 @@ def plain_backend(model):
         model.cfg = saved
 
 
-def plain_run(np, model, prompts, new, ContinuousBatcher, Request, task_ids=None,
-              **batcher_kw):
-    """The same requests through the plain attention path, greedy, with
-    each step's top-2 logit margin recorded: (outputs, margins) by uid."""
+def greedy_run(np, model, prompts, new, ContinuousBatcher, Request, task_ids=None,
+               max_seq=1024, **batcher_kw):
+    """The requests through a 4-slot batcher, greedy, with each step's
+    top-2 logit margin recorded: (outputs, margins) by uid."""
     margins: dict = {}
 
     def greedy_with_margin(req, row):
@@ -911,15 +950,23 @@ def plain_run(np, model, prompts, new, ContinuousBatcher, Request, task_ids=None
         margins.setdefault(req.uid, []).append(float(top2[1] - top2[0]))
         return int(np.argmax(row))
 
-    with plain_backend(model):  # the oracle runs eagerly
-        batcher = ContinuousBatcher(model, num_slots=4, max_seq=1024, prefill_chunk=32,
-                                    sample_fn=greedy_with_margin, cuda_graphs=False,
-                                    **batcher_kw)
-        for uid, p in enumerate(prompts):
-            tid = 0 if task_ids is None else int(task_ids[uid])
-            batcher.submit(Request(uid=uid, tokens=p, max_new=new, task_id=tid))
-        out = {r.uid: r.out for r in batcher.run()}
+    batcher = ContinuousBatcher(model, num_slots=4, max_seq=max_seq, prefill_chunk=32,
+                                sample_fn=greedy_with_margin, **batcher_kw)
+    for uid, p in enumerate(prompts):
+        tid = 0 if task_ids is None else int(task_ids[uid])
+        batcher.submit(Request(uid=uid, tokens=p, max_new=new, task_id=tid))
+    out = {r.uid: r.out for r in batcher.run()}
+    batcher.close()
     return out, margins
+
+
+def plain_run(np, model, prompts, new, ContinuousBatcher, Request, task_ids=None,
+              max_seq=1024, **batcher_kw):
+    """The same requests through the plain attention path, greedy, with
+    each step's top-2 logit margin recorded: (outputs, margins) by uid."""
+    with plain_backend(model):  # the oracle runs eagerly
+        return greedy_run(np, model, prompts, new, ContinuousBatcher, Request, task_ids,
+                          max_seq, cuda_graphs=False, **batcher_kw)
 
 
 def compare(phase, what, toks, ref, margins, new):
@@ -1941,6 +1988,216 @@ def phase_train(torch, np, tr, get, ContinuousBatcher, Request, ops, smi,
             "launch": launch, "serve": serve, "seconds": secs}
 
 
+MOE_LAYERS = 4  # of Mixtral-8x22B's 56: ~10.0 GB of f32 weights a layer, ~41.7 GB in all
+MOE_MAX_SEQ = 8192
+MOE_LENS = [4500, 700, 64, 413, 257, 590]  # the 4500-token prompt crosses the 4096 window
+MOE_PROFILE_LENS = (700, 300, 500, 100)
+MOE_MODES_LENS = [64, 100]
+PHI4_LENS = [700, 64, 413, 257]
+MOE_TRAIN = {"batch": 2, "seq": 256, "steps": 2, "lr": 1e-2}
+
+
+def decode_tick_bound(model, positions):
+    """Least device ms of one f32 decode tick at HBM bandwidth: every weight
+    read once (an untied embedding table only at the rows it gathers; an
+    MoE layer's capacity dispatch reads every expert whatever the routing)
+    and each slot's visible K/V rows in every layer."""
+    cfg = model.cfg
+    nbytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                 if n != "embed" or cfg.tie_embeddings)
+    if not cfg.tie_embeddings:
+        nbytes += len(positions) * cfg.d_model * model.embed.element_size()
+    window = cfg.sliding_window or MOE_MAX_SEQ
+    rows = sum(min(p + 1, window) for p in positions)
+    nbytes += rows * cfg.num_kv_heads * cfg.head_dim * 4 * 2 * cfg.num_layers
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def window_effect(np, model, prompt, ContinuousBatcher, Request):
+    """The first-token logits of ``prompt`` (longer than the window) served
+    alone, with the config's sliding window and without one: the largest
+    difference, which must show that the window masked on the card."""
+    saved, rows = model.cfg, []
+    try:
+        for window in (saved.sliding_window, None):
+            model.cfg = dataclasses.replace(saved, sliding_window=window)
+
+            def keep(req, row):
+                rows.append(row.copy())
+                return int(np.argmax(row))
+
+            bt = ContinuousBatcher(model, num_slots=4, max_seq=MOE_MAX_SEQ, prefill_chunk=32,
+                                   sample_fn=keep)
+            bt.submit(Request(uid=0, tokens=prompt, max_new=1))
+            bt.run()
+            bt.close()
+    finally:
+        model.cfg = saved
+    return float(np.abs(rows[0] - rows[1]).max())
+
+
+def phase_moe_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request, PagingSpec,
+                    ops):
+    """11(a), (b): Mixtral-8x22B at full width and MOE_LAYERS layers."""
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in MOE_LENS]
+    kw = dict(max_seq=MOE_MAX_SEQ, prefill_chunk=32, num_slots=4)
+    out = {}
+    launches = {}
+    for layout, extra in (("dense", {}),
+                          ("paged", {"paging": PagingSpec.sized(16, MOE_MAX_SEQ,
+                                                                4 * MOE_MAX_SEQ)})):
+        phase = f"moe {layout}"
+        engine = ServeEngine(model, **kw, **extra)
+        toks, launched, ttft, wall = serve_timed(torch, engine, prompts, NEW, ops)
+        st = engine.last_stats
+        check_launches(phase, launched, st, paged=layout == "paged", layers=cfg.num_layers)
+        check_tokens(phase, toks, len(prompts), NEW, cfg.vocab_size)
+        rates = report_rates(phase, st, len(prompts), NEW, ttft, wall)
+        rates["eager"] = eager_parity(torch, phase, ServeEngine(model, cuda_graphs=False, **kw,
+                                                                **extra),
+                                      prompts, NEW, ops, toks)
+        if layout == "dense":
+            rates["logits_diff_graph_vs_eager"] = logits_parity(
+                np, phase, model, ContinuousBatcher, Request, prompts, max_seq=MOE_MAX_SEQ)
+            ref, margins = plain_run(np, model, prompts, NEW, ContinuousBatcher, Request,
+                                     max_seq=MOE_MAX_SEQ)
+            compare(phase, "plain path", toks, ref, margins, NEW)
+            dense_toks = toks
+        else:
+            compare(phase, "dense kernel path", toks, dense_toks, margins, NEW)
+        for name, n in launched.items():
+            launches[name] = launches.get(name, 0) + n
+        out[layout] = rates
+    diff = window_effect(np, model, prompts[0], ContinuousBatcher, Request)
+    log(f"moe: the {MOE_LENS[0]}-token request's first-token logits with the "
+        f"{cfg.sliding_window}-token window vs without: max abs diff {diff:.3e}")
+    if not diff > MARGIN:
+        raise AssertionError(f"moe: the sliding window changed the logits by only {diff}")
+    out["window_logits_diff"] = diff
+
+    def setup():
+        rng = np.random.default_rng(1)
+        bt = ContinuousBatcher(model, num_slots=4, max_seq=MOE_MAX_SEQ, prefill_chunk=32)
+        for uid, n in enumerate(MOE_PROFILE_LENS):
+            bt.submit(Request(uid=uid, tokens=rng.integers(0, cfg.vocab_size, n)
+                              .astype(np.int32), max_new=64))
+        bt.capture()
+        return _admitted(bt)
+
+    prof = profile_window(torch, "8 decode ticks (Mixtral)", setup, _ticks, True,
+                          layers=cfg.num_layers)
+    # positions of the window's ticks: after admission and one tick, 8 more
+    bound_ms, nbytes = decode_tick_bound(model, [n + 5 for n in MOE_PROFILE_LENS])
+    tick_ms = prof["device_busy_ms"] / 8
+    log(f"moe: decode tick device time {tick_ms:.3f} ms (host wall "
+        f"{prof['wall_ms'] / 8:.3f} ms) against its bound {bound_ms:.3f} ms "
+        f"({nbytes / 1e9:.2f} GB of weights and K/V at {HBM_BYTES_PER_S / 1e12:.2f} TB/s): "
+        f"{bound_ms / tick_ms:.1%} of the bound")
+    out["decode_tick"] = {"device_ms": tick_ms, "wall_ms": prof["wall_ms"] / 8,
+                          "bound_ms": bound_ms, "bound_bytes": nbytes, "profile": prof}
+
+    # (b) dropless capacity: the parallel chunk and the per-token scan route alike
+    saved = model.cfg
+    model.cfg = dataclasses.replace(saved, capacity_factor=float(saved.num_experts))
+    try:
+        rng = np.random.default_rng(2)
+        short = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in MOE_MODES_LENS]
+        par, margins = greedy_run(np, model, short, NEW, ContinuousBatcher, Request)
+        scan, _ = greedy_run(np, model, short, NEW, ContinuousBatcher, Request,
+                             prefill_mode="scan")
+        out["modes_compared"] = compare("moe modes", "the scan prefill", par, scan, margins,
+                                        NEW)
+    finally:
+        model.cfg = saved
+    return out, launches
+
+
+def phase_moe(torch, np, tr, get, TransformerLM, ServeEngine, ContinuousBatcher, Request,
+              PagingSpec, ops, smi, dev="cuda"):
+    """Phase 11: the MoE family, phi4-mini, and an MoE train step (see the
+    docstring). ``dev`` "cpu" rehearses it off the card (smoke configs
+    through ``get``, the card's calls patched)."""
+    t_phase = time.perf_counter()
+    free_card(torch)
+    out = {"memory_mb_before": log_memory(torch, "moe (before)")}
+    cfg = dataclasses.replace(get("mixtral_8x22b"), num_layers=MOE_LAYERS)
+    t1 = time.perf_counter()
+    model = TransformerLM(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    out["params"] = sum(p.numel() for p in model.parameters())
+    log(f"moe: Mixtral-8x22B full width, {cfg.num_layers} of 56 layers ({out['params']} "
+        f"params, f32, {torch.cuda.memory_allocated() / 1e9:.2f} GB) initialised in "
+        f"{time.perf_counter() - t1:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    serve, launches = phase_moe_serve(torch, np, model, ServeEngine, ContinuousBatcher,
+                                      Request, PagingSpec, ops)
+    out["serve"] = serve
+    out["serve_peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+    log(f"moe: serving peak torch.cuda.max_memory_allocated {out['serve_peak_mb']:.1f} MB")
+    del model
+    free_card(torch)
+
+    # (c) phi4-mini at full width: tied embeddings at vocab 200064
+    model = TransformerLM(get("phi4_mini_3_8b"), device=dev, seed=0)
+    pcfg = model.cfg
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, pcfg.vocab_size, n).astype(np.int32) for n in PHI4_LENS]
+    engine = ServeEngine(model, max_seq=1024, prefill_chunk=32, num_slots=4)
+    toks, launched, ttft, wall = serve_timed(torch, engine, prompts, NEW, ops)
+    st = engine.last_stats
+    check_launches("phi4", launched, st, paged=False, layers=pcfg.num_layers)
+    check_tokens("phi4", toks, len(prompts), NEW, pcfg.vocab_size)
+    out["phi4"] = report_rates("phi4", st, len(prompts), NEW, ttft, wall)
+    out["phi4"]["params"] = sum(p.numel() for p in model.parameters())
+    ref, margins = plain_run(np, model, prompts, NEW, ContinuousBatcher, Request)
+    out["phi4"]["compared"] = compare("phi4", "plain path", toks, ref, margins, NEW)
+    for name, n in launched.items():
+        launches[name] += n
+    del model, engine
+    free_card(torch)
+
+    # (d) one SGD step of Mixtral at full width, one layer
+    tcfg = dataclasses.replace(get("mixtral_8x22b"), num_layers=1)
+    model = TransformerLM(tcfg, device=dev, seed=0)
+    mt = MOE_TRAIN
+    opt = tr["sgd"](mt["lr"])
+    gmt = tr["GraphMultiTask"](tr["band_graph"](tcfg.num_tasks, 1), eta=TRAIN_ETA,
+                               tau=TRAIN_TAU)
+    step, state = tr["make_train_step"](model, opt, gmt), tr["init_state"](model, opt)
+    watched = ("layers.0.moe.router", "task.router_bias")
+    before = {n: model.get_parameter(n).detach().clone() for n in watched}
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"ms": [], "loss": [], "aux": []}
+    for b in train_batches(tr, tcfg, mt["batch"], mt["seq"], mt["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, tr["batch_to_device"](b, dev))
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["loss"].append(float(m["loss"]))
+        rec["aux"].append(float(m["aux"]))
+    rec["moved"] = {n: (model.get_parameter(n).detach() - before[n]).abs().max().item()
+                    for n in watched}
+    rec["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+    rec["params"] = sum(p.numel() for p in model.parameters())
+    log(f"moe train (d): Mixtral-8x22B full width, 1 layer ({rec['params']} params), SGD lr "
+        f"{mt['lr']}, batch {mt['batch']} x {mt['seq']}: ms/step {rec['ms']}, loss "
+        f"{rec['loss']}, aux {rec['aux']}, largest change of {rec['moved']}, "
+        f"torch.cuda.max_memory_allocated {rec['peak_mb']:.1f} MB; {smi}")
+    if not (np.isfinite(rec["loss"]).all() and np.isfinite(rec["aux"]).all()
+            and min(rec["aux"]) > 0 and min(rec["moved"].values()) > 0):
+        raise AssertionError(f"moe train (d): {rec}")
+    out["train"] = rec
+    del model, step, state
+    free_card(torch)
+    out["memory_mb_after"] = log_memory(torch, "moe (after)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"moe: phase passed in {out['seconds']:.1f} s")
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -1983,7 +2240,7 @@ def main() -> int:
     from repro_torch.models.attention import causal_attend
 
     train_lib = {"TransformerLM": TransformerLM, "convert": convert, "tree": tree_lib,
-                 "adamw": optim.adamw, "GraphMultiTask": GraphMultiTask,
+                 "adamw": optim.adamw, "sgd": optim.sgd, "GraphMultiTask": GraphMultiTask,
                  "band_graph": band_graph, "make_train_step": trainer.make_train_step,
                  "init_state": trainer.init_state, "batch_to_device": trainer.batch_to_device,
                  "TokenPipeline": TokenPipeline, "causal_attend": causal_attend,
@@ -2041,6 +2298,8 @@ def main() -> int:
                               tree_lib, ContinuousBatcher, Request, ops)
     del mt_model
     train = phase_train(torch, np, train_lib, get, ContinuousBatcher, Request, ops, smi)
+    moe, moe_launches = phase_moe(torch, np, train_lib, get, TransformerLM, ServeEngine,
+                                  ContinuousBatcher, Request, PagingSpec, ops, smi)
     phase_breakdown(torch, breakdown)
     del breakdown  # its closures hold the phase-2 inputs
     log(json.dumps({"paper": {"device": smi, **paper}}))
@@ -2049,14 +2308,16 @@ def main() -> int:
                                     "adapters": adapters["rates"]},
                     "profile": profiles}))
     log(json.dumps({"train": train}))
+    log(json.dumps({"moe": {"device": smi, **moe}}))
     log(f"smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     # launches of each kernel on the main paths, each counted from zero:
     # the dense, adapters and train (serving after training) phases for the
     # dense kernels, the paged and prefix phases for the paged ones, the
-    # faults phase for both, the adapters phase for the graph mix
+    # faults and moe phases for both, the adapters phase for the graph mix
     launches = {
         name: sum(ph["launches"][name]
                   for ph in (dense, paged, prefix, faults, adapters, train["serve"]))
+        + moe_launches[name]
         for name in COUNTED
     }
     meta = {

@@ -1,10 +1,13 @@
 """Architecture config schema + registry of the port.
 
 The port's own copy of the fields of ``repro.configs.base.ArchConfig`` that
-the dense serving and training paths read (plus ``num_tasks``,
-``adapter_rank``, ``q_chunk`` and ``remat``), with the same values per
-architecture. The backend flag ``attn_backend`` is the port's, and it
-selects every hand-written kernel, not only attention's: ``"kernel"``
+the dense and mixture-of-experts serving and training paths read (plus
+``num_tasks``, ``adapter_rank``, ``q_chunk`` and ``remat``), with the same
+values per architecture. The reference's ``fsdp_gather_moe`` is left out:
+it is a sharding constraint on the expert weights with no arithmetic of its
+own, and comes with the port's sharded training. The backend flag
+``attn_backend`` is the port's, and it selects every hand-written kernel,
+not only attention's: ``"kernel"``
 serves attention from the CUDA attention kernels and mixes task adapters
 (``repro_torch.serve.adapters``) with the CUDA graph-mix kernel; ``"plain"`` runs the plain PyTorch version of each
 (the masked-softmax attention that plays the role of the JAX package's
@@ -38,6 +41,14 @@ class ArchConfig:
     rope_theta: float = 1e4
     sliding_window: int | None = None
     tie_embeddings: bool = False
+    # mixture of experts (pattern "attn_moe"; repro_torch.models.moe)
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    # dispatch groups: the tokens of a dispatch are routed in this many
+    # equal groups, each with its own capacity
+    moe_groups: int = 1
     num_tasks: int = 16
     # default low-rank width of the serving-time per-task adapters
     # (repro_torch.serve.adapters.TaskAdapterStore); 0 = the store's caller
@@ -50,7 +61,16 @@ class ArchConfig:
     attn_backend: str = "kernel"
     source: str = ""
 
+    @property
+    def uses_moe(self) -> bool:
+        return any(k == "attn_moe" for k in self.pattern)
+
     def validate(self) -> None:
+        if self.uses_moe and not self.num_experts >= self.top_k > 0:
+            raise ValueError(
+                f"an MoE pattern needs num_experts >= top_k > 0, got num_experts "
+                f"{self.num_experts}, top_k {self.top_k}"
+            )
         if self.num_kv_heads < 1 or self.num_heads % self.num_kv_heads:
             raise ValueError(
                 f"num_heads {self.num_heads} is not a multiple of "
@@ -67,7 +87,8 @@ class ArchConfig:
             )
 
 
-_ARCHS = ["multitask_linreg", "multitask_lm", "olmo_1b", "qwen2_5_14b"]
+_ARCHS = ["mixtral_8x22b", "multitask_linreg", "multitask_lm", "olmo_1b", "phi4_mini_3_8b",
+          "qwen1_5_110b", "qwen2_5_14b"]
 
 
 def canonical(name: str) -> str:

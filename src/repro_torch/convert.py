@@ -4,8 +4,9 @@
 leaves (``jax.tree.map(np.asarray, params)``) and returns the state dict of
 ``repro_torch.models.TransformerLM``. Leaves are found by the same flat
 paths as ``repro/checkpoint/npz.py::_paths`` ("stages/0/slot0/attn/wq"); the
-(P, ...) period axis of the one stage of an ("attn",) model is unstacked
-into per-layer weights ("layers.3.attn.wq"). ``params_to_numpy(model)`` is
+(P, ...) period axis of the one stage of an ("attn",) or ("attn_moe",)
+model is unstacked into per-layer weights ("layers.3.attn.wq",
+"layers.3.moe.shared.wg"). ``params_to_numpy(model)`` is
 its inverse: the port's weights as the JAX params tree with numpy leaves,
 so trained weights or a checkpoint cross back to JAX.
 
@@ -36,15 +37,16 @@ def params_from_numpy(tree) -> dict[str, torch.Tensor]:
         if parts[0] != "stages":
             state[".".join(parts)] = _tensor(leaf)
             continue
-        if parts[1:3] != ["0", "slot0"] or len(parts) != 5:
+        if parts[1:3] != ["0", "slot0"] or len(parts) < 5:
             raise ValueError(
-                f"{path}: only one-stage ('attn',) models are ported "
-                "(stages/0/slot0/<group>/<name>)"
+                f"{path}: only one-stage ('attn',) and ('attn_moe',) models are ported "
+                "(stages/0/slot0/<group>/...); MLA, mamba2, xLSTM, shared-attention and "
+                "multi-stage layouts are not"
             )
-        group, name = parts[3], parts[4]
+        name = ".".join(parts[3:])
         stacked = np.asarray(leaf)
         for i in range(stacked.shape[0]):
-            state[f"layers.{i}.{group}.{name}"] = _tensor(stacked[i])
+            state[f"layers.{i}.{name}"] = _tensor(stacked[i])
     return state
 
 
@@ -62,30 +64,37 @@ def to_numpy(leaf) -> np.ndarray:
 def params_to_numpy(model) -> dict:
     """The model's weights as the JAX model's params tree with numpy leaves:
     the per-layer weights restacked into the one stage's (P, ...) leaves
-    ("stages/0/slot0/attn/wq"), a parameter-free norm as an empty dict, as
-    the JAX ``init`` leaves it. bfloat16 weights come out as float32."""
+    ("stages/0/slot0/attn/wq", "stages/0/slot0/moe/shared/wg"), a
+    parameter-free norm as an empty dict, as the JAX ``init`` leaves it.
+    bfloat16 weights come out as float32."""
     tree: dict = {"final_norm": {}}
     slot: dict = {group: {} for group in model.layers[0]._modules}
     per_layer: dict = {}
     for name, t in model.state_dict().items():
         parts = name.split(".")
         if parts[0] == "layers":
-            per_layer.setdefault((parts[2], parts[3]), {})[int(parts[1])] = to_numpy(t)
+            per_layer.setdefault(tuple(parts[2:]), {})[int(parts[1])] = to_numpy(t)
             continue
         node = tree
         for key in parts[:-1]:
             node = node.setdefault(key, {})
         node[parts[-1]] = to_numpy(t)
-    for (group, leaf), by_layer in per_layer.items():
-        slot[group][leaf] = np.stack([by_layer[i] for i in range(len(by_layer))])
+    for path, by_layer in per_layer.items():
+        node = slot
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack([by_layer[i] for i in range(len(by_layer))])
     tree["stages"] = [{"slot0": slot}]
     return tree
 
 
 def load_numpy_params(model, tree):
-    """Load a JAX params tree (numpy leaves) into ``model`` in place, cast
-    to the model's dtype; every weight must be present and shaped alike."""
-    state = {k: v.to(model.dtype) for k, v in params_from_numpy(tree).items()}
+    """Load a JAX params tree (numpy leaves) into ``model`` in place, each
+    leaf cast to its weight's dtype (the model's, or float32 for an MoE
+    router); every weight must be present and shaped alike."""
+    own = model.state_dict()
+    state = {k: v.to(own[k].dtype) if k in own else v
+             for k, v in params_from_numpy(tree).items()}
     model.load_state_dict(state, strict=True)
     return model
 

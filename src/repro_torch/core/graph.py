@@ -86,6 +86,16 @@ class TaskGraph:
         """``M^{-1}``, computed once on the host (Section 3.1)."""
         return np.linalg.inv(self.metric_matrix(eta, tau))
 
+    def metric_sqrt(self, eta: float, tau: float) -> np.ndarray:
+        """``M^{1/2}`` through the eigendecomposition of M (float64, host)."""
+        w, v = np.linalg.eigh(self.metric_matrix(eta, tau))
+        return (v * np.sqrt(np.maximum(w, 0.0))) @ v.T
+
+    def metric_inv_sqrt(self, eta: float, tau: float) -> np.ndarray:
+        """``M^{-1/2}``, eigenvalues floored at 1e-30 (float64, host)."""
+        w, v = np.linalg.eigh(self.metric_matrix(eta, tau))
+        return (v / np.sqrt(np.maximum(w, 1e-30))) @ v.T
+
     # --------------------------------------------------------- mixing weights
     def bsr_mixing(self, eta: float, tau: float, alpha: float) -> np.ndarray:
         """Dense averaging weights ``mu = alpha * M^{-1}``."""

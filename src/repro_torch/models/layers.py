@@ -102,6 +102,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4):
 
 
 # --------------------------------------------------------------------- MLPs
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA evaluates it: ``F.silu`` at float32, and at
+    lower precision ``x * (1 / (1 + exp(-x)))`` with one rounding to the
+    input dtype after each op (``F.silu`` rounds once, and at bfloat16
+    ~40 % of its outputs then differ from the reference's by one ulp). The
+    dense SwiGLU and the MoE experts (``repro_torch.models.moe``) both
+    take their SiLU here."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
 def init_mlp(d: int, d_ff: int, kind: str, dtype, generator) -> dict:
     if kind == "swiglu":
         return {
@@ -119,7 +131,7 @@ def init_mlp(d: int, d_ff: int, kind: str, dtype, generator) -> dict:
 
 def apply_mlp(params, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "swiglu":
-        gate = F.silu(matmul(x, params["wg"]))
+        gate = silu(matmul(x, params["wg"]))
         return matmul(gate * matmul(x, params["wi"]), params["wo"])
     if kind == "gelu":
         # jax.nn.gelu defaults to the tanh approximation

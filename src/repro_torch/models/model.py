@@ -1,5 +1,6 @@
-"""Dense decoder LM for training and serving: the ``pattern == ("attn",)``
-part of ``repro.models.model.TransformerLM``.
+"""Decoder LM for training and serving: the ``pattern == ("attn",)``
+(dense) and ``("attn_moe",)`` (mixture of experts) parts of
+``repro.models.model.TransformerLM``.
 
 The JAX model keeps period-stacked (P, ...) params and ``lax.scan``s over
 them; here each layer is its own ``_Block`` module and the stack is a
@@ -10,7 +11,8 @@ the JAX params through ``repro_torch.convert``.
 Every weight is a trainable ``nn.Parameter``. Training entry points,
 counterparts of the JAX ones:
   * ``forward``  — full-sequence logits (B, S, V) float32 and the MoE aux
-    loss (0 here), each layer rematerialized in the backward when
+    loss (summed over the layers; 0 for a dense model), each layer
+    rematerialized in the backward when
     ``cfg.remat`` (``torch.utils.checkpoint``, the reference's
     ``jax.checkpoint``).
   * ``loss_fn``  — softmax cross-entropy (+ ``aux_weight`` * aux) and its
@@ -27,13 +29,15 @@ Serving entry points, counterparts of the JAX ones, all under
   Both take ``block_tables=`` for the paged pools.
 
 Both steps update the caches IN PLACE (and return them, as the JAX
-functions return new ones). Multi-task personalization lives in
-``self.task``: per-task final-norm gain (parametric norms only) and lm-head
-bias, gathered by each row's task id. Both steps also take ``adapters=``,
+functions return new ones). In an MoE layer dead decode lanes (``live``)
+and invalid prefill lanes (``valid``) take no expert capacity. Multi-task
+personalization lives in ``self.task``: per-task final-norm gain
+(parametric norms only), lm-head bias and, for MoE models, router bias,
+gathered by each row's task id. Both steps also take ``adapters=``,
 the graph-mixed serving tree of ``repro_torch.serve.adapters.
 TaskAdapterStore``: each row's low-rank deltas are gathered by task id and
-added to the attention and MLP branches of every layer, and its per-task
-gain and head-bias deltas to ``self.task``'s.
+added to the attention and MLP (or MoE) branches of every layer, and its
+per-task gain, head-bias and router-bias deltas to ``self.task``'s.
 """
 from __future__ import annotations
 
@@ -57,14 +61,21 @@ from repro_torch.models.layers import (
     init_norm,
     matmul,
 )
+from repro_torch.models.moe import apply_moe, init_moe
+
+
+_PATTERNS = (("attn",), ("attn_moe",))
 
 
 def _params(tensors: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors.items()})
+    return nn.ParameterDict({
+        k: _params(v) if isinstance(v, dict) else nn.Parameter(v) for k, v in tensors.items()
+    })
 
 
 class _Block(nn.Module):
-    """One attention + MLP layer (the JAX model's "attn" block)."""
+    """One attention + MLP layer (the JAX model's "attn" block), or
+    attention + MoE (its "attn_moe" block)."""
 
     def __init__(self, cfg: ArchConfig, dtype, generator: torch.Generator):
         super().__init__()
@@ -75,17 +86,22 @@ class _Block(nn.Module):
             cfg.qkv_bias, dtype, generator,
         ))
         self.norm2 = _params(init_norm(cfg.norm_kind, cfg.d_model, dtype, dev))
-        self.mlp = _params(init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, generator))
+        if cfg.uses_moe:
+            self.moe = _params(init_moe(cfg.d_model, cfg.d_ff, cfg.num_experts,
+                                        cfg.num_shared_experts, dtype, generator))
+        else:
+            self.mlp = _params(init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, generator))
 
 
 class TransformerLM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device=None, dtype=torch.float32,
                  seed: int = 0):
         super().__init__()
-        if tuple(cfg.pattern) != ("attn",):
+        if tuple(cfg.pattern) not in _PATTERNS:
             raise NotImplementedError(
-                f"{cfg.name}: block pattern {cfg.pattern} is not ported yet; "
-                "the port trains and serves dense attention-only decoders (pattern ('attn',))"
+                f"{cfg.name}: block pattern {cfg.pattern} is not ported yet; the port "
+                f"trains and serves the patterns {_PATTERNS} (MLA, mamba2, xLSTM and "
+                "shared-attention blocks are not ported)"
             )
         cfg.validate()
         self.cfg = cfg
@@ -105,6 +121,9 @@ class TransformerLM(nn.Module):
         if c.norm_kind != "nonparam_ln":
             task["final_gain"] = torch.zeros((c.num_tasks, c.d_model), dtype=dtype,
                                              device=self.device)
+        if c.uses_moe:
+            task["router_bias"] = torch.zeros((c.num_tasks, c.num_experts), dtype=dtype,
+                                              device=self.device)
         self.task = _params(task)
 
     # ----------------------------------------------------------------- embed
@@ -120,6 +139,26 @@ class TransformerLM(nn.Module):
         # table: clamp like the JAX model's _TAKE_MODE = "clip" (the gathered
         # rows only feed discarded dead-lane outputs)
         return table[task_ids.clamp(0, table.shape[0] - 1)]
+
+    def _router_bias(self, batch, seq: int, task_ad=None):
+        """Each row's per-task router bias (plus its adapter delta),
+        broadcast over ``seq`` tokens: (B, seq, E), or None for a dense
+        model or a batch without task ids."""
+        if not self.cfg.uses_moe or "task_ids" not in batch:
+            return None
+        bias = self._task_rows(self.task["router_bias"], batch["task_ids"])
+        if task_ad is not None and "router_bias" in task_ad:
+            bias = bias + task_ad["router_bias"].to(bias.dtype)
+        return bias[:, None, :].expand(bias.shape[0], seq, bias.shape[1])
+
+    def _ffn(self, p: _Block, h, router_bias, live=None):
+        """The layer's feed-forward branch: (out, aux) — the MoE with its
+        load-balance loss, or the MLP and a zero aux."""
+        c = self.cfg
+        if c.uses_moe:
+            return apply_moe(p.moe, h, top_k=c.top_k, capacity_factor=c.capacity_factor,
+                             router_bias=router_bias, groups=c.moe_groups, live=live)
+        return apply_mlp(p.mlp, h, c.mlp_kind), torch.zeros((), device=h.device)
 
     def _logits(self, x, batch, task_ad=None) -> torch.Tensor:
         """task_ad: optional per-row adapter deltas (``_gather_adapters``),
@@ -165,10 +204,11 @@ class TransformerLM(nn.Module):
         return layers, tree_lib.map_(take, adapters["task"])
 
     # ------------------------------------------------------------ training
-    def _block_full(self, p: _Block, x, positions):
+    def _block_full(self, p: _Block, x, positions, router_bias):
         """One layer over the whole sequence: the reference's
-        ``_block_full`` "attn" branch, causal attention through
-        ``causal_attend``. x: (B, S, d); positions: (B, S)."""
+        ``_block_full`` "attn" / "attn_moe" branch, causal attention
+        through ``causal_attend``. x: (B, S, d); positions: (B, S);
+        router_bias: (B, S, E) or None. Returns (x, aux)."""
         c = self.cfg
         b, s = x.shape[:2]
         h = apply_norm(c.norm_kind, x, p.norm1 or None)
@@ -179,24 +219,27 @@ class TransformerLM(nn.Module):
                                    q_chunk=c.q_chunk)
         x = x + matmul(o.reshape(b, s, c.num_heads * c.head_dim), p.attn["wo"])
         h = apply_norm(c.norm_kind, x, p.norm2 or None)
-        return x + apply_mlp(p.mlp, h, c.mlp_kind)
+        ff, aux = self._ffn(p, h, router_bias)
+        return x + ff, aux
 
     def forward(self, batch):
         """Training/eval forward. batch: {'tokens': (B, S) [, 'task_ids':
-        (B,)]}. Returns (logits (B, S, V) float32, aux loss () float32: 0,
-        the port has no MoE layer). With ``cfg.remat`` and grad enabled each
-        layer keeps only its input for the backward and recomputes the
-        rest."""
+        (B,)]}. Returns (logits (B, S, V) float32, aux loss () float32: the
+        MoE layers' load-balance losses summed, 0 for a dense model). With
+        ``cfg.remat`` and grad enabled each layer keeps only its input for
+        the backward and recomputes the rest."""
         x = self._embed(batch)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
+        rb = self._router_bias(batch, s)
         remat = self.cfg.remat and torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for p in self.layers:
             if remat:
-                x = checkpoint(self._block_full, p, x, positions, use_reentrant=False)
+                x, a = checkpoint(self._block_full, p, x, positions, rb, use_reentrant=False)
             else:
-                x = self._block_full(p, x, positions)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+                x, a = self._block_full(p, x, positions, rb)
+            aux = aux + a
         return self._logits(x, batch), aux
 
     def loss_fn(self, batch, aux_weight: float = 0.01):
@@ -297,9 +340,12 @@ class TransformerLM(nn.Module):
             block_tables=block_tables,
         )
 
-    def _attn_block(self, p: _Block, x, cache, pos, write, attend, ad=None):
+    def _attn_block(self, p: _Block, x, cache, pos, write, attend, router_bias, moe_live,
+                    ad=None):
         """Project the chunk, write its K/V through ``write``, attend with
-        per-query positions ``pos + i``, then the MLP. x: (B, C, d); ad:
+        per-query positions ``pos + i``, then the MLP or MoE. x: (B, C, d);
+        router_bias: (B, C, E) or None; moe_live: the (B,) live or (B, C)
+        valid mask that keeps dead lanes out of the experts' capacity; ad:
         optional per-row adapter factors of this layer, whose deltas are
         added to both branches off the same normed inputs."""
         c = self.cfg
@@ -318,20 +364,21 @@ class TransformerLM(nn.Module):
             out = out + apply_task_lora(h, ad["attn"])
         x = x + out
         h = apply_norm(c.norm_kind, x, p.norm2 or None)
-        ff = apply_mlp(p.mlp, h, c.mlp_kind)
+        ff, _ = self._ffn(p, h, router_bias, moe_live)
         if ad is not None:
             ff = ff + apply_task_lora(h, ad["mlp"])
         return x + ff
 
-    def _run_layers(self, x, caches, pos, write, attend, batch, adapters):
+    def _run_layers(self, x, caches, pos, write, attend, batch, adapters, moe_live):
         """The layer loop of both steps, with each layer's adapters when
         given. Returns (x, per-row task deltas or None)."""
         if adapters is None:
             layer_ads, task_ad = [None] * len(self.layers), None
         else:
             layer_ads, task_ad = self._gather_adapters(adapters, batch["task_ids"])
+        rb = self._router_bias(batch, x.shape[1], task_ad)
         for p, cache, ad in zip(self.layers, caches, layer_ads):
-            x = self._attn_block(p, x, cache, pos, write, attend, ad)
+            x = self._attn_block(p, x, cache, pos, write, attend, rb, moe_live, ad)
         return x, task_ad
 
     # ------------------------------------------------------------- serving
@@ -355,7 +402,7 @@ class TransformerLM(nn.Module):
         else:
             def write(cc, new):
                 attn_lib.paged_cache_write(cc, new, pos, block_tables, live)
-        x, task_ad = self._run_layers(x, caches, pos, write, attend, batch, adapters)
+        x, task_ad = self._run_layers(x, caches, pos, write, attend, batch, adapters, live)
         return self._logits(x, batch, task_ad), caches
 
     @torch.no_grad()
@@ -381,7 +428,7 @@ class TransformerLM(nn.Module):
         else:
             def write(cc, new):
                 attn_lib.paged_cache_write_slab(cc, new, pos, block_tables, valid)
-        x, task_ad = self._run_layers(x, caches, pos, write, attend, batch, adapters)
+        x, task_ad = self._run_layers(x, caches, pos, write, attend, batch, adapters, valid)
         idx = (valid.sum(dim=1) - 1).clamp(min=0)  # in [0, C-1]
         x_last = x[torch.arange(b, device=x.device), idx][:, None, :]  # (B, 1, d)
         return self._logits(x_last, batch, task_ad), caches

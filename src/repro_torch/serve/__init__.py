@@ -1,6 +1,6 @@
 from repro_torch.serve.adapters import TaskAdapterStore
 from repro_torch.serve.batching import ContinuousBatcher, Request, TickBudgetExceeded
-from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.engine import ServeEngine, generate
 from repro_torch.serve.faults import FaultError, FaultEvent, FaultPlan
 from repro_torch.serve.paging import BlockAllocator, PagingSpec, RadixPrefixCache
 from repro_torch.serve.scheduler import POLICIES, Scheduler

@@ -3,11 +3,11 @@
 Counterpart of ``repro.serve.adapters``: the paper's weighted neighbour
 averaging lifted into the serving stack. Every task (tenant) owns a stack
 of low-rank deltas — one ``(d, r) x (r, d)`` factor pair per layer branch
-plus per-task head-bias and final-gain deltas — stored task-leading, so the
-whole store is one tree of ``(num_tasks, ...)`` leaves. The store re-mixes
-ALL leaves with the graph's averaging weights ``mu``
-(``TaskGraph.bsr_mixing`` / ``bol_mixing`` / ``consensus_mixing``) in one
-``graph_mix_tree`` call — one kernel launch per leaf dtype — and publishes
+plus per-task head-bias, final-gain and (MoE) router-bias deltas — stored
+task-leading, so the whole store is one tree of ``(num_tasks, ...)``
+leaves. The store re-mixes ALL leaves with the graph's averaging weights
+``mu`` (``TaskGraph.bsr_mixing`` / ``bol_mixing`` / ``consensus_mixing``)
+in one ``graph_mix_tree`` call — one kernel launch per leaf dtype — and publishes
 a ``serving`` tree with a terminal ZERO null row (index ``num_tasks``) that
 dead batcher lanes gather. The serving tree is allocated once, with the
 store, and every refresh writes the mixed rows into it in place: a CUDA
@@ -62,13 +62,15 @@ class TaskAdapterStore:
     """Graph-mixed stacked low-rank adapters for multi-task serving.
 
     Layout (all leaves task-leading, ``m = num_tasks``, ``P`` = layers,
-    ``r`` = rank, ``d`` = d_model), the JAX store's for a dense
-    ``("attn",)`` model::
+    ``r`` = rank, ``d`` = d_model, ``E`` = experts), the JAX store's for an
+    ``("attn",)`` or ``("attn_moe",)`` model (the "mlp" pair adds to the
+    MoE branch)::
 
         raw = {
           "stages": [{"slot0": {"attn": {"a": (m,P,d,r), "b": (m,P,r,d)},
                                 "mlp":  {"a": (m,P,d,r), "b": (m,P,r,d)}}}],
-          "task": {"head_bias": (m, V) [, "final_gain": (m, d)]},
+          "task": {"head_bias": (m, V) [, "final_gain": (m, d)]
+                   [, "router_bias": (m, E)]},
         }
 
     ``serving`` is the graph-mixed copy with one extra ZERO row appended to
@@ -156,6 +158,8 @@ class TaskAdapterStore:
         task = {"head_bias": zeros(m, cfg.vocab_size)}
         if cfg.norm_kind != "nonparam_ln":
             task["final_gain"] = zeros(m, d)
+        if cfg.uses_moe:
+            task["router_bias"] = zeros(m, cfg.num_experts)
         return {"stages": [{"slot0": {"attn": pair(), "mlp": pair()}}], "task": task}
 
     def zeros_like_task(self):

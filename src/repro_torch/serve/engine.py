@@ -43,6 +43,11 @@ under block pressure and restores it exactly. A request that ends failed
 raise ``RuntimeError``: a dense (B, num_tokens) array cannot hold a
 partial result.
 
+``generate(model, prompt_batch, num_tokens, max_seq, **kw)`` is the
+module-level shorthand of the JAX package's: a ``ServeEngine(model,
+max_seq)`` and its ``generate``. The port's weights live in the model, so
+it takes no params argument.
+
 ``last_stats`` holds the dispatch counts, host seconds (``decode_s``,
 ``prefill_s``, and ``capture_s`` for the captures, which the other two do
 not hold), graph captures, (paged) admission waits, swap-outs and
@@ -199,3 +204,9 @@ class ServeEngine:
                 + "; ".join(f"uid {r.uid}: {r.error}" for r in failed)
             )
         return np.stack([np.asarray(finished[uid].out, np.int32) for uid in uids])
+
+
+def generate(model, prompt_batch, num_tokens, max_seq, **kw) -> np.ndarray:
+    """``ServeEngine(model, max_seq).generate(prompt_batch, num_tokens,
+    **kw)``: greedy (or sampled) generation with the engine's defaults."""
+    return ServeEngine(model, max_seq).generate(prompt_batch, num_tokens, **kw)

@@ -25,6 +25,17 @@ functions built here, so their numerics cannot drift.
 one pass) or ``"scan"`` (C sequential ``decode_step`` calls — the oracle
 the parallel path is held against, as in the JAX package).
 
+MoE caveat (as in the JAX package): expert capacity is computed per
+dispatch (``apply_moe`` sizes its buffers from the tokens it is given), so
+when capacity binds, the (B*C)-token parallel slab drops other tokens than C
+sequential B-token steps would. Routing itself is per token and the same;
+only the lossy overflow differs. The two modes (and chunk widths) agree
+token for token under dropless capacity (``capacity_factor >=
+num_experts``); under binding capacity each is self-consistent but they
+are not interchangeable. Both keep dead lanes out of the experts: a decode
+tick passes ``live``, a parallel chunk ``valid`` and each scan step its
+column of ``valid``.
+
 With ``paging`` (a ``repro_torch.serve.paging.PagingSpec``) the caches are
 the shared pools of ``model.init_cache(..., paging=spec)`` and every call
 takes the (B, max_blocks) int32 ``block_tables`` of the slots, one device

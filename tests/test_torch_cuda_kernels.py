@@ -10,14 +10,15 @@ scalar loads), NaN beyond the operands' ends, float32 (atol 1e-4, rtol
 rounded to bf16), one launch per dtype group of a tree, and its refusals.
 The dense and paged flash-decode kernels against their plain versions at
 forced split counts (1, 3, one per key tile and the wrapper's own), at the
-decode shapes above, multitask-LM's (G 4, hd 64) and S 2048 (64 splits,
-merged in two groups), a stale position, block sizes 8 and 16 with
-out-of-pool ids. The dense and paged flash-prefill kernels against their
-plain versions at forced split counts (1, 3 and the wrapper's own), at C * G
-of 3, 32, 128, 160 and 200 (a ragged m16 tile, rows over several m16 tiles,
-several row tiles), with a window, a slot at pos 0 beside one at 992, a row
-that sees no key, and, paged, block sizes 8 and 16 with a poisoned null
-block and out-of-pool ids.
+decode shapes above, multitask-LM's (G 4, hd 64), Mixtral-8x22B's (G 6,
+window 4096 over S 8192) and S 2048 (64 splits, merged in two groups), a
+stale position, block sizes 8 and 16 with out-of-pool ids. The dense and
+paged flash-prefill kernels against their plain versions at forced split
+counts (1, 3 and the wrapper's own), at C * G of 3, 32, 128, 160, 192 and
+200 (a ragged m16 tile, rows over several m16 tiles, several row tiles),
+with a window, a slot at pos 0 beside one at 992, a row that sees no key,
+and, paged, block sizes 8 and 16 with a poisoned null block and
+out-of-pool ids.
 
 Every test here needs a CUDA device and skips without one; the file imports
 no JAX, so it runs on a machine that has only the port's dependencies:
@@ -86,8 +87,9 @@ def test_paged_kernels_match_plain_versions(dtype, bs):
 # (B, S logical rows, KVH, G, hd, C, pos, window): C * G = 32 (OLMo-1B), 128
 # (multitask-LM: eight m16 tiles in one block), 160 (Qwen2.5-14B: two row
 # tiles of 80 rows in bf16, four of 48 in f32), 3 (a ragged m16 tile), 200
-# (two row tiles at hd 128 in bf16, five in f32); pos 0 beside 992; the
-# (110, window 3) slot's last row sees no key
+# (two row tiles at hd 128 in bf16, five in f32), 192 (Mixtral-8x22B: G 6,
+# the 4096 window over 8192 rows); pos 0 beside 992; the (110, window 3)
+# slot's last row sees no key
 _PREFILL_CASES = [
     (4, 1024, 16, 1, 128, 32, [0, 200, 640, 992], None),
     (4, 1024, 4, 4, 64, 32, [0, 200, 640, 992], None),
@@ -96,6 +98,7 @@ _PREFILL_CASES = [
     (1, 112, 1, 1, 64, 5, [110], 3),
     (2, 208, 4, 2, 32, 8, [0, 190], None),
     (2, 96, 2, 5, 128, 40, [10, 50], None),
+    (4, 8192, 8, 6, 128, 32, [0, 4480, 8160, 4000], 4096),
 ]
 
 
@@ -143,14 +146,16 @@ def test_prefill_kernels_match_plain_versions_at_forced_splits(dtype, nsplit, bl
 # (B, S logical rows, KVH, G, hd, pos, window): the decode cases of
 # test_paged_kernels_match_plain_versions (OLMo-1B; Qwen2.5-14B with a
 # window; a stale pos 396 whose slot sees no key), multitask-LM's decode
-# shape (G 4, hd 64), and S 2048, whose 64 tiles the merge takes in two
-# groups of 32 splits
+# shape (G 4, hd 64), S 2048, whose 64 tiles the merge takes in two
+# groups of 32 splits, and Mixtral-8x22B's (G 6, the 4096 window masking
+# positions past 4096)
 _DECODE_CASES = [
     (4, 1024, 16, 1, 128, [63, 300, 700, 1023], None),
     (4, 1024, 8, 5, 128, [0, 513, 64, 1000], 256),
     (3, 96, 2, 4, 64, [96 + 300, 40, 95], 16),
     (4, 1024, 4, 4, 64, [63, 300, 700, 1023], None),
     (2, 2048, 2, 3, 64, [2047, 1500], None),  # "largest": 64 splits, two groups of 32 to merge
+    (4, 8192, 8, 6, 128, [4500, 8191, 100, 4095], 4096),
 ]
 
 

@@ -1,6 +1,7 @@
 """Parity of the port's training forward (repro_torch.models.TransformerLM
 .forward / .loss_fn, models.attention.causal_attend) with the JAX
-package's, on the olmo_1b, qwen2_5_14b and multitask_lm smoke configs, CPU,
+package's, on the olmo_1b, qwen2_5_14b, multitask_lm, phi4_mini_3_8b (tied
+head) and qwen1_5_110b (QKV bias) smoke configs, CPU,
 float32, JAX at matmul precision "highest", the same weights through
 repro_torch.convert: logits (atol 1e-4), the loss with an out-of-range
 label (rtol 1e-5), every parameter's gradient against jax.grad (atol 1e-5,
@@ -24,7 +25,7 @@ from repro_torch.convert import load_numpy_params, params_from_numpy  # noqa: E4
 from repro_torch.models import TransformerLM  # noqa: E402
 from repro_torch.models.attention import causal_attend  # noqa: E402
 
-ARCHS = ["olmo_1b", "qwen2_5_14b", "multitask_lm"]
+ARCHS = ["olmo_1b", "qwen2_5_14b", "multitask_lm", "phi4_mini_3_8b", "qwen1_5_110b"]
 B, S = 3, 24
 
 

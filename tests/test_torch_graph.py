@@ -49,6 +49,18 @@ def test_builders_and_mixing_matrices_equal_reference(idx):
         np.testing.assert_array_equal(tg.consensus_mixing(), jg.consensus_mixing())
 
 
+@pytest.mark.parametrize("idx", range(6))  # not "disconnected": M = I there
+def test_metric_roots_match_reference(idx):
+    _, jg, tg = _pairs()[idx]
+    for eta, tau in ((1.0, 1.0), (0.3, 0.5)):
+        root, inv_root = tg.metric_sqrt(eta, tau), tg.metric_inv_sqrt(eta, tau)
+        np.testing.assert_allclose(root, jg.metric_sqrt(eta, tau), atol=1e-10, rtol=0)
+        np.testing.assert_allclose(inv_root, jg.metric_inv_sqrt(eta, tau), atol=1e-10, rtol=0)
+        m = tg.metric_matrix(eta, tau)
+        np.testing.assert_allclose(root @ root, m, atol=1e-8, rtol=0)
+        np.testing.assert_allclose(inv_root @ m @ inv_root, np.eye(tg.m), atol=1e-8, rtol=0)
+
+
 def test_graph_validation():
     with pytest.raises(ValueError, match="square"):
         graph.TaskGraph(np.zeros((2, 3)))

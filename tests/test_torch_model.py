@@ -1,5 +1,6 @@
 """Parity of the port's model (repro_torch.models.TransformerLM) with the
-JAX package's on the olmo_1b and qwen2_5_14b smoke configs, with the JAX
+JAX package's on the olmo_1b, qwen2_5_14b, phi4_mini_3_8b (tied head),
+qwen1_5_110b (QKV bias) and mixtral_8x22b (MoE) smoke configs, with the JAX
 weights converted through repro_torch.convert: decode_step / prefill_step
 logits and caches (atol 1e-4, CPU, float32), the cache-write edge cases,
 id clamping and slot reset, and the device policy of the entry point."""
@@ -20,7 +21,7 @@ from repro_torch.convert import load_numpy_params, params_from_numpy  # noqa: E4
 from repro_torch.models import TransformerLM  # noqa: E402
 
 ATOL = 1e-4
-ARCHS = ["olmo_1b", "qwen2_5_14b"]
+ARCHS = ["olmo_1b", "qwen2_5_14b", "phi4_mini_3_8b", "qwen1_5_110b", "mixtral_8x22b"]
 
 
 def _pair(arch, backend="plain"):
@@ -175,7 +176,7 @@ def test_unported_block_patterns_and_backends_raise():
     with pytest.raises(ValueError, match="attn_backend"):
         dataclasses.replace(cfg, attn_backend="pallas").validate()
     with pytest.raises(ValueError, match="unknown arch"):
-        get("mixtral_8x22b")
+        get("zamba2_7b")
 
 
 def test_configs_mirror_jax_values():

@@ -1,5 +1,6 @@
 """Serving parity of the port (repro_torch.serve) with the JAX package on
-the olmo_1b and qwen2_5_14b smoke configs with converted weights: greedy
+the olmo_1b and qwen2_5_14b smoke configs (and the module-level
+``generate`` on phi4_mini_3_8b and qwen1_5_110b) with converted weights: greedy
 tokens from ServeEngine.generate and from the staggered ContinuousBatcher
 workload of tests/test_serve_backend.py, token for token and with the same
 dispatch counts, in both chunk_budget regimes and both prefill modes; plus
@@ -21,6 +22,7 @@ from repro.models import TransformerLM as JaxLM  # noqa: E402
 from repro.serve import ContinuousBatcher as JaxBatcher  # noqa: E402
 from repro.serve import Request as JaxRequest  # noqa: E402
 from repro.serve import ServeEngine as JaxEngine  # noqa: E402
+from repro.serve import generate as jax_generate  # noqa: E402
 from repro_torch.configs import get  # noqa: E402
 from repro_torch.convert import load_numpy_params  # noqa: E402
 from repro_torch.core.graph import ring_graph  # noqa: E402
@@ -32,6 +34,7 @@ from repro_torch.serve import (  # noqa: E402
     ServeEngine,
     TaskAdapterStore,
     TickBudgetExceeded,
+    generate,
 )
 
 ARCHS = ["olmo_1b", "qwen2_5_14b"]
@@ -89,6 +92,20 @@ def test_engine_generate_matches_jax(arch):
     np.testing.assert_array_equal(got, want)
     assert engine.last_stats["prefill_dispatches"] == 2  # ceil(7 / 4)
     assert engine.last_stats["decode_dispatches"] == 7
+
+
+@pytest.mark.parametrize("arch", ["phi4_mini_3_8b", "qwen1_5_110b"])
+def test_module_generate_equals_engine_and_jax(arch):
+    """repro_torch.serve.generate is ServeEngine(model, max_seq).generate,
+    on the tied-head phi4-mini and the QKV-bias Qwen1.5 smoke configs, and
+    both equal the JAX package's generate."""
+    jm, params, tm = _models(arch)
+    rng = np.random.default_rng(5)
+    batch = {"tokens": rng.integers(0, tm.cfg.vocab_size, (3, 9)).astype(np.int32),
+             "task_ids": np.array([2, 0, 1], np.int32)}
+    got = generate(tm, batch, 6, 48)  # max_seq 48: the default 32-token chunk fits
+    np.testing.assert_array_equal(got, ServeEngine(tm, 48).generate(batch, 6))
+    np.testing.assert_array_equal(got, jax_generate(jm, params, batch, 6, 48))
 
 
 def test_scan_prefill_mode_matches_parallel():

@@ -14,8 +14,11 @@ Phases; each raises on failure, and then no result line is printed:
                 and prefill (KVH=4, G=4, hd=64; prefill C=32: 128 rows in
                 one block), Mixtral-8x22B's (KVH=8, G=6, S=8192, the
                 4096-token window with positions past it; prefill C=32:
-                192 rows), a sliding window, and every head-dim
-                instantiation; the paged kernels over a pool of 16-token
+                192 rows), Zamba2-7B's shared attention (MHA, KVH=32,
+                G=1, hd=112: the first head dim that is no power of two;
+                S=2048; decode and prefill C=32, dense and paged, each
+                timed in f32 against its bound and plain version), a
+                sliding window, and every head-dim instantiation; the paged kernels over a pool of 16-token
                 blocks with shuffled ids (1024 logical rows per slot); f32
                 (atol 2e-5) and bf16 (atol 2e-2). At the OLMo-1B f32
                 shapes it times each kernel, its plain version and the
@@ -206,9 +209,36 @@ Phases; each raises on failure, and then no result line is printed:
                 step and peak memory logged. Logs one {"moe": ...} JSON
                 line.
 
+ 12. hybrid   — run after phase 11, every earlier model freed: Zamba2-7B at
+                full width and depth (81 layers: 68 mamba2 layers and 13
+                invocations of ONE shared attention + MLP block; d_model
+                3584, 32 heads of hd 112, ssm_state 64, vocab 32000; 5.74 B
+                params, ~23 GB of f32 weights, nothing cut), random weights
+                from seed 0, max_seq 2048, prefill chunk 32, 4 slots:
+                (a) 6 requests of 64, 300, 700, 1200, 257 and 590 prompt
+                tokens, 16 new tokens each, dense and paged (16-token
+                blocks, an 8192-token pool), each with CUDA graphs and with
+                cuda_graphs=False: 13 attention launches per dispatch (and
+                per warm-up), graph tokens == eager tokens, dense step
+                logits with graphs within 1e-5 of eager, the plain path's
+                tokens (dense) and paged == dense (margin rule), and the
+                two requests admitted into reused slots (4 and 5) give the
+                tokens they give alone in a fresh batcher (margin rule);
+                (b) decode and prefill tok/s, TTFT p50 / max, peak memory;
+                (c) a profile of 8 graph decode ticks: device ms per tick
+                against the byte bound of reading every weight once per use
+                (the shared block once per invocation), the recurrent
+                states read and written and the visible K/V; (d) a
+                preemption over 2 slots: a 700-token hog (64 new,
+                priority 10) and a 413-token request (16 new, priority 0)
+                in a 1024-token pool: one swap-out (the hog's pages and its
+                68 layers' recurrent columns) and one swap-in, tokens ==
+                a 4096-token pool's, caches unmoved. Logs one
+                {"hybrid": ...} JSON line.
+
 Output: the card's name and power limit first, per-phase lines, the
-{"paper": ...}, {"serve_rates": ...}, {"train": ...} and {"moe": ...} JSON
-lines, then one
+{"paper": ...}, {"serve_rates": ...}, {"train": ...}, {"moe": ...} and
+{"hybrid": ...} JSON lines, then one
 {"kernels": [...]} JSON line with the five kernels, and last
 {"ok": true, "device": {...}}.
 Exits non-zero without a result when there is no CUDA device or no
@@ -385,7 +415,7 @@ def phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, gather_pages, br
         o = pre_ref.prefill_attention_reference(qg, k, v, pos, window=window)
         return o.permute(0, 2, 1, 3, 4).reshape(b, c, h, hd)
 
-    def library(q, k, v, table, mask):  # timed at OLMo-1B's shapes only: MHA, G = 1
+    def library(q, k, v, table, mask):  # timed at MHA shapes only (G = 1): OLMo-1B, Zamba2
         if table is not None:  # two calls: the gather, then SDPA
             k, v = gather_pages(k, table), gather_pages(v, table)
         return F.scaled_dot_product_attention(
@@ -434,8 +464,14 @@ def phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, gather_pages, br
         ("mixtral_8x22b", 4, 8192, 8, 6, 128, 32, [0, 4480, 8160, 4000], 4096, None),
         ("mixtral_8x22b", 4, 8192, 8, 6, 128, 1, [4500, 8191, 100, 4095], 4096, 16),
         ("mixtral_8x22b", 4, 8192, 8, 6, 128, 32, [0, 4480, 8160, 4000], 4096, 16),
+        # Zamba2-7B's shared attention: MHA at hd 112 (no power of two), max_seq
+        # 2048, dense and paged; timed in f32 against the bound
+        ("zamba2_7b", 4, 2048, 32, 1, 112, 1, [63, 700, 1500, 2047], None, None),
+        ("zamba2_7b", 4, 2048, 32, 1, 112, 32, [0, 700, 1500, 2016], None, None),
+        ("zamba2_7b", 4, 2048, 32, 1, 112, 1, [63, 700, 1500, 2047], None, 16),
+        ("zamba2_7b", 4, 2048, 32, 1, 112, 32, [0, 700, 1500, 2016], None, 16),
     ]
-    entries = {}
+    entries, hd112 = {}, {}
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for name, b, s, kvh, g, hd, c, pos, window, block in cases:
             op, kname = kernel_op(c, block)
@@ -451,6 +487,22 @@ def phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, gather_pages, br
                 f"(atol {TOL[dname]})")
             if not ok:
                 raise AssertionError(f"{kname} {name} {dname}: max_abs_err {err} > {TOL[dname]}")
+            if name == "zamba2_7b" and dname == "float32":
+                # the kernel at hd 112 against its bound and plain version, 4 input sets
+                sets = inputs(b, s, kvh, g, hd, c, dtype, block, sets=4)
+                kv_pos = torch.arange(s, device=dev)
+                q_pos = pos_t[:, None] + torch.arange(c, device=dev)
+                mask = (kv_pos[None, None, :] <= q_pos[:, :, None])[:, None]  # (B,1,C,S)
+                ms = graph_ms(torch, [lambda t=t: call(op, *t, pos_t) for t in sets])
+                plain_ms = graph_ms(torch, [lambda t=t: plain(*t, pos_t, None) for t in sets])
+                lib_ms = graph_ms(torch, [lambda t=t: library(*t, mask) for t in sets])
+                bound_ms, bound_by = bound(b, s, kvh, g, hd, c, pos, window, dname, block)
+                log(f"time {kname} zamba2_7b hd 112 f32: kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                    f"({bound_by}): {bound_ms / ms:.1%} of the bound")
+                hd112[kname] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                "library_ms": lib_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by}
             if name != "olmo_1b" or dname != "float32":
                 continue
             # timing at the main path's shapes, 4 input sets per graph
@@ -482,6 +534,8 @@ def phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, gather_pages, br
                               call(op, q, k, v, table, pos_t),
                               lambda q=q, k=k, v=v, table=table, mask=mask:
                               library(q, k, v, table, mask)))
+    for kname, entry in hd112.items():  # each kernel's row carries its hd-112 timing
+        entries[kname]["zamba2_hd112"] = entry
     return entries
 
 
@@ -1124,17 +1178,20 @@ def decode_rate(bt, reqs):
 
 def timed_swap(torch, fn, sink):
     """A swap direction with each call synchronized on both sides; appends
-    (host seconds, snapshot shape, bytes, pinned) to ``sink`` and keeps no
-    reference to the snapshot, so its pinned memory returns to torch's
-    cache when the request lets go of it."""
-    def call(caches, blocks, *saved):
+    (host seconds, the pages' shape, the snapshot's bytes (pages and state
+    columns), pinned) to ``sink`` and keeps no reference to the snapshot, so
+    its pinned memory returns to torch's cache when the request lets go of
+    it."""
+    def call(caches, blocks, *args):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fn(caches, blocks, *saved)
+        out = fn(caches, blocks, *args)
         torch.cuda.synchronize()
-        snap = saved[0] if saved else out
-        sink.append((time.perf_counter() - t0, tuple(snap.shape),
-                     snap.numel() * snap.element_size(), snap.is_pinned()))
+        pages, columns = args[0] if len(args) == 2 else out  # swap_in(.., saved, slot)
+        parts = [pages, *columns]
+        sink.append((time.perf_counter() - t0, tuple(pages.shape),
+                     sum(t.numel() * t.element_size() for t in parts),
+                     all(t.is_pinned() for t in parts)))
         return out
     return call
 
@@ -1998,19 +2055,34 @@ MOE_TRAIN = {"batch": 2, "seq": 256, "steps": 2, "lr": 1e-2}
 
 
 def decode_tick_bound(model, positions):
-    """Least device ms of one f32 decode tick at HBM bandwidth: every weight
-    read once (an untied embedding table only at the rows it gathers; an
-    MoE layer's capacity dispatch reads every expert whatever the routing)
-    and each slot's visible K/V rows in every layer."""
+    """Least device ms of one decode tick at HBM bandwidth: every weight read
+    once per use (an untied embedding table only at the rows it gathers; an
+    MoE layer's capacity dispatch reads every expert whatever the routing; a
+    hybrid's shared block, far past the 50 MB L2, once per invocation), each
+    recurrent state read and written, and each slot's visible K/V rows in
+    every attention layer. Returns (ms, bytes, bytes by part)."""
     cfg = model.cfg
-    nbytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
-                 if n != "embed" or cfg.tie_embeddings)
+    invocations = model.kinds.count("shared_attn")
+    weights = shared = 0
+    for n, p in model.named_parameters():
+        if n == "embed" and not cfg.tie_embeddings:
+            continue
+        if n.startswith("shared_attn."):
+            shared += p.numel() * p.element_size() * invocations
+        else:
+            weights += p.numel() * p.element_size()
     if not cfg.tie_embeddings:
-        nbytes += len(positions) * cfg.d_model * model.embed.element_size()
-    window = cfg.sliding_window or MOE_MAX_SEQ
+        weights += len(positions) * cfg.d_model * model.embed.element_size()
+    caches = model.init_cache(len(positions), 1)
+    states = 2 * sum(t.nbytes for kind, entry in zip(model.kinds, caches)
+                     if kind == "mamba" for t in entry)
+    window = cfg.sliding_window or max(positions) + 1
     rows = sum(min(p + 1, window) for p in positions)
-    nbytes += rows * cfg.num_kv_heads * cfg.head_dim * 4 * 2 * cfg.num_layers
-    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+    attn_layers = sum(kind != "mamba" for kind in model.kinds)
+    kv = rows * cfg.num_kv_heads * cfg.head_dim * 4 * 2 * attn_layers
+    parts = {"weights": weights, "shared_block": shared, "states": states, "kv": kv}
+    nbytes = sum(parts.values())
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes, parts
 
 
 def window_effect(np, model, prompt, ContinuousBatcher, Request):
@@ -2089,7 +2161,7 @@ def phase_moe_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request, P
     prof = profile_window(torch, "8 decode ticks (Mixtral)", setup, _ticks, True,
                           layers=cfg.num_layers)
     # positions of the window's ticks: after admission and one tick, 8 more
-    bound_ms, nbytes = decode_tick_bound(model, [n + 5 for n in MOE_PROFILE_LENS])
+    bound_ms, nbytes, _ = decode_tick_bound(model, [n + 5 for n in MOE_PROFILE_LENS])
     tick_ms = prof["device_busy_ms"] / 8
     log(f"moe: decode tick device time {tick_ms:.3f} ms (host wall "
         f"{prof['wall_ms'] / 8:.3f} ms) against its bound {bound_ms:.3f} ms "
@@ -2198,6 +2270,181 @@ def phase_moe(torch, np, tr, get, TransformerLM, ServeEngine, ContinuousBatcher,
     return out, launches
 
 
+# ------------------------------------------------- phase 12: the hybrid
+HYBRID_MAX_SEQ = 2048
+HYBRID_LENS = [64, 300, 700, 1200, 257, 590]  # 6 over 4 slots: requests 4 and 5 reuse slots
+HYBRID_REUSED = (4, 5)
+HYBRID_PROFILE_LENS = (700, 300, 500, 100)
+HYBRID_HOG, HYBRID_SHORT = (700, 64), (413, 16)  # (prompt, new): 48 + 27 blocks of 16
+HYBRID_TIGHT_POOL = 1024  # tokens: 63 blocks of 16 hold the hog or the short, not both
+
+
+def phase_hybrid_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request, PagingSpec,
+                       ops):
+    """12(a)-(c): Zamba2-7B served dense and paged, graphs, eager, plain."""
+    cfg = model.cfg
+    layers = model.kinds.count("shared_attn")  # attention launches per dispatch
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in HYBRID_LENS]
+    kw = dict(max_seq=HYBRID_MAX_SEQ, prefill_chunk=32, num_slots=4)
+    out, launches = {}, {}
+    for layout, extra in (("dense", {}),
+                          ("paged", {"paging": PagingSpec.sized(16, HYBRID_MAX_SEQ,
+                                                                4 * HYBRID_MAX_SEQ)})):
+        phase = f"hybrid {layout}"
+        engine = ServeEngine(model, **kw, **extra)
+        toks, launched, ttft, wall = serve_timed(torch, engine, prompts, NEW, ops)
+        st = engine.last_stats
+        check_launches(phase, launched, st, paged=layout == "paged", layers=layers)
+        check_tokens(phase, toks, len(prompts), NEW, cfg.vocab_size)
+        rates = report_rates(phase, st, len(prompts), NEW, ttft, wall)
+        rates["eager"] = eager_parity(torch, phase, ServeEngine(model, cuda_graphs=False, **kw,
+                                                                **extra),
+                                      prompts, NEW, ops, toks)
+        if layout == "dense":
+            rates["logits_diff_graph_vs_eager"] = logits_parity(
+                np, phase, model, ContinuousBatcher, Request, prompts, max_seq=HYBRID_MAX_SEQ)
+            ref, margins = plain_run(np, model, prompts, NEW, ContinuousBatcher, Request,
+                                     max_seq=HYBRID_MAX_SEQ)
+            rates["plain_compared"] = compare(phase, "plain path", toks, ref, margins, NEW)
+            dense_toks = toks
+            # the requests admitted into reused slots, each alone in a fresh batcher
+            alone = [greedy_run(np, model, [prompts[u]], NEW, ContinuousBatcher, Request,
+                                max_seq=HYBRID_MAX_SEQ)
+                     for u in HYBRID_REUSED]
+            rates["reuse_compared"] = compare(
+                "hybrid reuse", "a fresh batcher", toks[list(HYBRID_REUSED)],
+                [a[0][0] for a in alone], [a[1][0] for a in alone], NEW)
+        else:
+            rates["dense_compared"] = compare(phase, "dense kernel path", toks, dense_toks,
+                                              margins, NEW)
+        for name, n in launched.items():
+            launches[name] = launches.get(name, 0) + n
+        out[layout] = rates
+
+    def setup():
+        rng = np.random.default_rng(1)
+        bt = ContinuousBatcher(model, num_slots=4, max_seq=HYBRID_MAX_SEQ, prefill_chunk=32)
+        for uid, n in enumerate(HYBRID_PROFILE_LENS):
+            bt.submit(Request(uid=uid, tokens=rng.integers(0, cfg.vocab_size, n)
+                              .astype(np.int32), max_new=64))
+        bt.capture()
+        return _admitted(bt)
+
+    prof = profile_window(torch, "8 decode ticks (Zamba2)", setup, _ticks, True,
+                          layers=layers)
+    # positions of the window's ticks: after admission and one tick, 8 more
+    bound_ms, nbytes, parts = decode_tick_bound(model,
+                                                [n + 5 for n in HYBRID_PROFILE_LENS])
+    tick_ms = prof["device_busy_ms"] / 8
+    log(f"hybrid: decode tick device time {tick_ms:.3f} ms (host wall "
+        f"{prof['wall_ms'] / 8:.3f} ms) against its bound {bound_ms:.3f} ms "
+        f"({nbytes / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: "
+        + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in parts.items())
+        + f"): {bound_ms / tick_ms:.1%} of the bound")
+    out["decode_tick"] = {"device_ms": tick_ms, "wall_ms": prof["wall_ms"] / 8,
+                          "bound_ms": bound_ms, "bound_bytes": nbytes, "bound_parts": parts,
+                          "profile": prof}
+    return out, launches
+
+
+def phase_hybrid_preempt(torch, np, model, ContinuousBatcher, Request, PagingSpec, ops):
+    """12(d): one preemption of a priority-10 hog in a pool too small for it
+    and a priority-0 request: one swap-out (pages and the hog's recurrent
+    columns) and one swap-in; tokens equal a roomy pool's."""
+    cfg = model.cfg
+    layers = model.kinds.count("shared_attn")
+    rng = np.random.default_rng(4)
+    hog, short = (rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                  for n in (HYBRID_HOG[0], HYBRID_SHORT[0]))
+    launches = {name: 0 for name in COUNTED}
+
+    def pressure(pool_tokens, preempt):
+        bt = ContinuousBatcher(model, num_slots=2, max_seq=HYBRID_MAX_SEQ, prefill_chunk=32,
+                               paging=PagingSpec.sized(16, HYBRID_MAX_SEQ, pool_tokens),
+                               policy="priority", preempt=preempt)
+        ptrs = [t.data_ptr() for entry in bt.caches for t in entry]
+        on_card = bt.caches[0][0].is_cuda
+        outs, ins = [], []
+        if preempt:
+            bt._swap_out_fn = timed_swap(torch, bt._swap_out_fn, outs)
+            bt._swap_in_fn = timed_swap(torch, bt._swap_in_fn, ins)
+        torch.cuda.synchronize()
+        zero_counts(ops)
+        reqs = [Request(uid=0, tokens=hog, max_new=HYBRID_HOG[1], priority=10),
+                Request(uid=1, tokens=short, max_new=HYBRID_SHORT[1], priority=0)]
+        bt.submit(reqs[0])
+        bt.step()
+        bt.step()
+        bt.submit(reqs[1])
+        bt.run()
+        torch.cuda.synchronize()
+        launched = read_counts(ops)
+        name = f"hybrid (preemption, {pool_tokens}-token pool)"
+        check_launches(name, launched, batcher_stats(bt), paged=True, layers=layers)
+        for k, n in launched.items():
+            launches[k] += n
+        summary = bt.check_invariants()
+        moved = ptrs != [t.data_ptr() for entry in bt.caches for t in entry]
+        bt.close()
+        log(f"{name}: swap_outs {bt.swap_outs}, swap_ins {bt.swap_ins}, hog preemptions "
+            f"{reqs[0].preemptions}; check_invariants {summary}; caches moved {moved}")
+        if moved or summary["live_slots"] or summary["queued"] or summary["live_refs"]:
+            raise AssertionError(f"{name}: caches moved {moved} or invariants {summary}")
+        if preempt and ((bt.swap_outs, bt.swap_ins, reqs[0].preemptions) != (1, 1, 1)
+                        or not all(pinned or not on_card for *_, pinned in outs + ins)):
+            raise AssertionError(f"{name}: swap_outs {bt.swap_outs}, swap_ins {bt.swap_ins}, "
+                                 f"preemptions {reqs[0].preemptions}, pinned "
+                                 f"{[p for *_, p in outs + ins]}")
+        return [list(r.out) for r in reqs], outs, ins
+
+    want, _, _ = pressure(2 * HYBRID_MAX_SEQ, False)
+    got, ((out_s, shape, nbytes, _),), ((in_s, *_),) = pressure(HYBRID_TIGHT_POOL, True)
+    if got != want:
+        raise AssertionError("hybrid (preemption): tokens differ from the roomy pool's")
+    log(f"hybrid (preemption): tokens == the roomy pool's on both requests; snapshot pages "
+        f"{shape} and the hog's recurrent columns, {nbytes / 2**20:.1f} MiB pinned; "
+        f"synchronized swap-out {out_s * 1e3:.2f} ms, swap-in {in_s * 1e3:.2f} ms")
+    return {"swap_out_ms": out_s * 1e3, "swap_in_ms": in_s * 1e3,
+            "snapshot_mib": nbytes / 2**20}, launches
+
+
+def phase_hybrid(torch, np, get, TransformerLM, ServeEngine, ContinuousBatcher, Request,
+                 PagingSpec, ops, smi, dev="cuda"):
+    """Phase 12: Zamba2-7B at full width and depth (see the docstring).
+    ``dev`` "cpu" rehearses it off the card (a smoke config through
+    ``get``, the card's calls patched)."""
+    t_phase = time.perf_counter()
+    free_card(torch)
+    out = {"memory_mb_before": log_memory(torch, "hybrid (before)")}
+    t1 = time.perf_counter()
+    model = TransformerLM(get("zamba2_7b"), device=dev, seed=0)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    out["params"] = sum(p.numel() for p in model.parameters())
+    log(f"hybrid: Zamba2-7B full width and depth ({cfg.num_layers} layers: "
+        f"{model.kinds.count('mamba')} mamba, {model.kinds.count('shared_attn')} invocations "
+        f"of one shared block; {out['params']} params, f32, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB) initialised in "
+        f"{time.perf_counter() - t1:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    serve, launches = phase_hybrid_serve(torch, np, model, ServeEngine, ContinuousBatcher,
+                                         Request, PagingSpec, ops)
+    out["serve"] = serve
+    out["preemption"], more = phase_hybrid_preempt(torch, np, model, ContinuousBatcher,
+                                                   Request, PagingSpec, ops)
+    for name, n in more.items():
+        launches[name] = launches.get(name, 0) + n
+    out["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+    log(f"hybrid: peak torch.cuda.max_memory_allocated {out['peak_mb']:.1f} MB; {smi}")
+    del model
+    free_card(torch)
+    out["memory_mb_after"] = log_memory(torch, "hybrid (after)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"hybrid: phase passed in {out['seconds']:.1f} s")
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -2300,6 +2547,8 @@ def main() -> int:
     train = phase_train(torch, np, train_lib, get, ContinuousBatcher, Request, ops, smi)
     moe, moe_launches = phase_moe(torch, np, train_lib, get, TransformerLM, ServeEngine,
                                   ContinuousBatcher, Request, PagingSpec, ops, smi)
+    hybrid, hybrid_launches = phase_hybrid(torch, np, get, TransformerLM, ServeEngine,
+                                           ContinuousBatcher, Request, PagingSpec, ops, smi)
     phase_breakdown(torch, breakdown)
     del breakdown  # its closures hold the phase-2 inputs
     log(json.dumps({"paper": {"device": smi, **paper}}))
@@ -2309,15 +2558,17 @@ def main() -> int:
                     "profile": profiles}))
     log(json.dumps({"train": train}))
     log(json.dumps({"moe": {"device": smi, **moe}}))
+    log(json.dumps({"hybrid": {"device": smi, **hybrid}}))
     log(f"smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     # launches of each kernel on the main paths, each counted from zero:
     # the dense, adapters and train (serving after training) phases for the
     # dense kernels, the paged and prefix phases for the paged ones, the
-    # faults and moe phases for both, the adapters phase for the graph mix
+    # faults, moe and hybrid phases for both, the adapters phase for the
+    # graph mix
     launches = {
         name: sum(ph["launches"][name]
                   for ph in (dense, paged, prefix, faults, adapters, train["serve"]))
-        + moe_launches[name]
+        + moe_launches[name] + hybrid_launches.get(name, 0)
         for name in COUNTED
     }
     meta = {

@@ -41,6 +41,10 @@ class ArchConfig:
     rope_theta: float = 1e4
     sliding_window: int | None = None
     tie_embeddings: bool = False
+    # Mamba2 (pattern kind "mamba"; repro_torch.models.mamba2): SSM state
+    # width and head dim of its heads
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
     # mixture of experts (pattern "attn_moe"; repro_torch.models.moe)
     num_experts: int = 0
     num_shared_experts: int = 0
@@ -55,11 +59,32 @@ class ArchConfig:
     # must pass an explicit rank
     adapter_rank: int = 0
     q_chunk: int = 1024
+    # chunk length of the Mamba2 SSD scan over a full sequence
+    mamba_chunk: int = 128
     # rematerialize each layer's activations in the backward of ``forward``
     # (the JAX package's jax.checkpoint of its layer scan)
     remat: bool = True
     attn_backend: str = "kernel"
     source: str = ""
+
+    @property
+    def period(self) -> int:
+        return len(self.pattern)
+
+    @property
+    def num_periods(self) -> int:
+        return self.num_layers // self.period
+
+    @property
+    def remainder(self) -> tuple[str, ...]:
+        """Kinds of the layers past the last whole period: the pattern's
+        prefix (Zamba2-7B: 81 = 13 periods of 6, then 3 mamba layers)."""
+        return self.pattern[: self.num_layers % self.period]
+
+    def layer_kinds(self) -> tuple[str, ...]:
+        """The kind of every layer, in order: the pattern cycled over the
+        depth."""
+        return tuple(self.pattern) * self.num_periods + self.remainder
 
     @property
     def uses_moe(self) -> bool:
@@ -88,7 +113,7 @@ class ArchConfig:
 
 
 _ARCHS = ["mixtral_8x22b", "multitask_linreg", "multitask_lm", "olmo_1b", "phi4_mini_3_8b",
-          "qwen1_5_110b", "qwen2_5_14b"]
+          "qwen1_5_110b", "qwen2_5_14b", "zamba2_7b"]
 
 
 def canonical(name: str) -> str:

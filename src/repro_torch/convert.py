@@ -1,14 +1,19 @@
 """Weights between the JAX package and the port.
 
-``params_from_numpy(tree)`` takes the JAX model's params pytree with numpy
-leaves (``jax.tree.map(np.asarray, params)``) and returns the state dict of
+``params_from_numpy(tree, cfg)`` takes the JAX model's params pytree with
+numpy leaves (``jax.tree.map(np.asarray, params)``) and the model's
+``ArchConfig``, and returns the state dict of
 ``repro_torch.models.TransformerLM``. Leaves are found by the same flat
 paths as ``repro/checkpoint/npz.py::_paths`` ("stages/0/slot0/attn/wq"); the
-(P, ...) period axis of the one stage of an ("attn",) or ("attn_moe",)
-model is unstacked into per-layer weights ("layers.3.attn.wq",
-"layers.3.moe.shared.wg"). ``params_to_numpy(model)`` is
-its inverse: the port's weights as the JAX params tree with numpy leaves,
-so trained weights or a checkpoint cross back to JAX.
+(P, ...) period axis of each stage slot is unstacked into per-layer weights
+in layer order ("layers.3.attn.wq", "layers.3.moe.shared.wg"): the period
+stage's ``slot{j}`` of period ``i`` is layer ``period * i + j`` (an
+("attn",) or ("attn_moe",) model has one slot and one layer a period) and
+the remainder stage's ``slot{j}`` (a Mamba2 hybrid's, Zamba2) is layer
+``num_periods * period + j``; the top-level ``shared_attn`` tree is the one
+shared block's ("shared_attn.attn.wq"). ``params_to_numpy(model)`` is its
+inverse: the port's weights as the JAX params tree with numpy leaves, so
+trained weights or a checkpoint cross back to JAX.
 
 ``adapters_from_numpy(store, tree)`` carries a JAX ``TaskAdapterStore``'s
 raw tree (numpy leaves, ``jax.tree.map(np.asarray, store.raw)``) into the
@@ -30,23 +35,39 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def params_from_numpy(tree) -> dict[str, torch.Tensor]:
+def _stage_offsets(cfg) -> list[tuple[int, int]]:
+    """(first layer, layers per period) of each stage of the JAX layout:
+    the stacked periods, then the remainder (the reference's
+    ``_stage_patterns``)."""
+    stages = []
+    if cfg.num_periods > 0:
+        stages.append((0, cfg.period))
+    if cfg.remainder:
+        stages.append((cfg.num_periods * cfg.period, 0))
+    return stages
+
+
+def params_from_numpy(tree, cfg) -> dict[str, torch.Tensor]:
+    """The port's state dict of a JAX params tree (numpy leaves) of the
+    model ``cfg`` (its ``ArchConfig``)."""
+    offsets = _stage_offsets(cfg)
     state = {}
     for path, leaf in tree_lib.paths(tree):
         parts = path.split("/")
         if parts[0] != "stages":
             state[".".join(parts)] = _tensor(leaf)
             continue
-        if parts[1:3] != ["0", "slot0"] or len(parts) < 5:
+        if len(parts) < 5 or int(parts[1]) >= len(offsets) or parts[3] in ("mlstm", "slstm"):
             raise ValueError(
-                f"{path}: only one-stage ('attn',) and ('attn_moe',) models are ported "
-                "(stages/0/slot0/<group>/...); MLA, mamba2, xLSTM, shared-attention and "
-                "multi-stage layouts are not"
+                f"{path}: the port takes the ('attn',), ('attn_moe',) and Mamba2 hybrid "
+                "layouts; MLA and xLSTM layouts are not ported"
             )
         name = ".".join(parts[3:])
         stacked = np.asarray(leaf)
+        first, period = offsets[int(parts[1])]
+        j = int(parts[2][len("slot"):])
         for i in range(stacked.shape[0]):
-            state[f"layers.{i}.{name}"] = _tensor(stacked[i])
+            state[f"layers.{first + period * i + j}.{name}"] = _tensor(stacked[i])
     return state
 
 
@@ -63,38 +84,56 @@ def to_numpy(leaf) -> np.ndarray:
 
 def params_to_numpy(model) -> dict:
     """The model's weights as the JAX model's params tree with numpy leaves:
-    the per-layer weights restacked into the one stage's (P, ...) leaves
-    ("stages/0/slot0/attn/wq", "stages/0/slot0/moe/shared/wg"), a
-    parameter-free norm as an empty dict, as the JAX ``init`` leaves it.
-    bfloat16 weights come out as float32."""
+    the per-layer weights restacked into the stages' (P, ...) slot leaves
+    ("stages/0/slot0/attn/wq", "stages/0/slot0/moe/shared/wg"; a hybrid's
+    period stage and remainder stage), the shared block as the top-level
+    ``shared_attn`` tree, a parameter-free norm as an empty dict, as the JAX
+    ``init`` leaves it. bfloat16 weights come out as float32."""
+    cfg = model.cfg
     tree: dict = {"final_norm": {}}
-    slot: dict = {group: {} for group in model.layers[0]._modules}
+    if hasattr(model, "shared_attn"):
+        tree["shared_attn"] = {group: {} for group in model.shared_attn._modules}
     per_layer: dict = {}
     for name, t in model.state_dict().items():
         parts = name.split(".")
         if parts[0] == "layers":
-            per_layer.setdefault(tuple(parts[2:]), {})[int(parts[1])] = to_numpy(t)
+            per_layer.setdefault(int(parts[1]), {})[tuple(parts[2:])] = to_numpy(t)
             continue
         node = tree
         for key in parts[:-1]:
             node = node.setdefault(key, {})
         node[parts[-1]] = to_numpy(t)
-    for path, by_layer in per_layer.items():
-        node = slot
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = np.stack([by_layer[i] for i in range(len(by_layer))])
-    tree["stages"] = [{"slot0": slot}]
+    stages = []
+    for first, period in _stage_offsets(cfg):
+        if period:
+            kinds, reps = cfg.pattern, cfg.num_periods
+        else:
+            kinds, reps = cfg.remainder, 1
+        slots = {}
+        for j, kind in enumerate(kinds):
+            if kind == "shared_attn":
+                continue
+            layers = [first + (period or 1) * i + j for i in range(reps)]
+            slot: dict = {group: {} for group in model.layers[layers[0]]._modules}
+            for path in per_layer[layers[0]]:
+                node = slot
+                for key in path[:-1]:
+                    node = node.setdefault(key, {})
+                node[path[-1]] = np.stack([per_layer[i][path] for i in layers])
+            slots[f"slot{j}"] = slot
+        stages.append(slots)
+    tree["stages"] = stages
     return tree
 
 
 def load_numpy_params(model, tree):
     """Load a JAX params tree (numpy leaves) into ``model`` in place, each
     leaf cast to its weight's dtype (the model's, or float32 for an MoE
-    router); every weight must be present and shaped alike."""
+    router and the mamba mixer's ``a_log`` / ``dt_bias`` / ``d_skip``);
+    every weight must be present and shaped alike."""
     own = model.state_dict()
     state = {k: v.to(own[k].dtype) if k in own else v
-             for k, v in params_from_numpy(tree).items()}
+             for k, v in params_from_numpy(tree, model.cfg).items()}
     model.load_state_dict(state, strict=True)
     return model
 

@@ -32,7 +32,7 @@
 //  * Scores: lane = part * 8 + key, each of the 4 parts holds a quarter of
 //    the head dim, so all 32 lanes work at G = 1; two shuffles finish a dot.
 //    The softmax of a chunk is 8 keys wide: three shuffles for the max, three
-//    for the sum. P @ V: lanes over the head dim, 4 dims each (128 / HD key
+//    for the sum. P @ V: lanes over the head dim, 4 dims each (128 / DP key
 //    groups of lanes take alternate keys), the weights of a key broadcast
 //    from the lane that scored it.
 //  * Each warp keeps its own (m, l, acc); the block merges its warps' partials
@@ -161,21 +161,35 @@ constexpr int kChunk = 8;               // keys a warp takes per tile
 constexpr int kTileS = kWarps * kChunk; // keys per tile: the unit of the split
 static_assert(kStages >= 2, "a ring needs two stages");
 
-// Shared memory of a decode block: the query rows (raw dtype, [kRows][HD]);
-// the warps' rings, kStages x (K chunk, V chunk) of [kChunk][HD] each, which
+// The head dim a decode block computes at: HD rounded up to a power of two
+// (32, 64, 128). A head dim in between (Zamba2's 112) keeps its rows HD long
+// in the caches and in q and out; only the block's shared-memory rows and
+// its registers are DP wide, their last DP - HD elements zero (copies past
+// HD read nothing and write zeros), so every lane mapping below stays the
+// power-of-two one, the zero dims add exact zeros to the dots, and their
+// accumulator columns (zero too) are never written out.
+__host__ __device__ constexpr int padded_dim(int hd) {
+  return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
+}
+
+// Shared memory of a decode block: the query rows (raw dtype, [kRows][DP]);
+// the warps' rings, kStages x (K chunk, V chunk) of [kChunk][DP] each, which
 // the end-of-block merge reuses for the warps' accumulators
-// ([kWarps][kRows][HD] f32); then the warps' (m, l) [kWarps][kRows] each.
+// ([kWarps][kRows][DP] f32); then the warps' (m, l) [kWarps][kRows] each.
 template <typename T, int HD>
 struct DecodePlan {
+  static constexpr int DP = padded_dim(HD);       // shared-memory row length
   static constexpr int VW = 16 / (int)sizeof(T);  // elements per 16-byte piece
-  static constexpr int VPR = HD / VW;             // pieces per row: 4 .. 32
-  static constexpr int kQBytes = kRows * HD * (int)sizeof(T);
-  static constexpr int kChunkElems = kChunk * HD;
+  static constexpr int VPR = DP / VW;             // pieces per row: 4 .. 32
+  static constexpr int kHDPieces = HD / VW;       // ... of them holding data
+  static constexpr int kQBytes = kRows * DP * (int)sizeof(T);
+  static constexpr int kChunkElems = kChunk * DP;
   static constexpr int kWarpRingElems = kStages * 2 * kChunkElems;
   static constexpr int kRingBytes = kWarps * kWarpRingElems * (int)sizeof(T);
-  static constexpr int kMergeBytes = kWarps * kRows * HD * 4;
+  static constexpr int kMergeBytes = kWarps * kRows * DP * 4;
   static constexpr int kShared = kRingBytes > kMergeBytes ? kRingBytes : kMergeBytes;
   static constexpr int kBytes = kQBytes + kShared + 2 * kWarps * kRows * 4;
+  static_assert(HD % VW == 0 && HD % 4 == 0 && HD <= DP, "rows of whole 16-byte pieces");
   static_assert(VPR >= 4 && VPR % 4 == 0, "four score parts of whole pieces");
   static_assert(kChunk * VPR % 32 == 0, "a chunk's copies split evenly over a warp");
 };
@@ -219,17 +233,18 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* src) {
 // One warp's online softmax over its chunk of each tile in [t_begin,
 // t_end): warp w reads keys t * kTileS + w * kChunk + [0, kChunk) of every
 // tile t, through its ring (kWarpRingElems elements of T), for the G query
-// rows in qs ([G][HD], raw dtype), all at position qpos. The caller has
-// issued the copies of qs as the last cp.async group before the call; every
-// warp of the block calls this, which waits for them (after issuing its
-// first K/V copies) and synchronizes the block once. kbase/vbase point at
+// rows in qs ([G][DP], raw dtype, zero past HD), all at position qpos. The
+// caller has issued the copies of qs as the last cp.async group before the
+// call; every warp of the block calls this, which waits for them (after
+// issuing its first K/V copies) and synchronizes the block once. kbase/vbase point at
 // this KV head's row 0 (dense) or its pool column (paged); rows (DenseRows
 // or PagedRows) places each logical row.
 // Keys at or past S take no part (their copies are zero-filled).
 //
 // On return m[r] and l[r] (the same in every lane) are row r's running max
 // and sum over the warp's keys, and acc[r] the unnormalised output of row r,
-// dims 4 * (lane % (HD / 4)) .. + 3, summed over the warp's key groups.
+// dims 4 * (lane % (DP / 4)) .. + 3, summed over the warp's key groups (zero
+// at dims past HD).
 template <typename T, int HD, typename Rows>
 __device__ __forceinline__ void attend_chunks(T* ring, const T* qs, const T* __restrict__ kbase,
                                               const T* __restrict__ vbase, const Rows& rows,
@@ -237,11 +252,12 @@ __device__ __forceinline__ void attend_chunks(T* ring, const T* qs, const T* __r
                                               int window, float scale, float (&m)[kRows],
                                               float (&l)[kRows], float (&acc)[kRows][4]) {
   using P = DecodePlan<T, HD>;
+  constexpr int DP = P::DP;
   constexpr int VW = P::VW;
   constexpr int VPR = P::VPR;
   constexpr int kCopies = kChunk * VPR / 32;  // 16-byte copies per lane, K and V each
   constexpr int kQ = VPR / 4;                 // pieces per score part
-  constexpr int kLPR = HD / 4;                // lanes per V row in P @ V
+  constexpr int kLPR = DP / 4;                // lanes per V row in P @ V
   constexpr int kKG = 32 / kLPR;              // key groups in P @ V
   constexpr int kKeysPerGroup = kChunk / kKG;
   const int lane = threadIdx.x & 31;
@@ -291,9 +307,10 @@ __device__ __forceinline__ void attend_chunks(T* ring, const T* qs, const T* __r
         } else {
           o = (long)j * rows.stride;
         }
-        const bool in = j < S;
-        const int dst = r * HD + swizzle<VPR>(r, pc) * VW;
-        const long src = (in ? o : 0) + pc * VW;
+        // a key past S, or a piece past HD, lands as zeros and reads nothing
+        const bool in = j < S && pc < P::kHDPieces;
+        const int dst = r * DP + swizzle<VPR>(r, pc) * VW;
+        const long src = in ? o + pc * VW : 0;
         cp_async16(dk + dst, kbase + src, in ? 16 : 0);
         cp_async16(dv + dst, vbase + src, in ? 16 : 0);
       }
@@ -327,12 +344,12 @@ __device__ __forceinline__ void attend_chunks(T* ring, const T* qs, const T* __r
     for (int i = 0; i < kQ; ++i) {
       const int pc = part * kQ + i;
       float kf[VW];
-      load_piece(tk + key * HD + swizzle<VPR>(key, pc) * VW, kf);
+      load_piece(tk + key * DP + swizzle<VPR>(key, pc) * VW, kf);
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         if (r < G) {
           float qf[VW];
-          load_piece(qs + r * HD + pc * VW, qf);
+          load_piece(qs + r * DP + pc * VW, qf);
 #pragma unroll
           for (int e = 0; e < VW; ++e) dot[r] = fmaf(qf[e], kf[e], dot[r]);
         }
@@ -344,7 +361,7 @@ __device__ __forceinline__ void attend_chunks(T* ring, const T* qs, const T* __r
     for (int t = 0; t < kKeysPerGroup; ++t) {
       const int jr = kg + kKG * t;
       const int d = 4 * dq;  // logical element; its piece is d / VW
-      vf[t] = load4(tv + jr * HD + swizzle<VPR>(jr, d / VW) * VW + d % VW);
+      vf[t] = load4(tv + jr * DP + swizzle<VPR>(jr, d / VW) * VW + d % VW);
     }
     const int kv = first + u * kTileS + key;
     const bool live = kv < S;

@@ -39,6 +39,12 @@
 //    and writes one partial per split. Paged, each lane resolves one row of
 //    its warp's next chunk through the table one issue ahead of the copies.
 //  * All G query heads of a KV head share one pass over its K/V chunks.
+//  * Head dims 32, 64, 112 and 128. A head dim that is no power of two
+//    (Zamba2's 112) runs at the next one inside the block (padded_dim in
+//    attention_tile.cuh): q, K and V rows land zero-padded in shared memory
+//    (the padding copies read nothing), so the lane mappings stay the
+//    power-of-two ones; the partials and the output keep HD-long rows, and
+//    the lanes that would hold dims past HD write nothing.
 //  * The merge is a second kernel with one warp per (row, KV head, slot):
 //    lanes read the splits' (m, l) once each, lanes over HD sum the
 //    weighted accumulators,
@@ -99,8 +105,9 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       float* __restrict__ part_ml, float* __restrict__ part_acc, Layout lay,
                       int KVH, int G, int window, float scale) {
   using P = DecodePlan<T, HD>;
+  constexpr int DP = P::DP;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);                                   // [kRows][HD]
+  T* qs = reinterpret_cast<T*>(smem);                                   // [kRows][DP]
   T* rings = reinterpret_cast<T*>(smem + P::kQBytes);                   // per warp
   float* wacc = reinterpret_cast<float*>(smem + P::kQBytes);            // aliases the rings
   float* wm = reinterpret_cast<float*>(smem + P::kQBytes + P::kShared);  // [kWarps][kRows]
@@ -116,9 +123,15 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // q is (B, 1, KVH * G, HD): the G heads of group h are contiguous. Its
   // copies go out before pos is read, so the two latencies overlap; the
-  // first K/V copies go out before q is waited for (attend_chunks).
+  // first K/V copies go out before q is waited for (attend_chunks). Row r
+  // lands at r * DP, pieces past HD zero-filled.
   const T* qb = q + ((long)b * KVH + h) * G * HD;
-  for (int i = tid; i < G * P::VPR; i += kThreads) cp_async16(qs + i * P::VW, qb + i * P::VW, 16);
+  for (int i = tid; i < G * P::VPR; i += kThreads) {
+    const int r = i / P::VPR;
+    const int pc = i % P::VPR;
+    const bool in = pc < P::kHDPieces;
+    cp_async16(qs + r * DP + pc * P::VW, qb + (in ? r * HD + pc * P::VW : 0), in ? 16 : 0);
+  }
   cp_async_commit();
   const int p = pos[b];
   int t_begin, t_end;
@@ -145,12 +158,12 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   // each warp's partial into shared memory, then one merge over the warps
-  constexpr int kLPR = HD / 4;
+  constexpr int kLPR = DP / 4;
   if (lane < kLPR) {
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       if (r < G) {
-        *reinterpret_cast<float4*>(wacc + (warp * kRows + r) * HD + 4 * lane) =
+        *reinterpret_cast<float4*>(wacc + (warp * kRows + r) * DP + 4 * lane) =
             make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
       }
     }
@@ -166,10 +179,12 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
+  // the merged partial's HD dims (the zero dims past HD stay behind)
   const long part = ((long)b * KVH + h) * nsplit + split;
-  for (int i = tid; i < G * kLPR; i += kThreads) {
-    const int r = i / kLPR;
-    const int d = 4 * (i % kLPR);
+  constexpr int kOutLanes = HD / 4;
+  for (int i = tid; i < G * kOutLanes; i += kThreads) {
+    const int r = i / kOutLanes;
+    const int d = 4 * (i % kOutLanes);
     float mx = kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w * kRows + r]);
@@ -179,7 +194,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int w = 0; w < kWarps; ++w) {
       const float e = expf(wm[w * kRows + r] - mx);
       ls = fmaf(e, wl[w * kRows + r], ls);
-      const float4 a = *reinterpret_cast<const float4*>(wacc + (w * kRows + r) * HD + d);
+      const float4 a = *reinterpret_cast<const float4*>(wacc + (w * kRows + r) * DP + d);
       o.x = fmaf(e, a.x, o.x);
       o.y = fmaf(e, a.y, o.y);
       o.z = fmaf(e, a.z, o.z);
@@ -207,7 +222,8 @@ __device__ __forceinline__ void load_floats(const float* src, float (&x)[kPer]) 
 // Merge of the splits that had tiles: one warp per (row r, KV head h, slot
 // b), grid (G, KVH, B). Lane s holds split s's (m, l) (32 splits at a time,
 // each read once) and its weight e^{m_s - M}; every lane sums the weighted
-// accumulators over its HD / 32 dims. The (m, l) of the first 32 splits
+// accumulators over its DP / 32 dims (the lanes whose dims lie past HD, at
+// a head dim that is no power of two, load and store nothing). The (m, l) of the first 32 splits
 // and the accumulators of the first kBatch are loaded together with pos,
 // before the number of splits that had tiles is known: a split past them
 // holds no partial, so its values are read (the scratch is nsplit long) but
@@ -218,12 +234,13 @@ __global__ void __launch_bounds__(32)
 decode_combine_kernel(const int* __restrict__ pos, const float* __restrict__ part_ml,
                       const float* __restrict__ part_acc, T* __restrict__ out, int S, int KVH,
                       int G, int window, int nsplit) {
-  constexpr int kPer = HD / 32;
+  constexpr int kPer = padded_dim(HD) / 32;
   constexpr int kBatch = 16;  // splits whose accumulators are in flight at once
   const int r = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int lane = threadIdx.x;
+  const bool has_dims = lane * kPer < HD;  // true for every lane at HD = DP
   const int p = pos[b];
   const long part0 = ((long)b * KVH + h) * nsplit;
   const float* ml0 = part_ml + (part0 * kRows + r) * 2;                // split s: + s * kRows * 2
@@ -246,7 +263,9 @@ decode_combine_kernel(const int* __restrict__ pos, const float* __restrict__ par
       float x[kBatch][kPer];
 #pragma unroll
       for (int i = 0; i < kBatch; ++i) {
-        if (b0 + i < nload) load_floats<kPer>(acc0 + (long)(s0 + b0 + i) * kRows * HD, x[i]);
+        if (b0 + i < nload && has_dims) {
+          load_floats<kPer>(acc0 + (long)(s0 + b0 + i) * kRows * HD, x[i]);
+        }
       }
       if (used < 0) {  // once, after the first loads are out
         int tb, te;
@@ -274,6 +293,7 @@ decode_combine_kernel(const int* __restrict__ pos, const float* __restrict__ par
       }
     }
   }
+  if (!has_dims) return;
   const float den = fmaxf(ls, 1e-30f);
   T* dst = out + (((long)b * KVH + h) * G + r) * HD + lane * kPer;
 #pragma unroll
@@ -337,12 +357,14 @@ int dispatch(int dtype, int HD, const void* q, const void* k, const void* v, con
     switch (HD) {
       case 32: DECODE_CASE(float, 32);
       case 64: DECODE_CASE(float, 64);
+      case 112: DECODE_CASE(float, 112);
       case 128: DECODE_CASE(float, 128);
     }
   } else if (dtype == 1) {
     switch (HD) {
       case 32: DECODE_CASE(__nv_bfloat16, 32);
       case 64: DECODE_CASE(__nv_bfloat16, 64);
+      case 112: DECODE_CASE(__nv_bfloat16, 112);
       case 128: DECODE_CASE(__nv_bfloat16, 128);
     }
   }
@@ -369,12 +391,14 @@ extern "C" int decode_geometry(int dtype, int HD, int paged, int* tile_keys,
     switch (HD) {
       case 32: GEOMETRY_CASE(float, 32);
       case 64: GEOMETRY_CASE(float, 64);
+      case 112: GEOMETRY_CASE(float, 112);
       case 128: GEOMETRY_CASE(float, 128);
     }
   } else if (dtype == 1) {
     switch (HD) {
       case 32: GEOMETRY_CASE(__nv_bfloat16, 32);
       case 64: GEOMETRY_CASE(__nv_bfloat16, 64);
+      case 112: GEOMETRY_CASE(__nv_bfloat16, 112);
       case 128: GEOMETRY_CASE(__nv_bfloat16, 128);
     }
   }

@@ -59,6 +59,10 @@
 //    m-tile of rows; for P @ V it owns the HD n-tiles w, w + 8 and every
 //    m-tile, so all warps work at any row count. Shared-memory row strides
 //    are padded so the fragment reads hit 32 distinct banks.
+//  * Head dims 32, 64, 112 and 128: every loop runs over HD / 8 n-tiles and
+//    HD / VW 16-byte pieces, so 112 (Zamba2: 14 n-tiles, the warps' second
+//    tile guarded) needs no padding; the combine kernel's HD / 4 = 28
+//    threads a row leave 4 of its 256 threads idle.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -136,7 +140,11 @@ struct Plan {
   static constexpr int kCap = kLo ? kRowCapLo : kRowCap;
   static constexpr int kMaxRows = kFit < kCap ? kFit : kCap;
   static constexpr int kMaxMT = kMaxRows / 16;
-  static_assert(kMaxMT >= 1, "one m16 tile of rows must fit");
+  static_assert(kMaxMT >= 1 && kMaxRows % 16 == 0, "whole m16 tiles of rows must fit");
+  // every 16-byte ring and Q row starts 16-byte aligned (HD 112: 464 / 480 B
+  // rows in f32, 240 / 256 B in bf16)
+  static_assert(kKStride * sizeof(T) % 16 == 0 && kVStride * sizeof(T) % 16 == 0,
+                "16-byte aligned K/V rows");
   __host__ __device__ static constexpr int bytes(int rt) { return kFixed + rt * kRowBytes; }
 };
 
@@ -624,12 +632,12 @@ prefill_combine_kernel(const int* __restrict__ pos, const float* __restrict__ pa
                        const float* __restrict__ part_acc, T* __restrict__ out, int S, int KVH,
                        int C, int G, int window, int nsplit, int row_tile) {
   constexpr int kLanes = HD / 4;  // threads per row
-  constexpr int kRowsPer = kThreads / kLanes;
+  constexpr int kRowsPer = kThreads / kLanes;  // 9 at HD 112: threads 252.. idle
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int R = C * G;
   const int row = blockIdx.x * kRowsPer + threadIdx.x / kLanes;
-  if (row >= R) return;
+  if (threadIdx.x >= kRowsPer * kLanes || row >= R) return;
   const int d = (threadIdx.x % kLanes) * 4;
   const int r0 = row / row_tile * row_tile;
   const int nrows = min(row_tile, R - r0);
@@ -716,12 +724,14 @@ int dispatch(int dtype, int HD, const void* q, const void* k, const void* v, con
     switch (HD) {
       case 32: PREFILL_CASE(float, 32);
       case 64: PREFILL_CASE(float, 64);
+      case 112: PREFILL_CASE(float, 112);
       case 128: PREFILL_CASE(float, 128);
     }
   } else if (dtype == 1) {
     switch (HD) {
       case 32: PREFILL_CASE(__nv_bfloat16, 32);
       case 64: PREFILL_CASE(__nv_bfloat16, 64);
+      case 112: PREFILL_CASE(__nv_bfloat16, 112);
       case 128: PREFILL_CASE(__nv_bfloat16, 128);
     }
   }
@@ -745,12 +755,14 @@ extern "C" int prefill_max_rows(int dtype, int HD) {
     switch (HD) {
       case 32: return Plan<float, 32>::kMaxRows;
       case 64: return Plan<float, 64>::kMaxRows;
+      case 112: return Plan<float, 112>::kMaxRows;
       case 128: return Plan<float, 128>::kMaxRows;
     }
   } else if (dtype == 1) {
     switch (HD) {
       case 32: return Plan<__nv_bfloat16, 32>::kMaxRows;
       case 64: return Plan<__nv_bfloat16, 64>::kMaxRows;
+      case 112: return Plan<__nv_bfloat16, 112>::kMaxRows;
       case 128: return Plan<__nv_bfloat16, 128>::kMaxRows;
     }
   }

@@ -139,6 +139,25 @@ def apply_mlp(params, x: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
+# ----------------------------------------------------------- serving state
+def freeze_dead_slots(new_state, state, live):
+    """Slot-masked recurrent-state update, IN PLACE: each (B, ...) tensor
+    of ``state`` takes its ``new_state`` rows where ``live`` (a (B,) bool
+    tensor, or None for every slot) and keeps its own elsewhere, so a dead
+    lane does not absorb the padding token a batched decode tick feeds it.
+    The JAX model returns the masked state; here it is written into the
+    old storage (a masked ``copy_``, never a rebinding), because a captured
+    CUDA graph keeps reading and writing the tensors it was captured with.
+    Returns ``state``."""
+    for old, new in zip(state, new_state):
+        if live is None:
+            old.copy_(new)
+        else:
+            mask = live.reshape((-1,) + (1,) * (old.ndim - 1))
+            old.copy_(torch.where(mask, new.to(old.dtype), old))
+    return state
+
+
 # ------------------------------------------------------- per-task adapters
 def apply_task_lora(x: torch.Tensor, ad: dict) -> torch.Tensor:
     """Batched low-rank per-task delta: ``x @ a @ b`` with per-ROW factors.

@@ -1,12 +1,16 @@
 """Decoder LM for training and serving: the ``pattern == ("attn",)``
-(dense) and ``("attn_moe",)`` (mixture of experts) parts of
+(dense), ``("attn_moe",)`` (mixture of experts) and Mamba2 hybrid
+(``("mamba", ..., "shared_attn")``, Zamba2) parts of
 ``repro.models.model.TransformerLM``.
 
 The JAX model keeps period-stacked (P, ...) params and ``lax.scan``s over
-them; here each layer is its own ``_Block`` module and the stack is a
-Python loop. Weights come from a seeded ``torch.Generator`` on the model's
-device (the JAX package's ``dense_init`` law, other random numbers) or from
-the JAX params through ``repro_torch.convert``.
+them; here each layer is its own module and the stack is a Python loop over
+``cfg.layer_kinds()``. A hybrid's "shared_attn" positions hold no weights of
+their own: every one of them runs the ONE ``shared_attn`` block (attention
++ MLP), as the reference closes over ``params["shared_attn"]``. Weights
+come from a seeded ``torch.Generator`` on the model's device (the JAX
+package's ``dense_init`` law, other random numbers) or from the JAX params
+through ``repro_torch.convert``.
 
 Every weight is a trainable ``nn.Parameter``. Training entry points,
 counterparts of the JAX ones:
@@ -20,24 +24,29 @@ counterparts of the JAX ones:
 
 Serving entry points, counterparts of the JAX ones, all under
 ``torch.no_grad()``:
-  * ``init_cache`` / ``reset_slot_state`` — one (k, v) pair per layer:
-    dense per-slot stripes (B, max_seq, KVH, hd), or, given a
+  * ``init_cache`` / ``reset_slot_state`` — one entry per layer: for an
+    attention layer (each shared-attention invocation has its own) a (k, v)
+    pair of dense per-slot stripes (B, max_seq, KVH, hd), or, given a
     ``PagingSpec``, shared pools (num_blocks, block_size, KVH, hd) that
-    slots address through a (B, max_blocks) block table.
+    slots address through a (B, max_blocks) block table; for a mamba layer
+    its recurrent (conv_tail, ssm) state, dense per slot under paging too.
   * ``decode_step``  — one token per slot against the caches at ``pos``.
   * ``prefill_step`` — a (B, C) prompt chunk, all C tokens in parallel.
   Both take ``block_tables=`` for the paged pools.
 
 Both steps update the caches IN PLACE (and return them, as the JAX
-functions return new ones). In an MoE layer dead decode lanes (``live``)
-and invalid prefill lanes (``valid``) take no expert capacity. Multi-task
+functions return new ones): K/V rows by masked scatters, recurrent states
+by masked copies into their own storage. Dead decode lanes (``live``) and
+invalid prefill lanes (``valid``) leave their cache rows and recurrent
+states untouched, and in an MoE layer take no expert capacity. Multi-task
 personalization lives in ``self.task``: per-task final-norm gain
 (parametric norms only), lm-head bias and, for MoE models, router bias,
 gathered by each row's task id. Both steps also take ``adapters=``,
 the graph-mixed serving tree of ``repro_torch.serve.adapters.
-TaskAdapterStore``: each row's low-rank deltas are gathered by task id and
-added to the attention and MLP (or MoE) branches of every layer, and its
-per-task gain, head-bias and router-bias deltas to ``self.task``'s.
+TaskAdapterStore`` (one-stage attention models only): each row's low-rank
+deltas are gathered by task id and added to the attention and MLP (or MoE)
+branches of every layer, and its per-task gain, head-bias and router-bias
+deltas to ``self.task``'s.
 """
 from __future__ import annotations
 
@@ -51,6 +60,7 @@ from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.runtime import pos_vector, require_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
@@ -65,6 +75,16 @@ from repro_torch.models.moe import apply_moe, init_moe
 
 
 _PATTERNS = (("attn",), ("attn_moe",))
+ATTN_KINDS = ("attn", "attn_moe", "shared_attn")
+
+
+def _ported(pattern) -> bool:
+    """The block patterns the port serves and trains: one attention kind,
+    or the hybrid's mamba layers closed by one shared-attention layer."""
+    pattern = tuple(pattern)
+    hybrid = (len(pattern) >= 2 and pattern[-1] == "shared_attn"
+              and all(k == "mamba" for k in pattern[:-1]))
+    return pattern in _PATTERNS or hybrid
 
 
 def _params(tensors: dict) -> nn.ParameterDict:
@@ -93,15 +113,31 @@ class _Block(nn.Module):
             self.mlp = _params(init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, generator))
 
 
+class _MambaBlock(nn.Module):
+    """One Mamba2 layer (the JAX model's "mamba" block): a norm, then the
+    mixer, added to the residual."""
+
+    def __init__(self, cfg: ArchConfig, dtype, generator: torch.Generator):
+        super().__init__()
+        self.norm = _params(init_norm(cfg.norm_kind, cfg.d_model, dtype, generator.device))
+        self.mamba = _params(mamba_lib.init_mamba2(cfg.d_model, cfg.ssm_state,
+                                                   cfg.ssm_head_dim, dtype, generator))
+
+
+class _Shared(nn.Module):
+    """A shared-attention position of the stack: no weights of its own (the
+    model's one ``shared_attn`` block serves it)."""
+
+
 class TransformerLM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device=None, dtype=torch.float32,
                  seed: int = 0):
         super().__init__()
-        if tuple(cfg.pattern) not in _PATTERNS:
+        if not _ported(cfg.pattern):
             raise NotImplementedError(
                 f"{cfg.name}: block pattern {cfg.pattern} is not ported yet; the port "
-                f"trains and serves the patterns {_PATTERNS} (MLA, mamba2, xLSTM and "
-                "shared-attention blocks are not ported)"
+                f"trains and serves the patterns {_PATTERNS} and the hybrid ('mamba', ..., "
+                "'shared_attn') (MLA and xLSTM blocks are not ported)"
             )
         cfg.validate()
         self.cfg = cfg
@@ -112,7 +148,12 @@ class TransformerLM(nn.Module):
         self.embed = nn.Parameter(
             dense_init((c.vocab_size, c.d_model), gen, in_axis=1, dtype=dtype)
         )
-        self.layers = nn.ModuleList(_Block(c, dtype, gen) for _ in range(c.num_layers))
+        self.kinds = c.layer_kinds()
+        blocks = {"mamba": _MambaBlock, "shared_attn": lambda *_: _Shared()}
+        self.layers = nn.ModuleList(blocks.get(kind, _Block)(c, dtype, gen)
+                                    for kind in self.kinds)
+        if "shared_attn" in self.kinds:
+            self.shared_attn = _Block(c, dtype, gen)
         self.final_norm = _params(init_norm(c.norm_kind, c.d_model, dtype, self.device))
         if not c.tie_embeddings:
             self.head = nn.Parameter(dense_init((c.d_model, c.vocab_size), gen, dtype=dtype))
@@ -222,6 +263,15 @@ class TransformerLM(nn.Module):
         ff, aux = self._ffn(p, h, router_bias)
         return x + ff, aux
 
+    def _mamba_full(self, p: _MambaBlock, x, positions, router_bias):
+        """One mamba layer over the whole sequence from a zero state (the
+        reference's ``_block_full`` "mamba" branch). Returns (x, 0 aux)."""
+        c = self.cfg
+        h = apply_norm(c.norm_kind, x, p.norm or None)
+        out, _ = mamba_lib.mamba2_full(p.mamba, h, d_state=c.ssm_state,
+                                       head_dim=c.ssm_head_dim, chunk=c.mamba_chunk)
+        return x + out, torch.zeros((), device=x.device)
+
     def forward(self, batch):
         """Training/eval forward. batch: {'tokens': (B, S) [, 'task_ids':
         (B,)]}. Returns (logits (B, S, V) float32, aux loss () float32: the
@@ -234,11 +284,13 @@ class TransformerLM(nn.Module):
         rb = self._router_bias(batch, s)
         remat = self.cfg.remat and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for p in self.layers:
+        for kind, p in zip(self.kinds, self.layers):
+            fn = self._mamba_full if kind == "mamba" else self._block_full
+            p = self.shared_attn if kind == "shared_attn" else p
             if remat:
-                x, a = checkpoint(self._block_full, p, x, positions, rb, use_reentrant=False)
+                x, a = checkpoint(fn, p, x, positions, rb, use_reentrant=False)
             else:
-                x, a = self._block_full(p, x, positions, rb)
+                x, a = fn(p, x, positions, rb)
             aux = aux + a
         return self._logits(x, batch), aux
 
@@ -258,45 +310,61 @@ class TransformerLM(nn.Module):
         return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
     # ------------------------------------------------------------- caches
-    def init_cache(self, batch_size: int, max_seq: int, paging=None) -> list:
-        """One (k, v) pair of zeros per layer: dense (B, max_seq, KVH, hd)
-        stripes, or with ``paging`` (a ``repro_torch.serve.paging.
-        PagingSpec``) shared (num_blocks, block_size, KVH, hd) pools."""
+    def _cache_spec(self, kind: str, batch_size: int, max_seq: int, paging=None):
+        """(shape, dtype, init value) of each tensor of one layer's cache
+        entry: ``init_cache`` fills them and ``reset_slot_state`` restores
+        the value. Attention: (k, v), dense stripes or, with ``paging``,
+        shared pools. Mamba: (conv_tail, ssm), dense per slot always, the
+        SSM state in float32."""
         c = self.cfg
-        if paging is not None:
-            lead = (paging.num_blocks, paging.block_size)
-        else:
-            lead = (batch_size, max_seq)
-        shape = lead + (c.num_kv_heads, c.head_dim)
+        if kind in ATTN_KINDS:
+            lead = ((paging.num_blocks, paging.block_size) if paging is not None
+                    else (batch_size, max_seq))
+            shape = lead + (c.num_kv_heads, c.head_dim)
+            return [(shape, self.dtype, 0.0)] * 2
+        _, nh, conv_dim = mamba_lib.dims(c.d_model, c.ssm_state, c.ssm_head_dim)
+        return [((batch_size, mamba_lib.CONV_K - 1, conv_dim), self.dtype, 0.0),
+                ((batch_size, nh, c.ssm_head_dim, c.ssm_state), torch.float32, 0.0)]
+
+    def init_cache(self, batch_size: int, max_seq: int, paging=None) -> list:
+        """One entry per layer, filled with its init value: a (k, v) pair of
+        dense (B, max_seq, KVH, hd) stripes, or with ``paging`` (a
+        ``repro_torch.serve.paging.PagingSpec``) of shared (num_blocks,
+        block_size, KVH, hd) pools, per attention layer; a (conv_tail, ssm)
+        pair per mamba layer."""
         return [
-            (torch.zeros(shape, dtype=self.dtype, device=self.device),
-             torch.zeros(shape, dtype=self.dtype, device=self.device))
-            for _ in range(c.num_layers)
+            tuple(torch.full(shape, fill, dtype=dtype, device=self.device)
+                  for shape, dtype, fill in self._cache_spec(kind, batch_size, max_seq, paging))
+            for kind in self.kinds
         ]
 
     @torch.no_grad()
     def reset_slot_state(self, caches, reset, paging=None):
-        """Zero the K/V stripes of (re)admitted slots, in place, as the JAX
-        model restores them to the ``init_cache`` value. reset: (B,) bool
-        (host array or tensor). Only the reset rows are touched.
+        """Restore the per-slot cache entries of (re)admitted slots to their
+        ``init_cache`` value, in place, as the JAX model does: recurrent
+        states are cumulative and must be cleared on slot reuse, and dense
+        K/V stripes are cleared too. reset: (B,) bool (host array or
+        tensor). Only the reset rows are touched.
 
         It reads ``reset`` on the host and uploads the row ids, so it runs
         eagerly, never inside a captured CUDA graph: the serving executor
         (``repro_torch.serve.step.StepExecutor``) calls it before a prefill
         replay, only on dispatches that admit a slot.
 
-        Paged pools (``paging`` given) need no clearing, as in JAX: a new
-        request rewrites every position it can read and reads are masked by
-        ``kv_idx <= pos``, so stale bytes in recycled blocks are never seen."""
-        if paging is not None:
-            return caches
+        Paged attention pools (``paging`` given) are skipped, as in JAX: a
+        new request rewrites every position it can read and reads are masked
+        by ``kv_idx <= pos``, so stale bytes in recycled blocks are never
+        seen. A hybrid's recurrent states stay per slot under paging and are
+        reset all the same."""
         rows = np.flatnonzero(torch.as_tensor(reset).cpu().numpy())
-        if rows.size == 0:
+        per_slot = [(kind, entry) for kind, entry in zip(self.kinds, caches)
+                    if paging is None or kind not in ATTN_KINDS]
+        if rows.size == 0 or not per_slot:
             return caches
         idx = torch.as_tensor(rows, device=self.device)
-        for k_cache, v_cache in caches:
-            k_cache.index_fill_(0, idx, 0)
-            v_cache.index_fill_(0, idx, 0)
+        for kind, entry in per_slot:
+            for t, (_, _, fill) in zip(entry, self._cache_spec(kind, 1, 1)):
+                t.index_fill_(0, idx, fill)
         return caches
 
     @staticmethod
@@ -369,15 +437,24 @@ class TransformerLM(nn.Module):
             ff = ff + apply_task_lora(h, ad["mlp"])
         return x + ff
 
-    def _run_layers(self, x, caches, pos, write, attend, batch, adapters, moe_live):
+    def _run_layers(self, x, caches, pos, write, attend, batch, adapters, moe_live,
+                    recurrent):
         """The layer loop of both steps, with each layer's adapters when
-        given. Returns (x, per-row task deltas or None)."""
+        given: attention layers through ``_attn_block`` (shared positions
+        with the shared block), mamba layers through ``recurrent(p, h,
+        cache)``, which returns the mixer's output and updates the cache
+        entry in place. Returns (x, per-row task deltas or None)."""
         if adapters is None:
             layer_ads, task_ad = [None] * len(self.layers), None
         else:
             layer_ads, task_ad = self._gather_adapters(adapters, batch["task_ids"])
         rb = self._router_bias(batch, x.shape[1], task_ad)
-        for p, cache, ad in zip(self.layers, caches, layer_ads):
+        c = self.cfg
+        for kind, p, cache, ad in zip(self.kinds, self.layers, caches, layer_ads):
+            if kind == "mamba":
+                x = x + recurrent(p.mamba, apply_norm(c.norm_kind, x, p.norm or None), cache)
+                continue
+            p = self.shared_attn if kind == "shared_attn" else p
             x = self._attn_block(p, x, cache, pos, write, attend, rb, moe_live, ad)
         return x, task_ad
 
@@ -389,10 +466,12 @@ class TransformerLM(nn.Module):
         pos: () or (B,) per-slot positions; live: optional (B,) bool — dead
         slots run through the math on their padding token but their cache
         rows are left untouched (paged: their write goes to the null block
-        0). block_tables: optional (B, max_blocks) int32 — the caches are
-        then the shared pools of ``init_cache(..., paging=spec)``.
-        adapters: optional serving tree of a ``TaskAdapterStore`` (needs
-        ``batch['task_ids']``). Returns (logits (B, 1, V) f32, caches)."""
+        0; a mamba layer's state keeps its rows). block_tables: optional
+        (B, max_blocks) int32 — the attention caches are then the shared
+        pools of ``init_cache(..., paging=spec)`` (recurrent states stay
+        dense and ignore the table). adapters: optional serving tree of a
+        ``TaskAdapterStore`` (needs ``batch['task_ids']``). Returns (logits
+        (B, 1, V) f32, caches)."""
         x = self._embed(batch)
         pos = pos_vector(pos, x.shape[0], x.device)
         attend = self._make_attend(pos, block_tables)
@@ -402,7 +481,14 @@ class TransformerLM(nn.Module):
         else:
             def write(cc, new):
                 attn_lib.paged_cache_write(cc, new, pos, block_tables, live)
-        x, task_ad = self._run_layers(x, caches, pos, write, attend, batch, adapters, live)
+        c = self.cfg
+
+        def recurrent(p, h, cache):
+            return mamba_lib.mamba2_step(p, h, cache, d_state=c.ssm_state,
+                                         head_dim=c.ssm_head_dim, live=live)[0]
+
+        x, task_ad = self._run_layers(x, caches, pos, write, attend, batch, adapters, live,
+                                      recurrent)
         return self._logits(x, batch, task_ad), caches
 
     @torch.no_grad()
@@ -412,7 +498,8 @@ class TransformerLM(nn.Module):
         parallel, against the caches at per-slot offsets. positions: (B,)
         position of each slot's first chunk token; valid: (B, C)
         contiguous-prefix mask of real prompt tokens (all-False rows ride
-        along untouched; paged, their lanes write the null block 0).
+        along untouched; paged, their lanes write the null block 0); a
+        mamba layer runs the chunked SSD with the slot's state threaded in.
         block_tables: optional (B, max_blocks) int32 for paged pools.
         adapters: optional serving tree, as in ``decode_step``. Returns
         (logits (B, 1, V) after each slot's LAST valid token, caches) — the
@@ -428,7 +515,20 @@ class TransformerLM(nn.Module):
         else:
             def write(cc, new):
                 attn_lib.paged_cache_write_slab(cc, new, pos, block_tables, valid)
-        x, task_ad = self._run_layers(x, caches, pos, write, attend, batch, adapters, valid)
+        c = self.cfg
+
+        def recurrent(p, h, cache):
+            # the state threaded in; a row with no valid token gets its state
+            # back bit for bit, so the copy leaves it untouched
+            out, state = mamba_lib.mamba2_full(p, h, d_state=c.ssm_state,
+                                               head_dim=c.ssm_head_dim, chunk=c.mamba_chunk,
+                                               state=cache, valid=valid)
+            for t, new in zip(cache, state):
+                t.copy_(new)
+            return out
+
+        x, task_ad = self._run_layers(x, caches, pos, write, attend, batch, adapters, valid,
+                                      recurrent)
         idx = (valid.sum(dim=1) - 1).clamp(min=0)  # in [0, C-1]
         x_last = x[torch.arange(b, device=x.device), idx][:, None, :]  # (B, 1, d)
         return self._logits(x_last, batch, task_ad), caches

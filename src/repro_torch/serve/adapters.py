@@ -98,6 +98,12 @@ class TaskAdapterStore:
         dtype=None,
     ):
         cfg = model.cfg
+        if tuple(cfg.pattern) not in (("attn",), ("attn_moe",)):
+            raise NotImplementedError(
+                f"{cfg.name}: TaskAdapterStore serves one-stage attention models; the "
+                f"adapters of pattern {cfg.pattern} (the reference's 'out' pair on recurrent "
+                "blocks) are not ported yet (ROADMAP.md section 1, hybrid adapters)"
+            )
         if graph.m != cfg.num_tasks:
             raise ValueError(
                 f"task graph has {graph.m} tasks but the model serves "

@@ -53,7 +53,7 @@ every retirement path — finish, cancel, timeout — returns them. The
 (num_slots, max_blocks) int32 table rides in each dispatch's one upload,
 shared by every layer.
 
-``prefix_cache=True`` (paged mode) puts a
+``prefix_cache=True`` (paged mode, attention-only models) puts a
 ``repro_torch.serve.paging.RadixPrefixCache`` in front of admission: a
 request whose prompt shares a cached prefix aliases those blocks
 (refcounted) instead of recomputing them, prefill starts at
@@ -87,9 +87,10 @@ fault. A real error — a CUDA error, a failed capture or replay — is no
 ``FaultError`` and propagates. ``preempt=True`` (paged mode) swaps a
 running lower-priority victim's blocks to pinned host memory under block
 pressure instead of refusing admission (``serve.step.make_swap``, eager,
-between replays, the pools written in place) and requeues it; its
-re-admission restores the rows into fresh blocks and resumes at the saved
-position. ``check_invariants()`` reconciles the slot map, allocator
+between replays, the pools written in place; a hybrid's recurrent states
+travel as the slot's columns beside the blocks) and requeues it; its
+re-admission restores the rows into fresh blocks (and the states into its
+new slot) and resumes at the saved position. ``check_invariants()`` reconciles the slot map, allocator
 refcounts, block tables, prefix-trie chains and the queue at any point.
 """
 from __future__ import annotations
@@ -100,6 +101,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.models.model import ATTN_KINDS
 from repro_torch.serve.faults import FaultError
 from repro_torch.serve.paging import BlockAllocator, RadixPrefixCache
 from repro_torch.serve.scheduler import Scheduler
@@ -152,7 +154,8 @@ class Request:
     retries: int = 0
     not_before: float = 0.0
     # preemptive swap-out: times this request was swapped out, and (while
-    # preempted) its snapshot {"kv": pinned host tensor, "pos": int}
+    # preempted) its snapshot {"kv": (pinned pages, pinned state columns),
+    # "pos": int}
     preemptions: int = 0
     _swap: dict | None = None
     # bookkeeping stamped by the scheduler/executor
@@ -225,8 +228,15 @@ class ContinuousBatcher:
                     "PagingSpec) — dense per-slot stripes cannot alias blocks "
                     "between slots"
                 )
-            # the port's model is attention-only (pattern ("attn",)): no
-            # recurrent state lives outside the KV blocks
+            recurrent = set(model.cfg.pattern) - set(ATTN_KINDS)
+            if recurrent:
+                # a recurrent layer's state at position p depends on ALL
+                # positions <= p and lives outside the paged KV pools, so
+                # aliasing KV blocks would resume from a stale or foreign state
+                raise ValueError(
+                    f"prefix_cache=True requires an attention-only model; layer kinds "
+                    f"{sorted(recurrent)} carry recurrent state the KV blocks do not capture"
+                )
             prefix = self.prefix = RadixPrefixCache(self.allocator)
             self._cow_fn = make_cow_copy(paging)
             # sjf orders by UNCACHED prompt tokens: a long prompt with a
@@ -254,7 +264,7 @@ class ContinuousBatcher:
         self.retry_backoff_s = retry_backoff_s
         self._swap_out_fn = self._swap_in_fn = None
         if preempt:
-            self._swap_out_fn, self._swap_in_fn = make_swap(paging)
+            self._swap_out_fn, self._swap_in_fn = make_swap(paging, model.kinds)
         if faults is not None:
             # clock-skew seam: every deadline decision the scheduler makes
             # sees the plan's skewed time (timeout storms)
@@ -467,7 +477,7 @@ class ContinuousBatcher:
                 "dispatch", uid=req.uid, where="swap"
             ):
                 raise FaultError("injected swap-in dispatch failure")
-            self._swap_in_fn(self.caches, blocks, req._swap["kv"])
+            self._swap_in_fn(self.caches, blocks, req._swap["kv"], s)
         except FaultError:
             # unwind the fresh blocks; the snapshot stays on the request,
             # so a later retry restores from it unchanged
@@ -528,7 +538,7 @@ class ContinuousBatcher:
             "dispatch", uid=req.uid, where="swap"
         ):
             raise FaultError("injected swap-out dispatch failure")
-        saved = self._swap_out_fn(self.caches, self.slot_blocks[s])
+        saved = self._swap_out_fn(self.caches, self.slot_blocks[s], s)
         req._swap = {"kv": saved, "pos": int(self.pos[s])}
         req.preemptions += 1
         self.swap_outs += 1

@@ -16,8 +16,9 @@ functions built here, so their numerics cannot drift.
   * ``prefill_chunk(tokens, task_ids, caches, positions, valid, reset,
     block_tables=None, adapters=None)`` — write a whole (B, C) prompt slice.
     ``valid[b, i]`` marks real prompt tokens as a contiguous prefix per
-    row; ``reset[b]`` (host bool array) zeroes a (re)admitted slot's dense
-    stripes before writing (paged pools need no reset). Returns (logits
+    row; ``reset[b]`` (host bool array) restores a (re)admitted slot's
+    per-slot cache entries (dense stripes, recurrent states) to their
+    ``init_cache`` value before writing (paged pools need no reset). Returns (logits
     after each slot's last valid token — zeros for rows with none, caches,
     ``positions + n_valid``).
 
@@ -53,8 +54,9 @@ counterpart of ``jax.disable_jit``) the same buffers feed the eager pair.
 
 ``make_cow_copy(paging)`` returns the copy-on-write step of the prefix
 cache: rows ``[0, rows)`` of block ``src`` into block ``dst`` in every pool.
-``make_swap(paging)`` returns the pair of preemptive swap-out: a slot's
-blocks gathered to host memory, and written back into fresh blocks.
+``make_swap(paging, kinds)`` returns the pair of preemptive swap-out: a
+slot's blocks (and its recurrent states' columns) gathered to host memory,
+and written back into fresh blocks (and the slot it is restored to).
 Both run eagerly between replays and write the pools in place, so the
 captured graphs, which read the pools by address, stay valid.
 
@@ -75,6 +77,7 @@ from repro_torch.kernels.prefill_attention.ops import (
     paged_prefill_attention,
     prefill_attention,
 )
+from repro_torch.models.model import ATTN_KINDS
 
 # the kernel wrappers a step can launch; a replay adds what its capture launched
 _COUNTED_OPS = (decode_attention, paged_decode_attention, prefill_attention,
@@ -222,8 +225,12 @@ class StepExecutor:
     at capture; a dispatch with a tree whose leaves have moved raises.
 
     ``reset`` is applied eagerly before the prefill step, and only when it
-    admits a slot: one ``index_fill_`` per dense cache tensor
-    (``TransformerLM.reset_slot_state``), never inside a graph."""
+    admits a slot: one ``index_fill_`` per per-slot cache tensor
+    (``TransformerLM.reset_slot_state``), never inside a graph.
+
+    The caches may mix entry kinds (a hybrid's K/V pairs and recurrent
+    (conv_tail, ssm) states): the steps update every one in place, so the
+    graphs bind them all by address."""
 
     def __init__(self, model, caches, num_slots: int, prefill_chunk: int,
                  prefill_mode: str = "parallel", paging=None, cuda_graphs: bool | None = None):
@@ -358,7 +365,9 @@ def make_cow_copy(paging):
     touched. ``src``, ``dst`` and ``rows`` are host ints (the admission
     decision). Used when a request's prompt shares only the first ``rows``
     tokens of a cached block: the new slot gets a private copy of those
-    rows and writes its own tail there, never into the aliased source."""
+    rows and writes its own tail there, never into the aliased source.
+    Every entry is a pool: the batcher refuses the prefix cache on a model
+    with recurrent state."""
     if paging is None:
         raise ValueError("copy-on-write requires a paged cache layout")
     nb, bs = paging.num_blocks, paging.block_size
@@ -369,30 +378,36 @@ def make_cow_copy(paging):
                 f"copy-on-write of rows [0, {rows}) from block {src} to block {dst}: "
                 f"want distinct blocks in [0, {nb}) and rows in [0, {bs}]"
             )
-        for k_pool, v_pool in caches:
-            k_pool[dst, :rows].copy_(k_pool[src, :rows])
-            v_pool[dst, :rows].copy_(v_pool[src, :rows])
+        for pools in caches:
+            for pool in pools:
+                pool[dst, :rows].copy_(pool[src, :rows])
         return caches
 
     return cow_copy
 
 
-def make_swap(paging):
+def make_swap(paging, kinds):
     """The eager ``(swap_out, swap_in)`` pair of preemptive swap-out.
 
-    ``swap_out(caches, blocks)`` gathers the given physical blocks (a
-    slot's real blocks, host ints) of every pool into ONE device staging
-    tensor, one ``index_select`` per pool, and copies it to host memory in
-    one copy: the snapshot, a ``(2 * layers, len(blocks), block_size, KVH,
-    hd)`` tensor whose row ``2 i`` holds layer ``i``'s K pages and row
-    ``2 i + 1`` its V pages, in ``blocks`` order. On CUDA the snapshot is
-    pinned and the copy is asynchronous.
+    ``swap_out(caches, blocks, slot=None)`` gathers the given physical
+    blocks (a slot's real blocks, host ints) of every pool into ONE device
+    staging tensor, one ``index_select`` per pool, and copies it to host
+    memory in one copy: the pages, a ``(2 * attention layers, len(blocks),
+    block_size, KVH, hd)`` tensor whose row ``2 i`` holds the i-th
+    attention layer's K pages and row ``2 i + 1`` its V pages, in ``blocks``
+    order. Beside them it copies the ``slot`` column of every dense
+    per-slot entry (a recurrent layer's (conv_tail, ssm) state; ``kinds``,
+    the model's ``kinds``, says which entries those are, as the
+    reference's ``swap_out(caches, blocks, slot)`` takes them): the columns, a list of tensors in cache
+    order. Returns the snapshot ``(pages, columns)``. On CUDA every part is
+    pinned and every copy asynchronous.
 
-    ``swap_in(caches, blocks, saved)`` is the inverse: one upload of the
-    snapshot and one ``index_copy_`` per pool into ``blocks`` (fresh ones,
-    as many as were saved). Every pool is written IN PLACE and keeps its
-    ``data_ptr``, so the CUDA graphs that read the pools by address read
-    the restored rows at their next replay.
+    ``swap_in(caches, blocks, saved, slot=None)`` is the inverse: one upload
+    of the pages and one ``index_copy_`` per pool into ``blocks`` (fresh
+    ones, as many as were saved), and each column written into ``slot``
+    (the slot the request is restored to). Every pool and state is written
+    IN PLACE and keeps its ``data_ptr``, so the CUDA graphs that read them
+    by address read the restored rows at their next replay.
 
     No host sync is needed in either direction. Both run on the current
     stream, between replays, like ``make_cow_copy``: the next replay's
@@ -405,9 +420,9 @@ def make_swap(paging):
     snapshot taken on CUDA.
 
     Unlike the JAX pair, which pads the row to ``max_blocks_per_slot`` to
-    keep one trace, the eager pair moves only the blocks given. The port's
-    model is attention-only, so no dense per-slot state needs saving; dense
-    caches raise, as the reference's ``make_swap(None)`` does."""
+    keep one trace, the eager pair moves only the blocks given. Dense
+    caches raise, as the reference's ``make_swap(None)`` does; a model with
+    dense per-slot entries needs ``slot``."""
     if paging is None:
         raise ValueError("swap-out requires a paged cache layout")
     nb = paging.num_blocks
@@ -420,33 +435,51 @@ def make_swap(paging):
             )
         return torch.tensor(ids, dtype=torch.long, device=device)
 
-    def swap_out(caches, blocks) -> torch.Tensor:
-        pools = [pool for kv in caches for pool in kv]
+    def _split(caches, slot):
+        pooled = [kind in ATTN_KINDS for kind in kinds]
+        pools = [t for entry, p in zip(caches, pooled) if p for t in entry]
+        states = [t for entry, p in zip(caches, pooled) if not p for t in entry]
+        if states and slot is None:
+            raise ValueError("swap of a model with per-slot recurrent state: pass its slot")
+        return pools, states
+
+    def _host(t: torch.Tensor) -> torch.Tensor:
+        """A host copy of ``t`` that no later step writes."""
+        if t.device.type != "cuda":
+            return t.clone()
+        saved = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        saved.copy_(t, non_blocking=True)
+        return saved
+
+    def swap_out(caches, blocks, slot=None):
+        pools, states = _split(caches, slot)
         first = pools[0]
         idx = _ids(blocks, first.device)
         staging = torch.empty((len(pools), len(idx)) + tuple(first.shape[1:]),
                               dtype=first.dtype, device=first.device)
         for j, pool in enumerate(pools):
             torch.index_select(pool, 0, idx, out=staging[j])
-        if first.device.type != "cuda":
-            return staging
-        saved = torch.empty(staging.shape, dtype=staging.dtype, pin_memory=True)
-        saved.copy_(staging, non_blocking=True)
-        return saved
+        return _host(staging), [_host(t[slot]) for t in states]
 
-    def swap_in(caches, blocks, saved: torch.Tensor):
-        pools = [pool for kv in caches for pool in kv]
+    def swap_in(caches, blocks, saved, slot=None):
+        pools, states = _split(caches, slot)
+        pages, columns = saved
         first = pools[0]
         idx = _ids(blocks, first.device)
         want = (len(pools), len(idx)) + tuple(first.shape[1:])
-        if tuple(saved.shape) != want or saved.dtype != first.dtype:
+        if tuple(pages.shape) != want or pages.dtype != first.dtype or len(columns) != len(
+            states
+        ) or any(c.shape != t.shape[1:] or c.dtype != t.dtype for c, t in zip(columns, states)):
             raise ValueError(
-                f"swap-in of a {saved.dtype} snapshot of shape {tuple(saved.shape)} into "
-                f"{len(idx)} blocks: want {first.dtype} of shape {want}"
+                f"swap-in of a {pages.dtype} snapshot of shape {tuple(pages.shape)} and "
+                f"{len(columns)} state columns into {len(idx)} blocks: want {first.dtype} of "
+                f"shape {want} and {len(states)} columns shaped as the states' rows"
             )
-        rows = saved.to(first.device, non_blocking=True)
+        rows = pages.to(first.device, non_blocking=True)
         for j, pool in enumerate(pools):
             pool.index_copy_(0, idx, rows[j])
+        for t, col in zip(states, columns):
+            t[slot].copy_(col, non_blocking=True)
         return caches
 
     return swap_out, swap_in

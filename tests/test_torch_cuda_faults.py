@@ -96,10 +96,11 @@ def test_swap_pair_round_trips_in_place(cuda):
             t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
     before = [tuple(t.clone() for t in pair) for pair in caches]
     ptrs = _pointers(caches)
-    swap_out, swap_in = make_swap(spec)
+    swap_out, swap_in = make_swap(spec, model.kinds)
     src, dst = [3, 1, 7], [2, 9, 5]
     saved = swap_out(caches, src)
-    assert saved.device.type == "cpu" and saved.is_pinned()
+    pages, columns = saved
+    assert pages.device.type == "cpu" and pages.is_pinned() and columns == []
     swap_in(caches, dst, saved)
     torch.cuda.synchronize()
     assert _pointers(caches) == ptrs

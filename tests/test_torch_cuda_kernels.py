@@ -11,11 +11,13 @@ rounded to bf16), one launch per dtype group of a tree, and its refusals.
 The dense and paged flash-decode kernels against their plain versions at
 forced split counts (1, 3, one per key tile and the wrapper's own), at the
 decode shapes above, multitask-LM's (G 4, hd 64), Mixtral-8x22B's (G 6,
-window 4096 over S 8192) and S 2048 (64 splits, merged in two groups), a
+window 4096 over S 8192), Zamba2-7B's (hd 112, the first head dim that is
+no power of two) and S 2048 (64 splits, merged in two groups), a
 stale position, block sizes 8 and 16 with out-of-pool ids. The dense and
 paged flash-prefill kernels against their plain versions at forced split
 counts (1, 3 and the wrapper's own), at C * G of 3, 32, 128, 160, 192 and
-200 (a ragged m16 tile, rows over several m16 tiles, several row tiles),
+200 (a ragged m16 tile, rows over several m16 tiles, several row tiles) and
+at hd 112, and refusing hd 160, which no kernel instantiates,
 with a window, a slot at pos 0 beside one at 992, a row that sees no key,
 and, paged, block sizes 8 and 16 with a poisoned null block and
 out-of-pool ids.
@@ -99,6 +101,10 @@ _PREFILL_CASES = [
     (2, 208, 4, 2, 32, 8, [0, 190], None),
     (2, 96, 2, 5, 128, 40, [10, 50], None),
     (4, 8192, 8, 6, 128, 32, [0, 4480, 8160, 4000], 4096),
+    # Zamba2-7B: hd 112 (MHA, G 1), its serving shape and a ragged S with the
+    # chunk's last row at the cache's last row
+    (4, 2048, 32, 1, 112, 32, [0, 700, 1500, 2016], None),
+    (3, 304, 2, 1, 112, 32, [0, 131, 272], None),
 ]
 
 
@@ -156,6 +162,10 @@ _DECODE_CASES = [
     (4, 1024, 4, 4, 64, [63, 300, 700, 1023], None),
     (2, 2048, 2, 3, 64, [2047, 1500], None),  # "largest": 64 splits, two groups of 32 to merge
     (4, 8192, 8, 6, 128, [4500, 8191, 100, 4095], 4096),
+    # Zamba2-7B: hd 112, at its serving shape and at a ragged S with pos at 0
+    # and at the last row
+    (4, 2048, 32, 1, 112, [63, 700, 1500, 2047], None),
+    (3, 304, 2, 1, 112, [0, 150, 303], None),
 ]
 
 
@@ -201,6 +211,38 @@ def test_decode_kernels_match_plain_versions_at_forced_splits(dtype, nsplit, blo
         err = (got.float().cpu() - want.float()).abs().max().item()
         assert torch.isfinite(got.float()).all()
         assert err <= TOL[dtype], (b, s, kvh, g, hd, pos, window, block, n, err)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_refuse_head_dims_they_do_not_instantiate():
+    """hd 112 launches; hd 160 (pixtral) is in no instantiation and raises
+    before any launch, dense and paged, decode and prefill."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    pos = torch.tensor([5, 9], dtype=torch.int32, device=dev)
+    table = torch.ones((2, 2), dtype=torch.int32, device=dev)
+    ops = (dec_ops.decode_attention, dec_ops.paged_decode_attention,
+           pre_ops.prefill_attention, pre_ops.paged_prefill_attention)
+    for hd, ok in ((112, True), (160, False)):
+        before = [op.launches for op in ops]
+        for c in (1, 4):
+            q = torch.zeros((2, c, 4, hd), device=dev)
+            cache = torch.zeros((2, 16, 4, hd), device=dev)
+            pool = torch.zeros((5, 8, 4, hd), device=dev)
+            dense = dec_ops.decode_attention if c == 1 else pre_ops.prefill_attention
+            paged = (dec_ops.paged_decode_attention if c == 1
+                     else pre_ops.paged_prefill_attention)
+            for call in (lambda: dense(q, cache, cache, pos),
+                         lambda: paged(q, pool, pool, table, pos)):
+                if ok:
+                    call()
+                else:
+                    with pytest.raises(ValueError, match="head_dim 160"):
+                        call()
+        torch.cuda.synchronize()
+        want = [n + 1 if ok else n for n in before]
+        assert [op.launches for op in ops] == want
 
 
 @pytest.mark.cuda

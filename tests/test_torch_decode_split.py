@@ -14,7 +14,10 @@ to ``decode_attention_pallas(interpret=True)`` and
 ``decode_attention_reference`` (and their paged counterparts, through the
 plain ``gather_pages``) within 1e-5, for 1 to 16 splits, G 1, 4 and 5, hd 64
 and 128, with a sliding window, and with a stale position whose row sees no
-key and so averages every row."""
+key and so averages every row. Zamba2's hd 112 runs at the block's padded
+width (``padded_dim`` in the tile header: q, K and V zero past hd, the
+output cut back to hd), dense and paged, with ragged S and positions at
+the edges, held to the same references within 1e-5."""
 import functools
 import math
 import re
@@ -34,7 +37,7 @@ from repro.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_reference,
     paged_decode_attention_reference,
 )
-from repro_torch.kernels.runtime import CSRC, gather_pages, scale_for  # noqa: E402
+from repro_torch.kernels.runtime import HEAD_DIMS, CSRC, gather_pages, scale_for  # noqa: E402
 
 NEG_INF = -1e30
 WARPS, CHUNK = 4, 8  # DECODE_WARPS and kChunk in attention_tile.cuh
@@ -70,9 +73,10 @@ def _merge(parts):
     return big_m, l_sum, acc
 
 
-def _warp(q, k, v, p, window, first, n):
+def _warp(q, k, v, p, window, first, n, scale):
     """One warp's online softmax: chunks of CHUNK keys at first + u * TILE,
-    u < n. q (KVH, G, hd); k, v (S, KVH, hd) of one slot."""
+    u < n. q (KVH, G, hd); k, v (S, KVH, hd) of one slot; scale the
+    wrapper's, 1 / sqrt of the unpadded head dim."""
     s = k.shape[0]
     kvh, g, hd = q.shape
     m = torch.full((kvh, g), NEG_INF)
@@ -84,7 +88,7 @@ def _warp(q, k, v, p, window, first, n):
         rows = keys.clamp(max=s - 1)
         kk = torch.where(live[:, None, None], k[rows], 0.0)  # zero-filled past S
         vv = torch.where(live[:, None, None], v[rows], 0.0)
-        sc = torch.einsum("kgd,nkd->kgn", q, kk) * scale_for(hd)
+        sc = torch.einsum("kgd,nkd->kgn", q, kk) * scale
         seen = keys <= p
         if window is not None:
             seen &= keys > p - window
@@ -98,9 +102,20 @@ def _warp(q, k, v, p, window, first, n):
     return m, l, acc
 
 
+def _padded_dim(hd):
+    """attention_tile.cuh::padded_dim: the head dim a decode block computes
+    at."""
+    return 32 if hd <= 32 else 64 if hd <= 64 else 128 if hd <= 128 else 256
+
+
 def _split_merge(q, k, v, pos, window, nsplit):
     """The kernel's algorithm in plain torch. q (B, KVH, G, hd), k and v
-    (B, S, KVH, hd), pos (B,) ints. Returns (B, KVH, G, hd)."""
+    (B, S, KVH, hd), pos (B,) ints. Returns (B, KVH, G, hd). The block
+    computes at the padded head dim, with zeros past hd."""
+    hd = q.shape[-1]
+    pad = _padded_dim(hd) - hd
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
     out = torch.empty_like(q)
     s = k.shape[1]
     for bi in range(q.shape[0]):
@@ -112,12 +127,14 @@ def _split_merge(q, k, v, pos, window, nsplit):
                 assert sp >= used  # an empty split writes no partial
                 continue
             warps = [_warp(q[bi], k[bi], v[bi], p, window, t_begin * TILE + w * CHUNK,
-                           t_end - t_begin) for w in range(WARPS)]
+                           t_end - t_begin, scale_for(hd)) for w in range(WARPS)]
             parts.append(_merge(warps))
         assert len(parts) == used
         _, l_sum, acc = _merge(parts)
         out[bi] = acc / torch.clamp(l_sum, min=1e-30)[..., None]
-    return out
+    if pad:
+        assert not out[..., hd:].any()  # the zero dims the kernel never writes
+    return out[..., :hd]
 
 
 # (B, S, KVH, G, hd, pos, window): ragged positions at the start, in the
@@ -139,9 +156,15 @@ _PAGED = [
 ]
 
 
+# Zamba2-7B's hd 112 (MHA, G 1): ragged S 300, positions at 0, mid-cache
+# and the last row; paged, 16-row pages with slot 0 half unmapped
+_CASES_112 = [(3, 300, 2, 1, 112, (0, 150, 299), None)]
+_PAGED_112 = [(2, 19, 16, 2, 1, 112, (303, 0), None)]
+
+
 @functools.lru_cache(maxsize=None)
-def _case(i):
-    b, s, kvh, g, hd, pos, window = _CASES[i]
+def _case(i, cases="dense"):
+    b, s, kvh, g, hd, pos, window = (_CASES if cases == "dense" else _CASES_112)[i]
     rng = np.random.default_rng(60 + i)
     q = rng.standard_normal((b, kvh, g, hd)).astype(np.float32)
     k = rng.standard_normal((b, s, kvh, hd)).astype(np.float32)
@@ -154,8 +177,8 @@ def _case(i):
 
 
 @functools.lru_cache(maxsize=None)
-def _paged_case(i):
-    b, mb, bs, kvh, g, hd, pos, window = _PAGED[i]
+def _paged_case(i, cases="paged"):
+    b, mb, bs, kvh, g, hd, pos, window = (_PAGED if cases == "paged" else _PAGED_112)[i]
     rng = np.random.default_rng(80 + i)
     nb = b * mb + 1
     q = rng.standard_normal((b, kvh, g, hd)).astype(np.float32)
@@ -197,6 +220,26 @@ def test_paged_split_merge_matches_jax_paged_decode(case, nsplit):
     _check(got, ref, pallas)
 
 
+@pytest.mark.parametrize("nsplit", [1, 3, 16])
+def test_hd112_split_merge_matches_jax_decode(nsplit):
+    """hd 112 at the block's padded width of 128, dense."""
+    (q, k, v, pos, window), ref, pallas = _case(0, "hd112")
+    got = _split_merge(*map(torch.from_numpy, (q, k, v)), pos, window, nsplit).numpy()
+    _check(got, ref, pallas)
+
+
+@pytest.mark.parametrize("nsplit", [1, 3])
+def test_hd112_paged_split_merge_matches_jax_paged_decode(nsplit):
+    """hd 112 over a pool: slot 0 at pos 303 reads past its mapped pages
+    into the null block."""
+    (q, k_pool, v_pool, table, pos, window), ref, pallas = _paged_case(0, "hd112")
+    t = torch.from_numpy(table)
+    k = gather_pages(torch.from_numpy(k_pool), t)
+    v = gather_pages(torch.from_numpy(v_pool), t)
+    got = _split_merge(torch.from_numpy(q), k, v, pos, window, nsplit).numpy()
+    _check(got, ref, pallas)
+
+
 def test_row_without_keys_averages_every_row_across_splits():
     """Slot 0 of the stale case sees no key: the merge of 5 splits (every
     tile visited, each split's m at -1e30) gives the uniform average of all
@@ -227,3 +270,21 @@ def test_emulated_geometry_is_the_kernels():
     src = (CSRC / "attention_tile.cuh").read_text()
     assert re.search(rf"#define DECODE_WARPS {WARPS}\b", src)
     assert re.search(rf"constexpr int kChunk = {CHUNK};", src)
+    assert "return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 256;" in src
+    assert [_padded_dim(hd) for hd in (32, 64, 112, 128)] == [32, 64, 128, 128]
+
+
+def test_head_dims_are_the_sources_instantiations():
+    """Every head dim the wrappers accept (``runtime.HEAD_DIMS``, 112 among
+    them) has a case in each dtype's switch of both attention sources, and
+    no other does: adding 112 opens no path for another width (160, pixtral,
+    is refused before a launch)."""
+    for name, macro in (("decode_attention.cu", "DECODE_CASE"),
+                        ("decode_attention.cu", "GEOMETRY_CASE"),
+                        ("prefill_attention.cu", "PREFILL_CASE")):
+        src = (CSRC / name).read_text()
+        for ty in ("float", "__nv_bfloat16"):
+            found = re.findall(rf"case (\d+): {macro}\({ty}, (\d+)\);", src)
+            assert [int(a) for a, _ in found] == list(HEAD_DIMS), (name, macro, ty)
+            assert all(a == b for a, b in found)
+    assert 112 in HEAD_DIMS and 160 not in HEAD_DIMS

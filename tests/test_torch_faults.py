@@ -385,7 +385,8 @@ def test_preemption_swaps_out_victim_with_exact_restore():
     assert tight[0].preemptions == 1 and tight[0]._swap is None
     assert _tokens(roomy) == _tokens(tight)
     _assert_clean(b)
-    (jkv,), (saved,) = snaps["jax"], snaps["torch"]
+    (jkv,), ((saved, columns),) = snaps["jax"], snaps["torch"]
+    assert columns == []  # an attention-only model has no per-slot state
     jk, jv = (np.asarray(x) for x in jax.tree.leaves(jkv))  # (L, max_blocks, BS, KVH, hd)
     n = saved.shape[1]
     assert n == b.paging.blocks_for(8 + 16)  # the hog's real blocks, no padding
@@ -489,10 +490,12 @@ def test_swap_pair_round_trips_in_place():
         v.copy_(torch.randn(v.shape, generator=g))
     before = [(k.clone(), v.clone()) for k, v in caches]
     ptrs = [(k.data_ptr(), v.data_ptr()) for k, v in caches]
-    swap_out, swap_in = make_swap(spec)
+    swap_out, swap_in = make_swap(spec, tm.kinds)
     src, dst = [3, 1, 7], [2, 9, 5]
     saved = swap_out(caches, src)
-    assert tuple(saved.shape) == (2 * len(caches), 3) + tuple(caches[0][0].shape[1:])
+    pages, columns = saved
+    assert tuple(pages.shape) == (2 * len(caches), 3) + tuple(caches[0][0].shape[1:])
+    assert columns == []
     assert swap_in(caches, dst, saved) is caches
     assert [(k.data_ptr(), v.data_ptr()) for k, v in caches] == ptrs
     untouched = [b for b in range(spec.num_blocks) if b not in dst]
@@ -506,18 +509,18 @@ def test_swap_pair_refuses_dense_caches_and_foreign_snapshots():
     tm = _built()[2]
     spec = tserve.PagingSpec.sized(8, MAX_SEQ, 4 * MAX_SEQ)
     with pytest.raises(ValueError, match="paged"):
-        make_swap(None)
+        make_swap(None, tm.kinds)
     caches = tm.init_cache(2, MAX_SEQ, spec)
-    swap_out, swap_in = make_swap(spec)
+    swap_out, swap_in = make_swap(spec, tm.kinds)
     with pytest.raises(ValueError, match="block id"):
         swap_out(caches, [0, 1])  # the null block is never a slot's
     with pytest.raises(ValueError, match="block id"):
         swap_out(caches, [spec.num_blocks])
-    saved = swap_out(caches, [1, 2])
+    pages, columns = swap_out(caches, [1, 2])
     with pytest.raises(ValueError, match="snapshot"):
-        swap_in(caches, [3], saved)  # fewer blocks than were saved
+        swap_in(caches, [3], (pages, columns))  # fewer blocks than were saved
     with pytest.raises(ValueError, match="snapshot"):
-        swap_in(caches, [3, 4], saved.double())
+        swap_in(caches, [3, 4], (pages.double(), columns))
 
 
 # ----------------------------------------------------------- reconciliation

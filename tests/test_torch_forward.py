@@ -99,7 +99,7 @@ def test_every_grad_matches_jax(arch):
     batch = _batch(tm.cfg, seed=3)
     with jax.default_matmul_precision("highest"):
         jg = jax.jit(jax.grad(lambda p, b: jm.loss_fn(p, b)[0]))(params, _jax(batch))
-    want = params_from_numpy(jax.tree.map(np.asarray, jg))
+    want = params_from_numpy(jax.tree.map(np.asarray, jg), tm.cfg)
     names = [n for n, _ in tm.named_parameters()]
     loss, _ = tm.loss_fn(_torch(batch))
     grads = torch.autograd.grad(loss, [p for _, p in tm.named_parameters()])

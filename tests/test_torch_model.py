@@ -149,8 +149,8 @@ def test_reset_slot_state_zeroes_only_reset_rows():
 def test_converted_state_covers_every_weight():
     jm = JaxLM(jax_get("qwen2_5_14b", smoke=True))
     tree = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(1)))
-    state = params_from_numpy(tree)
     tm = TransformerLM(get("qwen2_5_14b", smoke=True), device="cpu")
+    state = params_from_numpy(tree, tm.cfg)
     assert set(state) == set(tm.state_dict())
     np.testing.assert_array_equal(
         state["layers.1.attn.wq"].numpy(), tree["stages"][0]["slot0"]["attn"]["wq"][1]
@@ -176,7 +176,7 @@ def test_unported_block_patterns_and_backends_raise():
     with pytest.raises(ValueError, match="attn_backend"):
         dataclasses.replace(cfg, attn_backend="pallas").validate()
     with pytest.raises(ValueError, match="unknown arch"):
-        get("zamba2_7b")
+        get("xlstm_350m")
 
 
 def test_configs_mirror_jax_values():

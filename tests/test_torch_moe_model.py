@@ -104,7 +104,7 @@ def _torch(batch):
 def test_converted_state_covers_every_moe_weight():
     jm, params, tm = _pair()
     tree = jax.tree.map(np.asarray, params)
-    assert set(params_from_numpy(tree)) == set(tm.state_dict())
+    assert set(params_from_numpy(tree, tm.cfg)) == set(tm.state_dict())
     assert tm.task["router_bias"].shape == (tm.cfg.num_tasks, tm.cfg.num_experts)
     assert tm.layers[0].moe["router"].dtype == torch.float32
     back = params_to_numpy(tm)
@@ -243,7 +243,7 @@ def test_sgd_train_step_matches_jax():
     np.testing.assert_allclose([float(met[k]) for k in ("loss", "nll", "aux")],
                                [float(jmet[k]) for k in ("loss", "nll", "aux")], rtol=1e-5)
     assert float(met["aux"]) > 0
-    want = params_from_numpy(jax.tree.map(np.asarray, jstate.params))
+    want = params_from_numpy(jax.tree.map(np.asarray, jstate.params), tm.cfg)
     for name, p in tm.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(), atol=1e-5, rtol=0,
                                    err_msg=name)

@@ -48,7 +48,7 @@ def _names(jax_tree):
         if isinstance(t, list):
             return [drop_none(v) for v in t]
         return np.asarray(t)
-    return set(params_from_numpy(drop_none(jax_tree)))
+    return set(params_from_numpy(drop_none(jax_tree), get("multitask_lm", smoke=True)))
 
 
 @pytest.mark.parametrize("kw", [

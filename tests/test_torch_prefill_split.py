@@ -16,6 +16,14 @@ package's prefill: the kernel itself runs only on a GPU.
     version, where plain TF32 (``a_hi b_hi``) does not; bf16 operands are
     exact in TF32, so their products need fewer terms.
 
+(c) Zamba2's hd 112, the first head dim that is no power of two: the split
+    and merge at G 1 and C 32 with ragged S and positions at the edges,
+    held to the same references; ``Plan<T, 112>::kMaxRows`` from the
+    kernel's shared-memory arithmetic is a whole number of m16 tiles (64 in
+    f32, 160 in bf16); the combine kernel's thread map (HD / 4 = 28 threads
+    a row, 9 rows of a 256-thread block, 4 threads idle) writes every
+    (row, dim) of a slab exactly once.
+
 Both emulations live here, not in the package: the package has one prefill
 kernel and its plain version."""
 import functools
@@ -33,7 +41,7 @@ from repro.kernels.prefill_attention.ref import prefill_attention_reference  # n
 from repro_torch.kernels.prefill_attention.ref import (  # noqa: E402
     prefill_attention_reference as t_prefill_ref,
 )
-from repro_torch.kernels.runtime import scale_for  # noqa: E402
+from repro_torch.kernels.runtime import CSRC, scale_for  # noqa: E402
 
 NEG_INF = -1e30
 TILE = 64  # kTileK: keys per ring stage of the kernel
@@ -105,9 +113,15 @@ _CASES = [
 ]
 
 
+# Zamba2-7B's shape at a reduced cache: G 1, hd 112, C 32, S 300 (no multiple
+# of the 64-key tile); slots at 0, mid-cache and with the chunk's last row at
+# the cache's last row
+_CASES_112 = [(3, 300, 2, 1, 112, 32, (0, 131, 268), None)]
+
+
 @functools.lru_cache(maxsize=None)
-def _case(i):
-    b, s, kvh, g, hd, c, pos, window = _CASES[i]
+def _case(i, cases="all"):
+    b, s, kvh, g, hd, c, pos, window = (_CASES if cases == "all" else _CASES_112)[i]
     rng = np.random.default_rng(40 + i)
     q = rng.standard_normal((b, kvh, c, g, hd)).astype(np.float32)
     k = rng.standard_normal((b, s, kvh, hd)).astype(np.float32)
@@ -225,3 +239,59 @@ def test_bf16_operands_are_exact_in_tf32_so_fewer_products_suffice():
     p = torch.softmax(a, dim=-1)  # f32 P: not exact in TF32
     assert torch.equal(_mm(p, b16, 2), _mm(p, b16, 3))
     assert not torch.equal(_mm(p, b16, 1), _mm(p, b16, 2))
+
+
+# ------------------------------------------------------------- (c) hd 112
+@pytest.mark.parametrize("nsplit", [1, 3, 8])
+def test_hd112_split_merge_matches_jax_prefill(nsplit):
+    (q, k, v, pos, window), ref, pallas = _case(0, "hd112")
+    got = _split_merge(*map(torch.from_numpy, (q, k, v)), pos, window, nsplit).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got, pallas, atol=1e-5, rtol=0)
+
+
+def _plan_max_rows(elem, hd):
+    """prefill_attention.cu::Plan<T, HD>::kMaxRows for a T of ``elem``
+    bytes: the query rows that fit in 227 KB beside the K/V ring, in whole
+    m16 tiles, at most 128 (f32: Q and P carry a low part) or 160."""
+    lo = elem == 4
+    k_stride, v_stride, q_stride = hd + 16 // elem, hd + 32 // elem, hd + 4
+    ring = 2 * (64 * k_stride * elem + 64 * v_stride * elem)
+    fixed = ring + 2 * 64 * 8
+    row_bytes = q_stride * 4 * (2 if lo else 1) + (64 + 4) * 4 * 2 + 16
+    fit = (232448 - fixed) // row_bytes // 16 * 16
+    return min(fit, 128 if lo else 160), k_stride * elem, v_stride * elem
+
+
+def test_hd112_plan_holds_whole_m16_tiles_of_aligned_rows():
+    src = (CSRC / "prefill_attention.cu").read_text()
+    for needle in ("constexpr int kRowCap = 160;", "constexpr int kRowCapLo = 128;",
+                   "constexpr int kSmemCap = 232448;", "constexpr int kTileK = 64;",
+                   "case 112: return Plan<float, 112>::kMaxRows;",
+                   "case 112: return Plan<__nv_bfloat16, 112>::kMaxRows;"):
+        assert needle in src, needle
+    # the arithmetic as at the instantiated head dims (HD 128: 48 and 144)
+    assert [_plan_max_rows(e, 128)[0] for e in (4, 2)] == [48, 144]
+    for elem, want in ((4, 64), (2, 160)):
+        rows, k_row, v_row = _plan_max_rows(elem, 112)
+        assert rows == want and rows % 16 == 0
+        assert k_row % 16 == 0 and v_row % 16 == 0  # cp.async 16-byte destinations
+
+
+def test_hd112_combine_covers_every_row_and_dim_once():
+    """The combine kernel's map at HD 112 (kLanes 28, kRowsPer 9): threads
+    past 9 * 28 return, the others write their row's 4 dims."""
+    hd, threads, r_rows = 112, 256, 32  # a zamba2 slab: C 32, G 1
+    lanes = hd // 4
+    rows_per = threads // lanes
+    written = np.zeros((r_rows, hd), np.int32)
+    for block in range(math.ceil(r_rows / rows_per)):
+        for t in range(threads):
+            row = block * rows_per + t // lanes
+            if t >= rows_per * lanes or row >= r_rows:
+                continue
+            written[row, (t % lanes) * 4:(t % lanes) * 4 + 4] += 1
+    assert (written == 1).all()
+    assert "if (threadIdx.x >= kRowsPer * kLanes || row >= R) return;" in (
+        CSRC / "prefill_attention.cu").read_text()

@@ -82,7 +82,7 @@ def _pair(arch="multitask_lm"):
 
 
 def _params_close(jparams, tm, atol=1e-5):
-    want = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    want = params_from_numpy(jax.tree.map(np.asarray, jparams), tm.cfg)
     for name, p in tm.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(), atol=atol,
                                    rtol=0, err_msg=name)
@@ -95,7 +95,7 @@ def _norms_close(jparams, tm, init, rtol=1e-5):
     change it by tens of percent and Adam turns it into a step of up to lr
     either way (measured: one element of 8192 7.2e-5 apart after 10 steps
     at lr 1e-3, its gradient 1e-8 against eps 1e-8)."""
-    want = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    want = params_from_numpy(jax.tree.map(np.asarray, jparams), tm.cfg)
     for name, p in tm.named_parameters():
         np.testing.assert_allclose(float(p.detach().norm()), float(want[name].norm()),
                                    rtol=rtol, err_msg=name)

@@ -235,10 +235,46 @@ Phases; each raises on failure, and then no result line is printed:
                 68 layers' recurrent columns) and one swap-in, tokens ==
                 a 4096-token pool's, caches unmoved. Logs one
                 {"hybrid": ...} JSON line.
+ 13. mla      — run after phase 12, every earlier model freed: DeepSeek-V2-
+                236B at full width (MLA: d_model 5120, 128 heads, kv_lora
+                512, qk 128 + 64, v 128; 160 routed and 2 shared experts of
+                d_ff 1536, top-6; vocab 102400) and MLA_LAYERS of its 60
+                layers (~69 GB of f32 weights; depth is the only cut),
+                random weights from seed 0, max_seq 2048, prefill chunk
+                32, 4 slots: (a) phase 12's 6 requests, 16 new tokens
+                each, dense and paged (16-token blocks, an 8192-token
+                pool), each with CUDA graphs and with cuda_graphs=False: no
+                attention-kernel launch (MLA is plain torch on every
+                backend, as in the reference), graph tokens == eager
+                tokens, dense step logits with graphs within 1e-5 of eager,
+                paged == dense (margin rule); (b) decode and prefill tok/s,
+                TTFT; (c) a profile of 8 graph decode ticks against the
+                byte bound (every weight once: the capacity dispatch reads
+                all 160 experts; the latent caches); (d) 2 SGD steps with
+                the graph-mixed update on a 1-layer DeepSeek-V2 at full
+                width, batch 2 x 256: finite loss and aux, aux > 0, the
+                router, task.router_bias and w_uk moved; ms per step, peak
+                memory. Logs one {"mla": ...} JSON line.
+ 14. xlstm    — run after phase 13: xLSTM-350M whole (24 layers = 3 x (7
+                mLSTM + 1 sLSTM), d_model 1024, 4 heads, vocab 50304;
+                519 M parameters, f32, nothing cut), the same 6 requests
+                over 4 slots: (a) graphs and eager: no attention-kernel
+                launch, graph tokens == eager tokens, step logits within
+                1e-5, requests 4 and 5 (admitted into reused slots) ==
+                each alone in a fresh batcher (margin rule); (b) a
+                TaskAdapterStore of "out" pairs over band_graph(16, 2),
+                rank 8, an update every 2 finishes: its graph-mix launches
+                counted (2 + 2 per update), zero store == no store, the
+                store's trees == a plain store's; (c) a profile of 8 graph
+                decode ticks against the byte bound (the weights once, the
+                4 x 21 mLSTM states read and written); (d) 2 SGD steps at
+                full width and depth, batch 2 x 128, remat on: finite
+                loss, ms per step, peak memory. Logs one {"xlstm": ...}
+                JSON line.
 
 Output: the card's name and power limit first, per-phase lines, the
-{"paper": ...}, {"serve_rates": ...}, {"train": ...}, {"moe": ...} and
-{"hybrid": ...} JSON lines, then one
+{"paper": ...}, {"serve_rates": ...}, {"train": ...}, {"moe": ...},
+{"hybrid": ...}, {"mla": ...} and {"xlstm": ...} JSON lines, then one
 {"kernels": [...]} JSON line with the five kernels, and last
 {"ok": true, "device": {...}}.
 Exits non-zero without a result when there is no CUDA device or no
@@ -886,8 +922,9 @@ def check_launches(phase, launches, st, paged, layers=LAYERS, graph_mix=0):
     want["graph_mix"] = graph_mix
     log(f"{phase}: dispatches decode={st['decode_dispatches']} "
         f"prefill={st['prefill_dispatches']}, captures {st['captures']}; launches {launches}")
-    if launches != want or min(want[pre + "decode_attention"],
-                               want[pre + "prefill_attention"]) == 0:
+    # layers 0: a model with no GQA attention layer (MLA, xLSTM) launches none
+    if launches != want or (layers and min(want[pre + "decode_attention"],
+                                           want[pre + "prefill_attention"]) == 0):
         raise AssertionError(f"{phase}: kernel launches {launches} != expected {want}")
 
 
@@ -1188,8 +1225,8 @@ def timed_swap(torch, fn, sink):
         out = fn(caches, blocks, *args)
         torch.cuda.synchronize()
         pages, columns = args[0] if len(args) == 2 else out  # swap_in(.., saved, slot)
-        parts = [pages, *columns]
-        sink.append((time.perf_counter() - t0, tuple(pages.shape),
+        parts = [*pages, *columns]
+        sink.append((time.perf_counter() - t0, [tuple(p.shape) for p in pages],
                      sum(t.numel() * t.element_size() for t in parts),
                      all(t.is_pinned() for t in parts)))
         return out
@@ -2045,6 +2082,76 @@ def phase_train(torch, np, tr, get, ContinuousBatcher, Request, ops, smi,
             "launch": launch, "serve": serve, "seconds": secs}
 
 
+def profile_ticks(torch, np, phase, model, ContinuousBatcher, Request, max_seq, lens,
+                  layers=0):
+    """8 graph decode ticks after an admission round of ``lens`` prompts
+    (64 new each), profiled: device ms per tick against the byte bound of
+    ``decode_tick_bound``; ``layers`` attention-kernel launches a tick."""
+    cfg = model.cfg
+
+    def setup():
+        rng = np.random.default_rng(1)
+        bt = ContinuousBatcher(model, num_slots=4, max_seq=max_seq, prefill_chunk=32)
+        for uid, n in enumerate(lens):
+            bt.submit(Request(uid=uid, tokens=rng.integers(0, cfg.vocab_size, n)
+                              .astype(np.int32), max_new=64))
+        bt.capture()
+        return _admitted(bt)
+
+    prof = profile_window(torch, f"8 decode ticks ({phase})", setup, _ticks, True,
+                          layers=layers)
+    # positions of the window's ticks: after admission and one tick, 8 more
+    bound_ms, nbytes, parts = decode_tick_bound(model, [n + 5 for n in lens])
+    tick_ms = prof["device_busy_ms"] / 8
+    log(f"{phase}: decode tick device time {tick_ms:.3f} ms (host wall "
+        f"{prof['wall_ms'] / 8:.3f} ms) against its bound {bound_ms:.3f} ms "
+        f"({nbytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: "
+        + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in parts.items())
+        + f"): {bound_ms / tick_ms:.1%} of the bound")
+    return {"device_ms": tick_ms, "wall_ms": prof["wall_ms"] / 8, "bound_ms": bound_ms,
+            "bound_bytes": nbytes, "bound_parts": parts, "profile": prof}
+
+
+def train_family(torch, np, tr, phase, cfg, smi, dev, mt, watched=(), aux=False):
+    """``mt["steps"]`` steps of make_train_step with SGD and the graph-mixed
+    update on a fresh model of ``cfg``: finite loss (and, with ``aux``,
+    finite positive aux), every ``watched`` parameter moved; ms per step
+    and peak memory logged. Returns the record."""
+    model = tr["TransformerLM"](cfg, device=dev, seed=0)
+    opt = tr["sgd"](mt["lr"])
+    gmt = tr["GraphMultiTask"](tr["band_graph"](cfg.num_tasks, 1), eta=TRAIN_ETA,
+                               tau=TRAIN_TAU)
+    step, state = tr["make_train_step"](model, opt, gmt), tr["init_state"](model, opt)
+    before = {n: model.get_parameter(n).detach().clone() for n in watched}
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"ms": [], "loss": [], "aux": []}
+    for b in train_batches(tr, cfg, mt["batch"], mt["seq"], mt["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, tr["batch_to_device"](b, dev))
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["loss"].append(float(m["loss"]))
+        rec["aux"].append(float(m["aux"]))
+    rec["moved"] = {n: (model.get_parameter(n).detach() - before[n]).abs().max().item()
+                    for n in watched}
+    rec["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+    rec["params"] = sum(p.numel() for p in model.parameters())
+    log(f"{phase} train (d): {cfg.name} full width, {cfg.num_layers} layers "
+        f"({rec['params']} params, remat {cfg.remat}), SGD lr {mt['lr']}, batch "
+        f"{mt['batch']} x {mt['seq']}: ms/step {rec['ms']}, loss {rec['loss']}, aux "
+        f"{rec['aux']}, largest change of {rec['moved']}, torch.cuda.max_memory_allocated "
+        f"{rec['peak_mb']:.1f} MB; {smi}")
+    ok = np.isfinite(rec["loss"]).all() and np.isfinite(rec["aux"]).all()
+    if aux:
+        ok = ok and min(rec["aux"]) > 0
+    if not (ok and all(v > 0 for v in rec["moved"].values())):
+        raise AssertionError(f"{phase} train (d): {rec}")
+    del model, step, state
+    free_card(torch)
+    return rec
+
+
 MOE_LAYERS = 4  # of Mixtral-8x22B's 56: ~10.0 GB of f32 weights a layer, ~41.7 GB in all
 MOE_MAX_SEQ = 8192
 MOE_LENS = [4500, 700, 64, 413, 257, 590]  # the 4500-token prompt crosses the 4096 window
@@ -2059,8 +2166,9 @@ def decode_tick_bound(model, positions):
     once per use (an untied embedding table only at the rows it gathers; an
     MoE layer's capacity dispatch reads every expert whatever the routing; a
     hybrid's shared block, far past the 50 MB L2, once per invocation), each
-    recurrent state read and written, and each slot's visible K/V rows in
-    every attention layer. Returns (ms, bytes, bytes by part)."""
+    recurrent state (mamba, mLSTM, sLSTM) read and written, and each slot's
+    visible cache rows in every attention layer (K and V; MLA's latent and
+    rotary key). Returns (ms, bytes, bytes by part)."""
     cfg = model.cfg
     invocations = model.kinds.count("shared_attn")
     weights = shared = 0
@@ -2073,13 +2181,13 @@ def decode_tick_bound(model, positions):
             weights += p.numel() * p.element_size()
     if not cfg.tie_embeddings:
         weights += len(positions) * cfg.d_model * model.embed.element_size()
-    caches = model.init_cache(len(positions), 1)
-    states = 2 * sum(t.nbytes for kind, entry in zip(model.kinds, caches)
-                     if kind == "mamba" for t in entry)
+    # one slot's state and one cache row of every layer: the (1, 1, ...) cache
+    one = [(kind in ("mamba", "mlstm", "slstm"), sum(t.nbytes for t in entry))
+           for kind, entry in zip(model.kinds, model.init_cache(1, 1))]
+    states = 2 * len(positions) * sum(n for recurrent, n in one if recurrent)
     window = cfg.sliding_window or max(positions) + 1
     rows = sum(min(p + 1, window) for p in positions)
-    attn_layers = sum(kind != "mamba" for kind in model.kinds)
-    kv = rows * cfg.num_kv_heads * cfg.head_dim * 4 * 2 * attn_layers
+    kv = rows * sum(n for recurrent, n in one if not recurrent)
     parts = {"weights": weights, "shared_block": shared, "states": states, "kv": kv}
     nbytes = sum(parts.values())
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes, parts
@@ -2149,26 +2257,8 @@ def phase_moe_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request, P
         raise AssertionError(f"moe: the sliding window changed the logits by only {diff}")
     out["window_logits_diff"] = diff
 
-    def setup():
-        rng = np.random.default_rng(1)
-        bt = ContinuousBatcher(model, num_slots=4, max_seq=MOE_MAX_SEQ, prefill_chunk=32)
-        for uid, n in enumerate(MOE_PROFILE_LENS):
-            bt.submit(Request(uid=uid, tokens=rng.integers(0, cfg.vocab_size, n)
-                              .astype(np.int32), max_new=64))
-        bt.capture()
-        return _admitted(bt)
-
-    prof = profile_window(torch, "8 decode ticks (Mixtral)", setup, _ticks, True,
-                          layers=cfg.num_layers)
-    # positions of the window's ticks: after admission and one tick, 8 more
-    bound_ms, nbytes, _ = decode_tick_bound(model, [n + 5 for n in MOE_PROFILE_LENS])
-    tick_ms = prof["device_busy_ms"] / 8
-    log(f"moe: decode tick device time {tick_ms:.3f} ms (host wall "
-        f"{prof['wall_ms'] / 8:.3f} ms) against its bound {bound_ms:.3f} ms "
-        f"({nbytes / 1e9:.2f} GB of weights and K/V at {HBM_BYTES_PER_S / 1e12:.2f} TB/s): "
-        f"{bound_ms / tick_ms:.1%} of the bound")
-    out["decode_tick"] = {"device_ms": tick_ms, "wall_ms": prof["wall_ms"] / 8,
-                          "bound_ms": bound_ms, "bound_bytes": nbytes, "profile": prof}
+    out["decode_tick"] = profile_ticks(torch, np, "moe", model, ContinuousBatcher, Request,
+                                       MOE_MAX_SEQ, MOE_PROFILE_LENS, layers=cfg.num_layers)
 
     # (b) dropless capacity: the parallel chunk and the per-token scan route alike
     saved = model.cfg
@@ -2230,40 +2320,10 @@ def phase_moe(torch, np, tr, get, TransformerLM, ServeEngine, ContinuousBatcher,
     del model, engine
     free_card(torch)
 
-    # (d) one SGD step of Mixtral at full width, one layer
-    tcfg = dataclasses.replace(get("mixtral_8x22b"), num_layers=1)
-    model = TransformerLM(tcfg, device=dev, seed=0)
-    mt = MOE_TRAIN
-    opt = tr["sgd"](mt["lr"])
-    gmt = tr["GraphMultiTask"](tr["band_graph"](tcfg.num_tasks, 1), eta=TRAIN_ETA,
-                               tau=TRAIN_TAU)
-    step, state = tr["make_train_step"](model, opt, gmt), tr["init_state"](model, opt)
-    watched = ("layers.0.moe.router", "task.router_bias")
-    before = {n: model.get_parameter(n).detach().clone() for n in watched}
-    torch.cuda.reset_peak_memory_stats()
-    rec = {"ms": [], "loss": [], "aux": []}
-    for b in train_batches(tr, tcfg, mt["batch"], mt["seq"], mt["steps"]):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, tr["batch_to_device"](b, dev))
-        torch.cuda.synchronize()
-        rec["ms"].append((time.perf_counter() - t0) * 1e3)
-        rec["loss"].append(float(m["loss"]))
-        rec["aux"].append(float(m["aux"]))
-    rec["moved"] = {n: (model.get_parameter(n).detach() - before[n]).abs().max().item()
-                    for n in watched}
-    rec["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
-    rec["params"] = sum(p.numel() for p in model.parameters())
-    log(f"moe train (d): Mixtral-8x22B full width, 1 layer ({rec['params']} params), SGD lr "
-        f"{mt['lr']}, batch {mt['batch']} x {mt['seq']}: ms/step {rec['ms']}, loss "
-        f"{rec['loss']}, aux {rec['aux']}, largest change of {rec['moved']}, "
-        f"torch.cuda.max_memory_allocated {rec['peak_mb']:.1f} MB; {smi}")
-    if not (np.isfinite(rec["loss"]).all() and np.isfinite(rec["aux"]).all()
-            and min(rec["aux"]) > 0 and min(rec["moved"].values()) > 0):
-        raise AssertionError(f"moe train (d): {rec}")
-    out["train"] = rec
-    del model, step, state
-    free_card(torch)
+    # (d) SGD steps of Mixtral at full width, one layer
+    out["train"] = train_family(
+        torch, np, tr, "moe", dataclasses.replace(get("mixtral_8x22b"), num_layers=1), smi,
+        dev, MOE_TRAIN, watched=("layers.0.moe.router", "task.router_bias"), aux=True)
     out["memory_mb_after"] = log_memory(torch, "moe (after)")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"moe: phase passed in {out['seconds']:.1f} s")
@@ -2322,29 +2382,9 @@ def phase_hybrid_serve(torch, np, model, ServeEngine, ContinuousBatcher, Request
             launches[name] = launches.get(name, 0) + n
         out[layout] = rates
 
-    def setup():
-        rng = np.random.default_rng(1)
-        bt = ContinuousBatcher(model, num_slots=4, max_seq=HYBRID_MAX_SEQ, prefill_chunk=32)
-        for uid, n in enumerate(HYBRID_PROFILE_LENS):
-            bt.submit(Request(uid=uid, tokens=rng.integers(0, cfg.vocab_size, n)
-                              .astype(np.int32), max_new=64))
-        bt.capture()
-        return _admitted(bt)
-
-    prof = profile_window(torch, "8 decode ticks (Zamba2)", setup, _ticks, True,
-                          layers=layers)
-    # positions of the window's ticks: after admission and one tick, 8 more
-    bound_ms, nbytes, parts = decode_tick_bound(model,
-                                                [n + 5 for n in HYBRID_PROFILE_LENS])
-    tick_ms = prof["device_busy_ms"] / 8
-    log(f"hybrid: decode tick device time {tick_ms:.3f} ms (host wall "
-        f"{prof['wall_ms'] / 8:.3f} ms) against its bound {bound_ms:.3f} ms "
-        f"({nbytes / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: "
-        + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in parts.items())
-        + f"): {bound_ms / tick_ms:.1%} of the bound")
-    out["decode_tick"] = {"device_ms": tick_ms, "wall_ms": prof["wall_ms"] / 8,
-                          "bound_ms": bound_ms, "bound_bytes": nbytes, "bound_parts": parts,
-                          "profile": prof}
+    out["decode_tick"] = profile_ticks(torch, np, "hybrid", model, ContinuousBatcher,
+                                       Request, HYBRID_MAX_SEQ, HYBRID_PROFILE_LENS,
+                                       layers=layers)
     return out, launches
 
 
@@ -2443,6 +2483,224 @@ def phase_hybrid(torch, np, get, TransformerLM, ServeEngine, ContinuousBatcher, 
     out["seconds"] = time.perf_counter() - t_phase
     log(f"hybrid: phase passed in {out['seconds']:.1f} s")
     return out, launches
+
+
+# ---------------------------------------------------- phase 13: MLA (DeepSeek)
+MLA_LAYERS = 4  # of DeepSeek-V2's 60: ~16.2 GB of f32 weights a layer, ~69.0 GB in all
+MLA_MAX_SEQ = 2048
+MLA_LENS = HYBRID_LENS  # 6 requests over 4 slots
+MLA_PROFILE_LENS = HYBRID_PROFILE_LENS
+MLA_TRAIN = {"batch": 2, "seq": 256, "steps": 2, "lr": 1e-2}
+
+
+def serve_family(torch, np, phase, model, ServeEngine, ContinuousBatcher, Request, ops,
+                 max_seq, lens, layouts, reused=()):
+    """The requests of ``lens`` through the engine in each (layout, engine
+    kwargs) of ``layouts``, with CUDA graphs and eagerly: no attention
+    kernel launch (the model has no GQA layer, so the plain backend runs
+    the same code), graph tokens == eager tokens; for the first layout the
+    step logits with graphs within GRAPH_TOL of eager, and the ``reused``
+    requests, each alone in a fresh batcher, under the margin rule; each
+    later layout against the first under the margin rule of a plain run.
+    Returns ({layout: rates}, launches, the first layout's tokens)."""
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    kw = dict(max_seq=max_seq, prefill_chunk=32, num_slots=4)
+    out, launches, first = {}, {}, None
+    for layout, extra in layouts:
+        name = f"{phase} {layout}"
+        engine = ServeEngine(model, **kw, **extra)
+        toks, launched, ttft, wall = serve_timed(torch, engine, prompts, NEW, ops)
+        st = engine.last_stats
+        check_launches(name, launched, st, paged="paging" in extra, layers=0)
+        check_tokens(name, toks, len(prompts), NEW, cfg.vocab_size)
+        rates = report_rates(name, st, len(prompts), NEW, ttft, wall)
+        rates["eager"] = eager_parity(torch, name, ServeEngine(model, cuda_graphs=False, **kw,
+                                                               **extra),
+                                      prompts, NEW, ops, toks)
+        if first is None:
+            rates["logits_diff_graph_vs_eager"] = logits_parity(
+                np, name, model, ContinuousBatcher, Request, prompts, max_seq=max_seq,
+                **extra)
+            if len(layouts) > 1:  # the margins the later layouts are held under
+                ref, margins = plain_run(np, model, prompts, NEW, ContinuousBatcher, Request,
+                                         max_seq=max_seq, **extra)
+                rates["plain_compared"] = compare(name, "plain path", toks, ref, margins, NEW)
+            first = toks
+            if reused:
+                alone = [greedy_run(np, model, [prompts[u]], NEW, ContinuousBatcher, Request,
+                                    max_seq=max_seq, **extra) for u in reused]
+                rates["reuse_compared"] = compare(
+                    f"{phase} reuse", "a fresh batcher", toks[list(reused)],
+                    [a[0][0] for a in alone], [a[1][0] for a in alone], NEW)
+        else:
+            rates[f"{layouts[0][0]}_compared"] = compare(name, f"{layouts[0][0]} path", toks,
+                                                         first, margins, NEW)
+        for k, n in launched.items():
+            launches[k] = launches.get(k, 0) + n
+        out[layout] = rates
+    return out, launches, first
+
+
+def phase_mla(torch, np, tr, get, TransformerLM, ServeEngine, ContinuousBatcher, Request,
+              PagingSpec, ops, smi, dev="cuda"):
+    """Phase 13: DeepSeek-V2-236B (MLA + MoE) at full width and MLA_LAYERS
+    layers, served dense and paged, profiled, and trained one layer deep
+    (see the docstring). ``dev`` "cpu" rehearses it off the card (a smoke
+    config through ``get``, the card's calls patched)."""
+    t_phase = time.perf_counter()
+    free_card(torch)
+    out = {"memory_mb_before": log_memory(torch, "mla (before)")}
+    cfg = dataclasses.replace(get("deepseek_v2_236b"), num_layers=MLA_LAYERS)
+    t1 = time.perf_counter()
+    model = TransformerLM(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    out["params"] = sum(p.numel() for p in model.parameters())
+    log(f"mla: DeepSeek-V2-236B full width, {cfg.num_layers} of 60 layers (MLA kv_lora "
+        f"{cfg.kv_lora}, qk {cfg.qk_nope} + {cfg.qk_rope}, v {cfg.v_head_dim}; "
+        f"{cfg.num_experts} routed + {cfg.num_shared_experts} shared experts, top-{cfg.top_k}; "
+        f"{out['params']} params, f32, {torch.cuda.memory_allocated() / 1e9:.2f} GB) "
+        f"initialised in {time.perf_counter() - t1:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    layouts = (("dense", {}),
+               ("paged", {"paging": PagingSpec.sized(16, MLA_MAX_SEQ, 4 * MLA_MAX_SEQ)}))
+    out["serve"], launches, _ = serve_family(torch, np, "mla", model, ServeEngine,
+                                             ContinuousBatcher, Request, ops, MLA_MAX_SEQ,
+                                             MLA_LENS, layouts)
+    out["decode_tick"] = profile_ticks(torch, np, "mla", model, ContinuousBatcher, Request,
+                                       MLA_MAX_SEQ, MLA_PROFILE_LENS)
+    out["serve_peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+    log(f"mla: serving peak torch.cuda.max_memory_allocated {out['serve_peak_mb']:.1f} MB; "
+        f"{smi}")
+    del model
+    free_card(torch)
+    out["train"] = train_family(
+        torch, np, tr, "mla", dataclasses.replace(get("deepseek_v2_236b"), num_layers=1), smi,
+        dev, MLA_TRAIN, watched=("layers.0.moe.router", "task.router_bias",
+                                 "layers.0.attn.w_uk"), aux=True)
+    out["memory_mb_after"] = log_memory(torch, "mla (after)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"mla: phase passed in {out['seconds']:.1f} s")
+    return out, launches
+
+
+# -------------------------------------------------------- phase 14: xLSTM
+XLSTM_MAX_SEQ = 2048
+XLSTM_LENS = HYBRID_LENS
+XLSTM_REUSED = HYBRID_REUSED
+XLSTM_PROFILE_LENS = HYBRID_PROFILE_LENS
+XLSTM_ADAPTER_RANK = 8
+XLSTM_TRAIN = {"batch": 2, "seq": 128, "steps": 2, "lr": 1e-2}
+
+
+def xlstm_adapters(torch, np, model, ServeEngine, ContinuousBatcher, Request,
+                   TaskAdapterStore, band_graph, tree_lib, ops):
+    """14(b): the requests of mixed tenants under a graph-mixed adapter
+    store of "out" pairs on every recurrent block (band_graph(num_tasks,
+    2), rank XLSTM_ADAPTER_RANK, an update every 2 finishes): the graph-mix
+    launches counted; a zero store == no store; the kernel store's trees
+    == a plain store's from the same seed after as many updates."""
+    cfg = model.cfg
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in XLSTM_LENS]
+    task_ids = (np.arange(len(prompts)) * 5 % cfg.num_tasks).astype(np.int32)
+    graph = band_graph(cfg.num_tasks, 2)
+    store_kw = dict(rank=XLSTM_ADAPTER_RANK, update_every=2, max_delay=2, seed=0)
+
+    def engine(store=None):
+        return ServeEngine(model, max_seq=XLSTM_MAX_SEQ, prefill_chunk=32, num_slots=4,
+                           adapters=store)
+
+    base, _, _, _ = serve_timed(torch, engine(), prompts, NEW, ops, task_ids)
+    zero = engine(TaskAdapterStore(model, graph, **store_kw)).generate(
+        {"tokens": prompts, "task_ids": task_ids}, NEW)
+    if not np.array_equal(zero, base):
+        raise AssertionError("xlstm adapters: a zero store changed the no-store tokens")
+    log(f"xlstm adapters: zero store == no store on all {base.size} greedy tokens")
+    torch.cuda.synchronize()
+    zero_counts(ops)
+    store = TaskAdapterStore(model, graph, **store_kw)
+    store.randomize(scale=ADAPTER_SCALE)
+    eng = engine(store)
+    toks, launches, ttft, wall = serve_timed(torch, eng, prompts, NEW, ops, task_ids,
+                                             zero=False)
+    st = eng.last_stats
+    n_req = len(prompts)
+    check_launches("xlstm adapters", launches, st, paged=False, layers=0,
+                   graph_mix=2 + 2 * (n_req // store.update_every))
+    check_tokens("xlstm adapters", toks, n_req, NEW, cfg.vocab_size)
+    rates = report_rates("xlstm adapters", st, n_req, NEW, ttft, wall)
+    raw_mb = sum(t.numel() * t.element_size() for t in tree_lib.leaves(store.raw)) / 1e6
+    changed = int((toks != base).sum())
+    log(f"xlstm adapters: {sorted(store.raw['stages'][0]['slot0'])} pairs on "
+        f"{len(store.raw['stages'][0])} slots x {cfg.num_periods} periods, {cfg.num_tasks} "
+        f"tasks, {raw_mb:.1f} MB raw; {store.updates} updates; random adapters changed "
+        f"{changed} of {toks.size} tokens against no store")
+    with plain_backend(model):  # the same seed, mixed by the plain version
+        plain = TaskAdapterStore(model, graph, **store_kw)
+        plain.randomize(scale=ADAPTER_SCALE)
+        for _ in range(store.updates):
+            plain.update()
+    atol, rtol = MIX_TOL["float32"]
+    worst = 0.0
+    for name in ("raw", "serving"):
+        for got, want in zip(tree_lib.leaves(getattr(store, name)),
+                             tree_lib.leaves(getattr(plain, name))):
+            diff = (got - want).abs()
+            worst = max(worst, diff.max().item())
+            if not bool((diff <= atol + rtol * want.abs()).all()):
+                raise AssertionError(f"xlstm adapters: kernel store {name} differs from the "
+                                     f"plain store's by {diff.max().item()}")
+    log(f"xlstm adapters: kernel store raw and serving == plain store's within atol {atol} "
+        f"rtol {rtol} (max abs diff {worst:.2e}) after {store.updates} updates each")
+    rates.update(tokens_changed=changed, store_mb=raw_mb, store_max_diff=worst)
+    return rates, launches
+
+
+def phase_xlstm(torch, np, tr, get, TransformerLM, ServeEngine, ContinuousBatcher, Request,
+                TaskAdapterStore, band_graph, tree_lib, ops, smi, dev="cuda"):
+    """Phase 14: xLSTM-350M whole, served with CUDA graphs and eagerly,
+    under an adapter store, profiled and trained (see the docstring).
+    ``dev`` "cpu" rehearses it off the card (a smoke config through
+    ``get``, the card's calls patched)."""
+    t_phase = time.perf_counter()
+    free_card(torch)
+    out = {"memory_mb_before": log_memory(torch, "xlstm (before)")}
+    t1 = time.perf_counter()
+    model = TransformerLM(get("xlstm_350m"), device=dev, seed=0)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    out["params"] = sum(p.numel() for p in model.parameters())
+    log(f"xlstm: xLSTM-350M full width and depth ({cfg.num_layers} layers: "
+        f"{model.kinds.count('mlstm')} mLSTM, {model.kinds.count('slstm')} sLSTM; d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads; {out['params']} params, f32, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB) initialised in "
+        f"{time.perf_counter() - t1:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    out["serve"], launches, _ = serve_family(torch, np, "xlstm", model, ServeEngine,
+                                             ContinuousBatcher, Request, ops, XLSTM_MAX_SEQ,
+                                             XLSTM_LENS, (("dense", {}),), XLSTM_REUSED)
+    out["adapters"], more = xlstm_adapters(torch, np, model, ServeEngine, ContinuousBatcher,
+                                           Request, TaskAdapterStore, band_graph, tree_lib,
+                                           ops)
+    for k, n in more.items():
+        launches[k] = launches.get(k, 0) + n
+    out["decode_tick"] = profile_ticks(torch, np, "xlstm", model, ContinuousBatcher, Request,
+                                       XLSTM_MAX_SEQ, XLSTM_PROFILE_LENS)
+    out["serve_peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+    log(f"xlstm: serving peak torch.cuda.max_memory_allocated {out['serve_peak_mb']:.1f} MB; "
+        f"{smi}")
+    del model
+    free_card(torch)
+    out["train"] = train_family(torch, np, tr, "xlstm", cfg, smi, dev, XLSTM_TRAIN,
+                                watched=("layers.0.mlstm.wq",
+                                         f"layers.{cfg.period - 1}.slstm.r"))
+    out["memory_mb_after"] = log_memory(torch, "xlstm (after)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"xlstm: phase passed in {out['seconds']:.1f} s")
+    return out, launches
+
 
 
 def main() -> int:
@@ -2549,6 +2807,11 @@ def main() -> int:
                                   ContinuousBatcher, Request, PagingSpec, ops, smi)
     hybrid, hybrid_launches = phase_hybrid(torch, np, get, TransformerLM, ServeEngine,
                                            ContinuousBatcher, Request, PagingSpec, ops, smi)
+    mla, mla_launches = phase_mla(torch, np, train_lib, get, TransformerLM, ServeEngine,
+                                  ContinuousBatcher, Request, PagingSpec, ops, smi)
+    xlstm, xlstm_launches = phase_xlstm(torch, np, train_lib, get, TransformerLM, ServeEngine,
+                                        ContinuousBatcher, Request, TaskAdapterStore,
+                                        band_graph, tree_lib, ops, smi)
     phase_breakdown(torch, breakdown)
     del breakdown  # its closures hold the phase-2 inputs
     log(json.dumps({"paper": {"device": smi, **paper}}))
@@ -2559,16 +2822,20 @@ def main() -> int:
     log(json.dumps({"train": train}))
     log(json.dumps({"moe": {"device": smi, **moe}}))
     log(json.dumps({"hybrid": {"device": smi, **hybrid}}))
+    log(json.dumps({"mla": {"device": smi, **mla}}))
+    log(json.dumps({"xlstm": {"device": smi, **xlstm}}))
     log(f"smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     # launches of each kernel on the main paths, each counted from zero:
     # the dense, adapters and train (serving after training) phases for the
     # dense kernels, the paged and prefix phases for the paged ones, the
-    # faults, moe and hybrid phases for both, the adapters phase for the
-    # graph mix
+    # faults, moe and hybrid phases for both, the adapters and xlstm phases
+    # for the graph mix (the mla phase launches none: MLA is plain, as in
+    # the reference)
     launches = {
         name: sum(ph["launches"][name]
                   for ph in (dense, paged, prefix, faults, adapters, train["serve"]))
-        + moe_launches[name] + hybrid_launches.get(name, 0)
+        + sum(ph.get(name, 0) for ph in (moe_launches, hybrid_launches, mla_launches,
+                                         xlstm_launches))
         for name in COUNTED
     }
     meta = {

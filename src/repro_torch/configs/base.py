@@ -1,11 +1,12 @@
 """Architecture config schema + registry of the port.
 
 The port's own copy of the fields of ``repro.configs.base.ArchConfig`` that
-the dense and mixture-of-experts serving and training paths read (plus
-``num_tasks``, ``adapter_rank``, ``q_chunk`` and ``remat``), with the same
-values per architecture. The reference's ``fsdp_gather_moe`` is left out:
-it is a sharding constraint on the expert weights with no arithmetic of its
-own, and comes with the port's sharded training. The backend flag
+the dense, mixture-of-experts, MLA, Mamba2 and xLSTM serving and training
+paths read (plus ``num_tasks``, ``adapter_rank``, ``q_chunk`` and
+``remat``), with the same values per architecture. The reference's
+``fsdp_gather_moe``, ``mla_replicate_cache`` and ``mla_cache_seq_shard``
+are left out: they are sharding constraints with no arithmetic of their
+own, and come with the port's sharded training. The backend flag
 ``attn_backend`` is the port's, and it selects every hand-written kernel,
 not only attention's: ``"kernel"``
 serves attention from the CUDA attention kernels and mixes task adapters
@@ -21,6 +22,7 @@ import dataclasses
 import importlib
 
 ATTN_BACKENDS = ("kernel", "plain")
+BLOCK_KINDS = ("attn", "attn_moe", "shared_attn", "mamba", "mlstm", "slstm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +43,14 @@ class ArchConfig:
     rope_theta: float = 1e4
     sliding_window: int | None = None
     tie_embeddings: bool = False
+    # MLA (DeepSeek-V2; repro_torch.models.attention): the latent K/V width,
+    # the per-head non-rotary and the shared rotary query/key widths, the
+    # value head width
+    use_mla: bool = False
+    kv_lora: int = 512
+    qk_nope: int = 128
+    qk_rope: int = 64
+    v_head_dim: int = 128
     # Mamba2 (pattern kind "mamba"; repro_torch.models.mamba2): SSM state
     # width and head dim of its heads
     ssm_state: int = 0
@@ -61,6 +71,11 @@ class ArchConfig:
     q_chunk: int = 1024
     # chunk length of the Mamba2 SSD scan over a full sequence
     mamba_chunk: int = 128
+    # xLSTM (pattern kinds "mlstm" / "slstm"; repro_torch.models.xlstm):
+    # the time loop's rematerialization chunk in training (0 = none; it
+    # changes no value), and the chunkwise-parallel mLSTM (not ported)
+    xlstm_chunk: int = 0
+    xlstm_parallel: bool = False
     # rematerialize each layer's activations in the backward of ``forward``
     # (the JAX package's jax.checkpoint of its layer scan)
     remat: bool = True
@@ -86,6 +101,17 @@ class ArchConfig:
         depth."""
         return tuple(self.pattern) * self.num_periods + self.remainder
 
+    def stages(self) -> list[tuple[tuple[str, ...], int, int]]:
+        """(kinds, repetitions, first layer) of each stage of the JAX
+        model's layout, which its params, caches and adapter store follow:
+        the stacked periods, then the remainder (the reference's
+        ``_stage_patterns``). Slot ``j`` of repetition ``i`` is layer
+        ``first + len(kinds) * i + j``."""
+        out = [(tuple(self.pattern), self.num_periods, 0)] if self.num_periods > 0 else []
+        if self.remainder:
+            out.append((self.remainder, 1, self.num_periods * self.period))
+        return out
+
     @property
     def uses_moe(self) -> bool:
         return any(k == "attn_moe" for k in self.pattern)
@@ -105,6 +131,9 @@ class ArchConfig:
             raise ValueError(f"unknown mlp_kind {self.mlp_kind!r}")
         if self.norm_kind not in ("rmsnorm", "layernorm", "nonparam_ln"):
             raise ValueError(f"unknown norm_kind {self.norm_kind!r}")
+        for kind in self.pattern:
+            if kind not in BLOCK_KINDS:
+                raise ValueError(f"unknown block kind {kind!r}; want one of {BLOCK_KINDS}")
         if self.attn_backend not in ATTN_BACKENDS:
             raise ValueError(
                 f"attn_backend must be one of {ATTN_BACKENDS}, got "
@@ -112,8 +141,8 @@ class ArchConfig:
             )
 
 
-_ARCHS = ["mixtral_8x22b", "multitask_linreg", "multitask_lm", "olmo_1b", "phi4_mini_3_8b",
-          "qwen1_5_110b", "qwen2_5_14b", "zamba2_7b"]
+_ARCHS = ["deepseek_v2_236b", "mixtral_8x22b", "multitask_linreg", "multitask_lm", "olmo_1b",
+          "phi4_mini_3_8b", "qwen1_5_110b", "qwen2_5_14b", "xlstm_350m", "zamba2_7b"]
 
 
 def canonical(name: str) -> str:

@@ -6,18 +6,20 @@ numpy leaves (``jax.tree.map(np.asarray, params)``) and the model's
 ``repro_torch.models.TransformerLM``. Leaves are found by the same flat
 paths as ``repro/checkpoint/npz.py::_paths`` ("stages/0/slot0/attn/wq"); the
 (P, ...) period axis of each stage slot is unstacked into per-layer weights
-in layer order ("layers.3.attn.wq", "layers.3.moe.shared.wg"): the period
-stage's ``slot{j}`` of period ``i`` is layer ``period * i + j`` (an
-("attn",) or ("attn_moe",) model has one slot and one layer a period) and
-the remainder stage's ``slot{j}`` (a Mamba2 hybrid's, Zamba2) is layer
-``num_periods * period + j``; the top-level ``shared_attn`` tree is the one
-shared block's ("shared_attn.attn.wq"). ``params_to_numpy(model)`` is its
+in layer order ("layers.3.attn.wq", "layers.3.moe.shared.wg",
+"layers.7.slstm.r"): the period stage's ``slot{j}`` of period ``i`` is
+layer ``period * i + j`` (an ("attn",) or ("attn_moe",) model, GQA or MLA,
+has one slot and one layer a period; xLSTM-350M has 8: seven mLSTM slots
+and one sLSTM) and the remainder stage's ``slot{j}`` (a Mamba2 hybrid's,
+Zamba2) is layer ``num_periods * period + j``; the top-level
+``shared_attn`` tree is the one shared block's ("shared_attn.attn.wq"). ``params_to_numpy(model)`` is its
 inverse: the port's weights as the JAX params tree with numpy leaves, so
 trained weights or a checkpoint cross back to JAX.
 
 ``adapters_from_numpy(store, tree)`` carries a JAX ``TaskAdapterStore``'s
 raw tree (numpy leaves, ``jax.tree.map(np.asarray, store.raw)``) into the
-port's store of the same layout; the model's per-task ``task.*`` params
+port's store of the same layout: one dict per stage, an {"attn", "mlp"}
+pair per attention slot and an "out" pair per recurrent slot; the model's per-task ``task.*`` params
 come across with the other weights through ``params_from_numpy``.
 """
 from __future__ import annotations
@@ -35,39 +37,27 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def _stage_offsets(cfg) -> list[tuple[int, int]]:
-    """(first layer, layers per period) of each stage of the JAX layout:
-    the stacked periods, then the remainder (the reference's
-    ``_stage_patterns``)."""
-    stages = []
-    if cfg.num_periods > 0:
-        stages.append((0, cfg.period))
-    if cfg.remainder:
-        stages.append((cfg.num_periods * cfg.period, 0))
-    return stages
-
-
 def params_from_numpy(tree, cfg) -> dict[str, torch.Tensor]:
     """The port's state dict of a JAX params tree (numpy leaves) of the
     model ``cfg`` (its ``ArchConfig``)."""
-    offsets = _stage_offsets(cfg)
+    stages = cfg.stages()
     state = {}
     for path, leaf in tree_lib.paths(tree):
         parts = path.split("/")
         if parts[0] != "stages":
             state[".".join(parts)] = _tensor(leaf)
             continue
-        if len(parts) < 5 or int(parts[1]) >= len(offsets) or parts[3] in ("mlstm", "slstm"):
+        if len(parts) < 5 or int(parts[1]) >= len(stages):
             raise ValueError(
-                f"{path}: the port takes the ('attn',), ('attn_moe',) and Mamba2 hybrid "
-                "layouts; MLA and xLSTM layouts are not ported"
+                f"{path}: not a stage leaf of {cfg.name}'s layout "
+                f"({len(stages)} stages of 'stages/<stage>/slot<j>/<group>/...' leaves)"
             )
         name = ".".join(parts[3:])
         stacked = np.asarray(leaf)
-        first, period = offsets[int(parts[1])]
+        kinds, _, first = stages[int(parts[1])]
         j = int(parts[2][len("slot"):])
         for i in range(stacked.shape[0]):
-            state[f"layers.{first + period * i + j}.{name}"] = _tensor(stacked[i])
+            state[f"layers.{first + len(kinds) * i + j}.{name}"] = _tensor(stacked[i])
     return state
 
 
@@ -104,16 +94,12 @@ def params_to_numpy(model) -> dict:
             node = node.setdefault(key, {})
         node[parts[-1]] = to_numpy(t)
     stages = []
-    for first, period in _stage_offsets(cfg):
-        if period:
-            kinds, reps = cfg.pattern, cfg.num_periods
-        else:
-            kinds, reps = cfg.remainder, 1
+    for kinds, reps, first in cfg.stages():
         slots = {}
         for j, kind in enumerate(kinds):
             if kind == "shared_attn":
                 continue
-            layers = [first + (period or 1) * i + j for i in range(reps)]
+            layers = [first + len(kinds) * i + j for i in range(reps)]
             slot: dict = {group: {} for group in model.layers[layers[0]]._modules}
             for path in per_layer[layers[0]]:
                 node = slot

@@ -1,10 +1,30 @@
-"""Device policy, position vectors, and the build of the hand-written kernels.
+"""Device policy, the backend matrix, position vectors, and the build of
+the hand-written kernels.
 
-Three concerns live here:
+Four concerns live here:
 
 * ``require_device`` — where an entry point runs. CUDA unless the caller
   names another device; a missing GPU raises instead of quietly running on
   the CPU.
+* ``resolve_attn_backend`` — which attention path a serving layer takes
+  for the configured ``attn_backend``. The matrix, as the reference's:
+
+  ==============  ==========  =========
+  layer           "kernel"    "plain"
+  ==============  ==========  =========
+  GQA (any hd in  CUDA        plain
+  ``HEAD_DIMS``,  kernels     softmax
+  window or not,  1-4
+  dense / paged)
+  MLA             plain       plain
+  mamba2, xLSTM   no attention
+  ==============  ==========  =========
+
+  MLA has no kernel in the reference either: its absorbed decode contracts
+  the queries against the compressed latent cache, so there are no K/V
+  heads for a flash kernel to stream (and its query width, qk_nope +
+  qk_rope = 192 at DeepSeek-V2's width, is no kernel instantiation).
+  The graph-mix kernel follows ``attn_backend`` as it is.
 * ``pos_vector`` — normalizes ()/(B,)/python-int positions to one (B,)
   int32 tensor on the kernels' device; ``gather_pages`` — the logical
   view of a paged pool through a block table (the plain paged versions'
@@ -27,6 +47,8 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+from repro_torch.configs.base import ATTN_BACKENDS
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # src/repro_torch/kernels/runtime.py -> repo root three levels above src/
@@ -52,6 +74,16 @@ def require_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def resolve_attn_backend(backend: str, *, mla: bool = False) -> str:
+    """The attention backend one serving layer runs on (the matrix in the
+    module docstring): ``"kernel"`` is kept for GQA layers and becomes
+    ``"plain"`` for MLA. An unknown name raises: a typo must not serve the
+    slow path unnoticed."""
+    if backend not in ATTN_BACKENDS:
+        raise ValueError(f"attn_backend must be one of {ATTN_BACKENDS}, got {backend!r}")
+    return "plain" if mla else backend
 
 
 def pos_vector(pos, b: int, device) -> torch.Tensor:

@@ -1,8 +1,9 @@
-"""GQA attention (± QKV bias, ± sliding window): full-sequence causal
-attention for training, and attention over a dense KV cache or a paged KV
-pool for serving.
+"""GQA attention (± QKV bias, ± sliding window) and DeepSeek-V2's
+multi-head latent attention (MLA): full-sequence causal attention for
+training, and attention over a dense KV cache or a paged KV pool for
+serving.
 
-Counterpart of the GQA part of ``repro.models.attention``. The training
+Counterpart of ``repro.models.attention``. The training
 forward attends through ``causal_attend``: query-chunked masked softmax in
 plain torch, the reference's arithmetic (no kernel: the reference's is plain
 ``jnp`` too, whatever ``attn_backend`` says). The serving
@@ -14,12 +15,22 @@ kernels in ``repro_torch.kernels.decode_attention`` (one query token) and
 ``repro_torch.kernels.prefill_attention`` (a (B, C) chunk slab), dense or
 paged.
 
+MLA (``init_mla``, ``mla_full``, ``mla_decode``) is plain torch on every
+backend, as in the reference (``kernels.runtime.resolve_attn_backend``):
+training attends through ``causal_attend`` over the up-projected heads;
+serving runs the absorbed-matrix decode over the compressed caches, a
+(…, kv_lora) latent and a (…, qk_rope) rotary key per token, shared by
+every head.
+
 Shapes: x (B, C, d); q (B, C, H, hd); dense caches (B, max_seq, KVH, hd)
-written at per-slot positions; paged pools (num_blocks, block_size, KVH,
-hd) written through a (B, max_blocks) block table. Every write is in place
+(MLA: (B, max_seq, r)) written at per-slot positions; paged pools
+(num_blocks, block_size, KVH, hd) (MLA: (num_blocks, block_size, r))
+written through a (B, max_blocks) block table. Every write is in place
 (``index_put_``), where the JAX functions return new arrays.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -32,7 +43,7 @@ from repro_torch.kernels.prefill_attention.ops import (
     prefill_attention,
 )
 from repro_torch.kernels.runtime import gather_pages, pos_vector, scale_for
-from repro_torch.models.layers import dense_init, matmul
+from repro_torch.models.layers import apply_rope, dense_init, matmul
 
 NEG_INF = -1e30
 
@@ -199,3 +210,83 @@ def paged_cache_write_slab(pool, new, pos, block_tables, valid):
     bidx = torch.where(valid, _physical(block_tables, blk, pool.shape[0]), 0)
     pool.index_put_((bidx, torch.remainder(tgt, bs)), new.to(pool.dtype))
     return pool
+
+
+# --------------------------------------------------------------------- MLA
+@dataclasses.dataclass(frozen=True)
+class MLADims:
+    n_heads: int
+    qk_nope: int  # per-head non-rotary key/query dims
+    qk_rope: int  # shared rotary dims
+    v_dim: int
+    kv_lora: int
+
+
+def init_mla(d: int, dims: MLADims, dtype, generator: torch.Generator) -> dict:
+    h, dn, dr, dv, r = dims.n_heads, dims.qk_nope, dims.qk_rope, dims.v_dim, dims.kv_lora
+    return {
+        "wq": dense_init((d, h * (dn + dr)), generator, dtype=dtype),
+        "w_dkv": dense_init((d, r), generator, dtype=dtype),  # compress
+        "w_krope": dense_init((d, dr), generator, dtype=dtype),  # shared rope key
+        "w_uk": dense_init((r, h * dn), generator, dtype=dtype),  # up: keys
+        "w_uv": dense_init((r, h * dv), generator, dtype=dtype),  # up: values
+        "wo": dense_init((h * dv, d), generator, dtype=dtype),
+    }
+
+
+def mla_full(params, x, dims: MLADims, positions, theta, q_chunk: int = 1024):
+    """Materialized MLA for training: the heads' keys and values are
+    up-projected from the latent and attended through ``causal_attend`` at
+    query width qk_nope + qk_rope (so scaled by its inverse square root).
+    x: (B, S, d); positions: (B, S). Returns (out (B, S, d), (c_kv (B, S,
+    r), k_rope (B, S, qk_rope)))."""
+    b, s, _ = x.shape
+    h, dn, dr, dv = dims.n_heads, dims.qk_nope, dims.qk_rope, dims.v_dim
+    q = matmul(x, params["wq"]).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, theta)
+    c_kv = matmul(x, params["w_dkv"])  # (B, S, r)
+    k_rope = apply_rope(matmul(x, params["w_krope"])[:, :, None, :], positions,
+                        theta)  # (B, S, 1, dr), shared across heads
+    k_nope = matmul(c_kv, params["w_uk"]).reshape(b, s, h, dn)
+    v = matmul(c_kv, params["w_uv"]).reshape(b, s, h, dv)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
+    out = causal_attend(q_full, k_full, v, q_chunk=q_chunk)
+    out = matmul(out.reshape(b, s, h * dv), params["wo"])
+    return out, (c_kv, k_rope[:, :, 0, :])
+
+
+def mla_decode(params, x, dims: MLADims, c_cache, krope_cache, pos, theta):
+    """Absorbed-matrix MLA over the compressed caches: W_uk is folded into
+    the query and W_uv applied after the weighted sum, so scores and context
+    live in the kv_lora space and the per-token cache is kv_lora + qk_rope
+    wide. Everything from the absorbed query to the W_uv product computes
+    in float32 whatever the dtype; only the result is cast back to x's
+    dtype before ``wo``.
+
+    x: (B, C, d) — C == 1 is the decode tick, C > 1 the parallel prefill
+    chunk; c_cache (B, S, r) and krope_cache (B, S, qk_rope) already hold
+    the whole chunk (a paged pool's ``gather_pages`` view); pos: () or (B,)
+    positions of the FIRST query token (query i sits at ``pos + i`` and
+    reads ``kv_idx <= pos + i`` only). Returns (B, C, d)."""
+    b, c, _ = x.shape
+    h, dn, dr, dv, r = dims.n_heads, dims.qk_nope, dims.qk_rope, dims.v_dim, dims.kv_lora
+    q_pos = pos_vector(pos, b, x.device)[:, None] + torch.arange(c, device=x.device)
+    q = matmul(x, params["wq"]).reshape(b, c, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, q_pos, theta)
+    w_uk = params["w_uk"].reshape(r, h, dn)
+    q_c = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_uk.float())
+    c_f = c_cache.float()
+    scores = (torch.einsum("bqhr,bkr->bhqk", q_c, c_f)
+              + torch.einsum("bqhr,bkr->bhqk", q_rope.float(), krope_cache.float())
+              ) * scale_for(dn + dr)
+    kv_pos = torch.arange(c_cache.shape[1], device=x.device)
+    mask = kv_pos[None, None, :] <= q_pos[:, :, None]  # (B, C, S)
+    scores = torch.where(mask[:, None, :, :], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhqk,bkr->bqhr", w, c_f)  # (B, C, H, r)
+    w_uv = params["w_uv"].reshape(r, h, dv)
+    out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv.float()).to(x.dtype)
+    return matmul(out.reshape(b, c, h * dv), params["wo"])

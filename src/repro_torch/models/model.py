@@ -1,7 +1,8 @@
 """Decoder LM for training and serving: the ``pattern == ("attn",)``
-(dense), ``("attn_moe",)`` (mixture of experts) and Mamba2 hybrid
-(``("mamba", ..., "shared_attn")``, Zamba2) parts of
-``repro.models.model.TransformerLM``.
+(dense), ``("attn_moe",)`` (mixture of experts; either with GQA or with
+DeepSeek-V2's MLA, ``cfg.use_mla``), Mamba2 hybrid (``("mamba", ...,
+"shared_attn")``, Zamba2) and xLSTM (``"mlstm"`` / ``"slstm"`` kinds)
+parts of ``repro.models.model.TransformerLM``.
 
 The JAX model keeps period-stacked (P, ...) params and ``lax.scan``s over
 them; here each layer is its own module and the stack is a Python loop over
@@ -28,8 +29,10 @@ Serving entry points, counterparts of the JAX ones, all under
     attention layer (each shared-attention invocation has its own) a (k, v)
     pair of dense per-slot stripes (B, max_seq, KVH, hd), or, given a
     ``PagingSpec``, shared pools (num_blocks, block_size, KVH, hd) that
-    slots address through a (B, max_blocks) block table; for a mamba layer
-    its recurrent (conv_tail, ssm) state, dense per slot under paging too.
+    slots address through a (B, max_blocks) block table (MLA: a (c_kv,
+    k_rope) pair of (…, kv_lora) and (…, qk_rope) stripes or pools); for a
+    recurrent layer its state, dense per slot under paging too: mamba
+    (conv_tail, ssm), mLSTM (C, n, m), sLSTM (c, n, h, m).
   * ``decode_step``  — one token per slot against the caches at ``pos``.
   * ``prefill_step`` — a (B, C) prompt chunk, all C tokens in parallel.
   Both take ``block_tables=`` for the paged pools.
@@ -43,9 +46,10 @@ personalization lives in ``self.task``: per-task final-norm gain
 (parametric norms only), lm-head bias and, for MoE models, router bias,
 gathered by each row's task id. Both steps also take ``adapters=``,
 the graph-mixed serving tree of ``repro_torch.serve.adapters.
-TaskAdapterStore`` (one-stage attention models only): each row's low-rank
-deltas are gathered by task id and added to the attention and MLP (or MoE)
-branches of every layer, and its per-task gain, head-bias and router-bias
+TaskAdapterStore``: each row's low-rank deltas are gathered by task id and
+added to the attention and MLP (or MoE) branches of every attention layer
+(each shared-attention invocation has its own) and after the mixer of
+every recurrent layer, and its per-task gain, head-bias and router-bias
 deltas to ``self.task``'s.
 """
 from __future__ import annotations
@@ -58,9 +62,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.runtime import pos_vector, require_device
+from repro_torch.kernels.runtime import (
+    gather_pages,
+    pos_vector,
+    require_device,
+    resolve_attn_backend,
+)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as mamba_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
@@ -76,15 +86,18 @@ from repro_torch.models.moe import apply_moe, init_moe
 
 _PATTERNS = (("attn",), ("attn_moe",))
 ATTN_KINDS = ("attn", "attn_moe", "shared_attn")
+RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
 
 
 def _ported(pattern) -> bool:
-    """The block patterns the port serves and trains: one attention kind,
-    or the hybrid's mamba layers closed by one shared-attention layer."""
+    """The block patterns the port serves and trains: one attention kind
+    (GQA or MLA), the hybrid's mamba layers closed by one shared-attention
+    layer, or xLSTM's mlstm / slstm layers."""
     pattern = tuple(pattern)
     hybrid = (len(pattern) >= 2 and pattern[-1] == "shared_attn"
               and all(k == "mamba" for k in pattern[:-1]))
-    return pattern in _PATTERNS or hybrid
+    xlstm = all(k in ("mlstm", "slstm") for k in pattern)
+    return pattern in _PATTERNS or hybrid or xlstm
 
 
 def _params(tensors: dict) -> nn.ParameterDict:
@@ -93,18 +106,26 @@ def _params(tensors: dict) -> nn.ParameterDict:
     })
 
 
+def _mla_dims(cfg: ArchConfig) -> attn_lib.MLADims:
+    return attn_lib.MLADims(cfg.num_heads, cfg.qk_nope, cfg.qk_rope, cfg.v_head_dim,
+                            cfg.kv_lora)
+
+
 class _Block(nn.Module):
     """One attention + MLP layer (the JAX model's "attn" block), or
-    attention + MoE (its "attn_moe" block)."""
+    attention + MoE (its "attn_moe" block); the attention is GQA, or MLA
+    with ``cfg.use_mla``."""
 
     def __init__(self, cfg: ArchConfig, dtype, generator: torch.Generator):
         super().__init__()
         dev = generator.device
         self.norm1 = _params(init_norm(cfg.norm_kind, cfg.d_model, dtype, dev))
-        self.attn = _params(attn_lib.init_gqa(
-            cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-            cfg.qkv_bias, dtype, generator,
-        ))
+        if cfg.use_mla:
+            attn = attn_lib.init_mla(cfg.d_model, _mla_dims(cfg), dtype, generator)
+        else:
+            attn = attn_lib.init_gqa(cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                                     cfg.head_dim, cfg.qkv_bias, dtype, generator)
+        self.attn = _params(attn)
         self.norm2 = _params(init_norm(cfg.norm_kind, cfg.d_model, dtype, dev))
         if cfg.uses_moe:
             self.moe = _params(init_moe(cfg.d_model, cfg.d_ff, cfg.num_experts,
@@ -113,15 +134,23 @@ class _Block(nn.Module):
             self.mlp = _params(init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, generator))
 
 
-class _MambaBlock(nn.Module):
-    """One Mamba2 layer (the JAX model's "mamba" block): a norm, then the
-    mixer, added to the residual."""
+class _RecurrentBlock(nn.Module):
+    """One recurrent layer (the JAX model's "mamba", "mlstm" and "slstm"
+    blocks): a norm, then the mixer, added to the residual. The mixer's
+    weights sit under the kind's name ("layers.3.mlstm.wq"); xLSTM's are
+    float32 whatever the model's dtype, as the reference's."""
 
-    def __init__(self, cfg: ArchConfig, dtype, generator: torch.Generator):
+    def __init__(self, cfg: ArchConfig, kind: str, dtype, generator: torch.Generator):
         super().__init__()
         self.norm = _params(init_norm(cfg.norm_kind, cfg.d_model, dtype, generator.device))
-        self.mamba = _params(mamba_lib.init_mamba2(cfg.d_model, cfg.ssm_state,
-                                                   cfg.ssm_head_dim, dtype, generator))
+        if kind == "mamba":
+            mixer = mamba_lib.init_mamba2(cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim,
+                                          dtype, generator)
+        elif kind == "mlstm":
+            mixer = xlstm_lib.init_mlstm(cfg.d_model, cfg.num_heads, generator)
+        else:
+            mixer = xlstm_lib.init_slstm(cfg.d_model, cfg.num_heads, generator)
+        setattr(self, kind, _params(mixer))
 
 
 class _Shared(nn.Module):
@@ -136,8 +165,8 @@ class TransformerLM(nn.Module):
         if not _ported(cfg.pattern):
             raise NotImplementedError(
                 f"{cfg.name}: block pattern {cfg.pattern} is not ported yet; the port "
-                f"trains and serves the patterns {_PATTERNS} and the hybrid ('mamba', ..., "
-                "'shared_attn') (MLA and xLSTM blocks are not ported)"
+                f"trains and serves the patterns {_PATTERNS}, the hybrid ('mamba', ..., "
+                "'shared_attn') and patterns of 'mlstm' / 'slstm' layers"
             )
         cfg.validate()
         self.cfg = cfg
@@ -149,9 +178,13 @@ class TransformerLM(nn.Module):
             dense_init((c.vocab_size, c.d_model), gen, in_axis=1, dtype=dtype)
         )
         self.kinds = c.layer_kinds()
-        blocks = {"mamba": _MambaBlock, "shared_attn": lambda *_: _Shared()}
-        self.layers = nn.ModuleList(blocks.get(kind, _Block)(c, dtype, gen)
-                                    for kind in self.kinds)
+
+        def block(kind):
+            if kind in RECURRENT_KINDS:
+                return _RecurrentBlock(c, kind, dtype, gen)
+            return _Shared() if kind == "shared_attn" else _Block(c, dtype, gen)
+
+        self.layers = nn.ModuleList(block(kind) for kind in self.kinds)
         if "shared_attn" in self.kinds:
             self.shared_attn = _Block(c, dtype, gen)
         self.final_norm = _params(init_norm(c.norm_kind, c.d_model, dtype, self.device))
@@ -222,54 +255,80 @@ class TransformerLM(nn.Module):
 
     def _gather_adapters(self, adapters, task_ids):
         """Per-row multi-LoRA gather for one dispatch: each batch row's
-        adapters from the serving tree (leading axis num_tasks + 1, the last
-        row the zero null row that dead lanes carry). Ids are clamped to the
-        tree, as the JAX model's mode="clip" does, so a corrupted id reads
-        some task's adapters and never stray memory. Returns (one
-        {"attn", "mlp"} dict of (B, ...) factors per layer, the (B, ...)
-        task deltas)."""
+        adapters from the serving tree (stage leaves (num_tasks + 1, P, ...),
+        the last row the zero null row that dead lanes carry). Ids are
+        clamped to the tree, as the JAX model's mode="clip" does, so a
+        corrupted id reads some task's adapters and never stray memory.
+        Returns (one dict of (B, ...) factors per layer — {"attn", "mlp"}
+        for an attention position, {"out"} for a recurrent one — the (B,
+        ...) task deltas)."""
         stages = adapters["stages"]
-        if len(stages) != 1 or set(stages[0]) != {"slot0"}:
+        layout = self.cfg.stages()
+        want = [sorted(f"slot{j}" for j in range(len(kinds))) for kinds, _, _ in layout]
+        if [sorted(stage) for stage in stages] != want:
             raise ValueError(
-                "adapters: want the one-stage ('attn',) layout "
-                "{'stages': [{'slot0': ...}], 'task': ...}"
+                f"adapters: want the model's stage layout {want} "
+                "({'stages': [{'slot0': ...}, ...], 'task': ...})"
             )
 
         def take(t):
             return t[task_ids.long().clamp(0, t.shape[0] - 1)]
 
-        slot = tree_lib.map_(take, stages[0]["slot0"])  # leaves (B, P, ...)
-        layers = [
-            tree_lib.map_(lambda t, i=i: t[:, i], slot) for i in range(self.cfg.num_layers)
-        ]
+        gathered = [tree_lib.map_(take, stage) for stage in stages]  # leaves (B, P, ...)
+        # layer order: stage by stage, repetition i, slot j (cfg.stages())
+        layers = [tree_lib.map_(lambda t, i=i: t[:, i], stage[f"slot{j}"])
+                  for stage, (kinds, reps, _) in zip(gathered, layout)
+                  for i in range(reps) for j in range(len(kinds))]
         return layers, tree_lib.map_(take, adapters["task"])
 
     # ------------------------------------------------------------ training
     def _block_full(self, p: _Block, x, positions, router_bias):
         """One layer over the whole sequence: the reference's
         ``_block_full`` "attn" / "attn_moe" branch, causal attention
-        through ``causal_attend``. x: (B, S, d); positions: (B, S);
-        router_bias: (B, S, E) or None. Returns (x, aux)."""
+        through ``causal_attend`` (MLA: ``mla_full``). x: (B, S, d);
+        positions: (B, S); router_bias: (B, S, E) or None. Returns (x,
+        aux)."""
         c = self.cfg
         b, s = x.shape[:2]
         h = apply_norm(c.norm_kind, x, p.norm1 or None)
-        q, k, v = attn_lib.gqa_project(p.attn, h, c.num_heads, c.num_kv_heads, c.head_dim)
-        q = apply_rope(q, positions, c.rope_theta)
-        k = apply_rope(k, positions, c.rope_theta)
-        o = attn_lib.causal_attend(q, k, v, sliding_window=c.sliding_window,
-                                   q_chunk=c.q_chunk)
-        x = x + matmul(o.reshape(b, s, c.num_heads * c.head_dim), p.attn["wo"])
+        if c.use_mla:
+            out, _ = attn_lib.mla_full(p.attn, h, _mla_dims(c), positions, c.rope_theta,
+                                       q_chunk=c.q_chunk)
+        else:
+            q, k, v = attn_lib.gqa_project(p.attn, h, c.num_heads, c.num_kv_heads,
+                                           c.head_dim)
+            q = apply_rope(q, positions, c.rope_theta)
+            k = apply_rope(k, positions, c.rope_theta)
+            o = attn_lib.causal_attend(q, k, v, sliding_window=c.sliding_window,
+                                       q_chunk=c.q_chunk)
+            out = matmul(o.reshape(b, s, c.num_heads * c.head_dim), p.attn["wo"])
+        x = x + out
         h = apply_norm(c.norm_kind, x, p.norm2 or None)
         ff, aux = self._ffn(p, h, router_bias)
         return x + ff, aux
 
-    def _mamba_full(self, p: _MambaBlock, x, positions, router_bias):
-        """One mamba layer over the whole sequence from a zero state (the
-        reference's ``_block_full`` "mamba" branch). Returns (x, 0 aux)."""
+    def _recurrent_full(self, kind: str, p: _RecurrentBlock, x):
+        """One recurrent layer over the whole sequence from a fresh state
+        (the reference's ``_block_full`` "mamba" / "mlstm" / "slstm"
+        branches; the xLSTM time loop rematerialized in ``xlstm_chunk``
+        chunks). Returns (x, 0 aux)."""
         c = self.cfg
         h = apply_norm(c.norm_kind, x, p.norm or None)
-        out, _ = mamba_lib.mamba2_full(p.mamba, h, d_state=c.ssm_state,
-                                       head_dim=c.ssm_head_dim, chunk=c.mamba_chunk)
+        if kind == "mamba":
+            out, _ = mamba_lib.mamba2_full(p.mamba, h, d_state=c.ssm_state,
+                                           head_dim=c.ssm_head_dim, chunk=c.mamba_chunk)
+        elif kind == "mlstm":
+            if c.xlstm_parallel:
+                raise NotImplementedError(
+                    f"{c.name}: xlstm_parallel=True (the chunkwise-parallel mLSTM, "
+                    "repro.models.xlstm.mlstm_chunkwise) is not ported yet: see ROADMAP.md "
+                    "section 1"
+                )
+            out, _ = xlstm_lib.mlstm_full(p.mlstm, h, n_heads=c.num_heads,
+                                          chunk=c.xlstm_chunk)
+        else:
+            out, _ = xlstm_lib.slstm_full(p.slstm, h, n_heads=c.num_heads,
+                                          chunk=c.xlstm_chunk)
         return x + out, torch.zeros((), device=x.device)
 
     def forward(self, batch):
@@ -285,12 +344,15 @@ class TransformerLM(nn.Module):
         remat = self.cfg.remat and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for kind, p in zip(self.kinds, self.layers):
-            fn = self._mamba_full if kind == "mamba" else self._block_full
-            p = self.shared_attn if kind == "shared_attn" else p
-            if remat:
-                x, a = checkpoint(fn, p, x, positions, rb, use_reentrant=False)
+            if kind in RECURRENT_KINDS:
+                fn, args = self._recurrent_full, (kind, p, x)
             else:
-                x, a = fn(p, x, positions, rb)
+                p = self.shared_attn if kind == "shared_attn" else p
+                fn, args = self._block_full, (p, x, positions, rb)
+            if remat:
+                x, a = checkpoint(fn, *args, use_reentrant=False)
+            else:
+                x, a = fn(*args)
             aux = aux + a
         return self._logits(x, batch), aux
 
@@ -313,25 +375,40 @@ class TransformerLM(nn.Module):
     def _cache_spec(self, kind: str, batch_size: int, max_seq: int, paging=None):
         """(shape, dtype, init value) of each tensor of one layer's cache
         entry: ``init_cache`` fills them and ``reset_slot_state`` restores
-        the value. Attention: (k, v), dense stripes or, with ``paging``,
-        shared pools. Mamba: (conv_tail, ssm), dense per slot always, the
-        SSM state in float32."""
+        the value. Attention: (k, v) — MLA: (c_kv, k_rope) — dense stripes
+        or, with ``paging``, shared pools. Recurrent states are dense per
+        slot always: mamba (conv_tail, ssm) with the SSM state in float32;
+        mLSTM (C, n, m) and sLSTM (c, n, h, m) in float32, the mLSTM
+        stabilizer m starting at -1e30."""
         c = self.cfg
+        b = batch_size
         if kind in ATTN_KINDS:
             lead = ((paging.num_blocks, paging.block_size) if paging is not None
-                    else (batch_size, max_seq))
+                    else (b, max_seq))
+            if c.use_mla:
+                return [(lead + (c.kv_lora,), self.dtype, 0.0),
+                        (lead + (c.qk_rope,), self.dtype, 0.0)]
             shape = lead + (c.num_kv_heads, c.head_dim)
             return [(shape, self.dtype, 0.0)] * 2
-        _, nh, conv_dim = mamba_lib.dims(c.d_model, c.ssm_state, c.ssm_head_dim)
-        return [((batch_size, mamba_lib.CONV_K - 1, conv_dim), self.dtype, 0.0),
-                ((batch_size, nh, c.ssm_head_dim, c.ssm_state), torch.float32, 0.0)]
+        nh, f32 = c.num_heads, torch.float32
+        if kind == "mlstm":
+            _, hd = xlstm_lib.mlstm_dims(c.d_model, nh)
+            return [((b, nh, hd, hd), f32, 0.0), ((b, nh, hd), f32, 0.0),
+                    ((b, nh), f32, xlstm_lib.M_INIT)]
+        if kind == "slstm":
+            hd = c.d_model // nh
+            return [((b, nh, hd), f32, 0.0)] * 3 + [((b, nh), f32, 0.0)]
+        _, mnh, conv_dim = mamba_lib.dims(c.d_model, c.ssm_state, c.ssm_head_dim)
+        return [((b, mamba_lib.CONV_K - 1, conv_dim), self.dtype, 0.0),
+                ((b, mnh, c.ssm_head_dim, c.ssm_state), f32, 0.0)]
 
     def init_cache(self, batch_size: int, max_seq: int, paging=None) -> list:
         """One entry per layer, filled with its init value: a (k, v) pair of
         dense (B, max_seq, KVH, hd) stripes, or with ``paging`` (a
         ``repro_torch.serve.paging.PagingSpec``) of shared (num_blocks,
-        block_size, KVH, hd) pools, per attention layer; a (conv_tail, ssm)
-        pair per mamba layer."""
+        block_size, KVH, hd) pools, per attention layer (MLA: (c_kv,
+        k_rope), (…, kv_lora) and (…, qk_rope)); the recurrent state of
+        each mamba, mLSTM or sLSTM layer (``_cache_spec``)."""
         return [
             tuple(torch.full(shape, fill, dtype=dtype, device=self.device)
                   for shape, dtype, fill in self._cache_spec(kind, batch_size, max_seq, paging))
@@ -402,32 +479,50 @@ class TransformerLM(nn.Module):
 
     # -------------------------------------------------------------- blocks
     def _make_attend(self, pos, block_tables=None):
+        """The GQA attention of one dispatch, on the backend that
+        ``resolve_attn_backend`` gives the configured one (MLA layers never
+        call it: they attend in ``_attn_block`` over the latent caches)."""
         c = self.cfg
+        backend = resolve_attn_backend(c.attn_backend, mla=c.use_mla)
         return lambda q, kc, vc: attn_lib.cached_attend(
-            q, kc, vc, pos, sliding_window=c.sliding_window, backend=c.attn_backend,
+            q, kc, vc, pos, sliding_window=c.sliding_window, backend=backend,
             block_tables=block_tables,
         )
 
     def _attn_block(self, p: _Block, x, cache, pos, write, attend, router_bias, moe_live,
-                    ad=None):
+                    ad=None, view=None):
         """Project the chunk, write its K/V through ``write``, attend with
         per-query positions ``pos + i``, then the MLP or MoE. x: (B, C, d);
         router_bias: (B, C, E) or None; moe_live: the (B,) live or (B, C)
         valid mask that keeps dead lanes out of the experts' capacity; ad:
         optional per-row adapter factors of this layer, whose deltas are
-        added to both branches off the same normed inputs."""
+        added to both branches off the same normed inputs. An MLA layer
+        writes the chunk's latent and roped shared key, and runs
+        ``mla_decode`` over ``view`` of its caches (a paged pool's
+        ``gather_pages`` view)."""
         c = self.cfg
         b, cl = x.shape[:2]
         q_pos = pos[:, None] + torch.arange(cl, device=x.device)[None, :]  # (B, C)
         h = apply_norm(c.norm_kind, x, p.norm1 or None)
-        q, k, v = attn_lib.gqa_project(p.attn, h, c.num_heads, c.num_kv_heads, c.head_dim)
-        q = apply_rope(q, q_pos, c.rope_theta)
-        k = apply_rope(k, q_pos, c.rope_theta)
-        k_cache, v_cache = cache
-        write(k_cache, k)
-        write(v_cache, v)
-        o = attend(q, k_cache, v_cache)
-        out = matmul(o.reshape(b, cl, c.num_heads * c.head_dim), p.attn["wo"])
+        if c.use_mla:
+            c_cache, r_cache = cache
+            c_kv = matmul(h, p.attn["w_dkv"])  # (B, C, r)
+            k_rope = apply_rope(matmul(h, p.attn["w_krope"])[:, :, None, :], q_pos,
+                                c.rope_theta)[:, :, 0, :]
+            write(c_cache, c_kv)
+            write(r_cache, k_rope)
+            out = attn_lib.mla_decode(p.attn, h, _mla_dims(c), view(c_cache), view(r_cache),
+                                      pos, c.rope_theta)
+        else:
+            q, k, v = attn_lib.gqa_project(p.attn, h, c.num_heads, c.num_kv_heads,
+                                           c.head_dim)
+            q = apply_rope(q, q_pos, c.rope_theta)
+            k = apply_rope(k, q_pos, c.rope_theta)
+            k_cache, v_cache = cache
+            write(k_cache, k)
+            write(v_cache, v)
+            o = attend(q, k_cache, v_cache)
+            out = matmul(o.reshape(b, cl, c.num_heads * c.head_dim), p.attn["wo"])
         if ad is not None:
             out = out + apply_task_lora(h, ad["attn"])
         x = x + out
@@ -437,13 +532,15 @@ class TransformerLM(nn.Module):
             ff = ff + apply_task_lora(h, ad["mlp"])
         return x + ff
 
-    def _run_layers(self, x, caches, pos, write, attend, batch, adapters, moe_live,
+    def _run_layers(self, x, caches, pos, write, view, attend, batch, adapters, moe_live,
                     recurrent):
         """The layer loop of both steps, with each layer's adapters when
         given: attention layers through ``_attn_block`` (shared positions
-        with the shared block), mamba layers through ``recurrent(p, h,
-        cache)``, which returns the mixer's output and updates the cache
-        entry in place. Returns (x, per-row task deltas or None)."""
+        with the shared block), recurrent layers through ``recurrent(kind,
+        params, h, cache)``, which returns the mixer's output and updates
+        the cache entry in place; the layer's "out" adapter delta is added
+        after the mixer, off the same normed input. Returns (x, per-row
+        task deltas or None)."""
         if adapters is None:
             layer_ads, task_ad = [None] * len(self.layers), None
         else:
@@ -451,12 +548,24 @@ class TransformerLM(nn.Module):
         rb = self._router_bias(batch, x.shape[1], task_ad)
         c = self.cfg
         for kind, p, cache, ad in zip(self.kinds, self.layers, caches, layer_ads):
-            if kind == "mamba":
-                x = x + recurrent(p.mamba, apply_norm(c.norm_kind, x, p.norm or None), cache)
+            if kind in RECURRENT_KINDS:
+                h = apply_norm(c.norm_kind, x, p.norm or None)
+                out = recurrent(kind, getattr(p, kind), h, cache)
+                if ad is not None:
+                    out = out + apply_task_lora(h, ad["out"])
+                x = x + out
                 continue
             p = self.shared_attn if kind == "shared_attn" else p
-            x = self._attn_block(p, x, cache, pos, write, attend, rb, moe_live, ad)
+            x = self._attn_block(p, x, cache, pos, write, attend, rb, moe_live, ad, view)
         return x, task_ad
+
+    @staticmethod
+    def _view(block_tables):
+        """How an MLA layer reads its caches: as they are (dense), or each
+        slot's ``gather_pages`` view of a pool."""
+        if block_tables is None:
+            return lambda cc: cc
+        return lambda cc: gather_pages(cc, block_tables)
 
     # ------------------------------------------------------------- serving
     @torch.no_grad()
@@ -466,7 +575,7 @@ class TransformerLM(nn.Module):
         pos: () or (B,) per-slot positions; live: optional (B,) bool — dead
         slots run through the math on their padding token but their cache
         rows are left untouched (paged: their write goes to the null block
-        0; a mamba layer's state keeps its rows). block_tables: optional
+        0; a recurrent layer's state keeps its rows). block_tables: optional
         (B, max_blocks) int32 — the attention caches are then the shared
         pools of ``init_cache(..., paging=spec)`` (recurrent states stay
         dense and ignore the table). adapters: optional serving tree of a
@@ -483,12 +592,15 @@ class TransformerLM(nn.Module):
                 attn_lib.paged_cache_write(cc, new, pos, block_tables, live)
         c = self.cfg
 
-        def recurrent(p, h, cache):
-            return mamba_lib.mamba2_step(p, h, cache, d_state=c.ssm_state,
-                                         head_dim=c.ssm_head_dim, live=live)[0]
+        def recurrent(kind, p, h, cache):
+            if kind == "mamba":
+                return mamba_lib.mamba2_step(p, h, cache, d_state=c.ssm_state,
+                                             head_dim=c.ssm_head_dim, live=live)[0]
+            step = xlstm_lib.mlstm_step if kind == "mlstm" else xlstm_lib.slstm_step
+            return step(p, h, cache, n_heads=c.num_heads, live=live)[0]
 
-        x, task_ad = self._run_layers(x, caches, pos, write, attend, batch, adapters, live,
-                                      recurrent)
+        x, task_ad = self._run_layers(x, caches, pos, write, self._view(block_tables),
+                                      attend, batch, adapters, live, recurrent)
         return self._logits(x, batch, task_ad), caches
 
     @torch.no_grad()
@@ -499,7 +611,7 @@ class TransformerLM(nn.Module):
         position of each slot's first chunk token; valid: (B, C)
         contiguous-prefix mask of real prompt tokens (all-False rows ride
         along untouched; paged, their lanes write the null block 0); a
-        mamba layer runs the chunked SSD with the slot's state threaded in.
+        recurrent layer runs with the slot's state threaded in.
         block_tables: optional (B, max_blocks) int32 for paged pools.
         adapters: optional serving tree, as in ``decode_step``. Returns
         (logits (B, 1, V) after each slot's LAST valid token, caches) — the
@@ -517,18 +629,26 @@ class TransformerLM(nn.Module):
                 attn_lib.paged_cache_write_slab(cc, new, pos, block_tables, valid)
         c = self.cfg
 
-        def recurrent(p, h, cache):
+        def recurrent(kind, p, h, cache):
             # the state threaded in; a row with no valid token gets its state
-            # back bit for bit, so the copy leaves it untouched
-            out, state = mamba_lib.mamba2_full(p, h, d_state=c.ssm_state,
-                                               head_dim=c.ssm_head_dim, chunk=c.mamba_chunk,
-                                               state=cache, valid=valid)
+            # back bit for bit, so the copy leaves it untouched. xLSTM runs
+            # the exact sequential cell, as the reference's prefill does
+            # whatever cfg.xlstm_parallel says
+            if kind == "mamba":
+                out, state = mamba_lib.mamba2_full(p, h, d_state=c.ssm_state,
+                                                   head_dim=c.ssm_head_dim,
+                                                   chunk=c.mamba_chunk, state=cache,
+                                                   valid=valid)
+            else:
+                full = xlstm_lib.mlstm_full if kind == "mlstm" else xlstm_lib.slstm_full
+                out, state = full(p, h, n_heads=c.num_heads, chunk=c.xlstm_chunk,
+                                  state=cache, valid=valid)
             for t, new in zip(cache, state):
                 t.copy_(new)
             return out
 
-        x, task_ad = self._run_layers(x, caches, pos, write, attend, batch, adapters, valid,
-                                      recurrent)
+        x, task_ad = self._run_layers(x, caches, pos, write, self._view(block_tables),
+                                      attend, batch, adapters, valid, recurrent)
         idx = (valid.sum(dim=1) - 1).clamp(min=0)  # in [0, C-1]
         x_last = x[torch.arange(b, device=x.device), idx][:, None, :]  # (B, 1, d)
         return self._logits(x_last, batch, task_ad), caches

@@ -43,6 +43,7 @@ from repro_torch import tree as tree_lib
 from repro_torch.core.delayed import per_source_stale
 from repro_torch.core.graph import TaskGraph
 from repro_torch.kernels.graph_mix import graph_mix_tree, graph_mix_tree_reference
+from repro_torch.models.model import ATTN_KINDS
 
 MIXINGS = ("bsr", "bol", "consensus")
 
@@ -61,17 +62,26 @@ def _mixing_matrix(graph: TaskGraph, mixing: str, eta: float, tau: float,
 class TaskAdapterStore:
     """Graph-mixed stacked low-rank adapters for multi-task serving.
 
-    Layout (all leaves task-leading, ``m = num_tasks``, ``P`` = layers,
-    ``r`` = rank, ``d`` = d_model, ``E`` = experts), the JAX store's for an
-    ``("attn",)`` or ``("attn_moe",)`` model (the "mlp" pair adds to the
-    MoE branch)::
+    Layout (all leaves task-leading, ``m = num_tasks``, ``P`` = periods of
+    the stage, ``r`` = rank, ``d`` = d_model, ``E`` = experts), the JAX
+    store's: one dict per stage of the model's JAX layout (the stacked
+    periods, then the remainder), one entry per slot of the stage's
+    pattern — an "attn" and an "mlp" pair for an attention kind (a hybrid's
+    shared-attention slot too: each invocation has its own; the "mlp" pair
+    adds to the MoE branch), one "out" pair, added after the mixer, for a
+    recurrent kind (mamba, mlstm, slstm)::
 
         raw = {
-          "stages": [{"slot0": {"attn": {"a": (m,P,d,r), "b": (m,P,r,d)},
-                                "mlp":  {"a": (m,P,d,r), "b": (m,P,r,d)}}}],
+          "stages": [{
+            "slot<j>": {"attn": {"a": (m,P,d,r), "b": (m,P,r,d)},
+                        "mlp":  {"a": (m,P,d,r), "b": (m,P,r,d)}}   # attention
+                     | {"out":  {"a": (m,P,d,r), "b": (m,P,r,d)}}   # recurrent
+          }, ...],
           "task": {"head_bias": (m, V) [, "final_gain": (m, d)]
                    [, "router_bias": (m, E)]},
         }
+
+    An ("attn",) model has one stage of one slot with P = num_layers.
 
     ``serving`` is the graph-mixed copy with one extra ZERO row appended to
     every leaf — row ``null_task == num_tasks`` — gathered by dead lanes.
@@ -98,12 +108,6 @@ class TaskAdapterStore:
         dtype=None,
     ):
         cfg = model.cfg
-        if tuple(cfg.pattern) not in (("attn",), ("attn_moe",)):
-            raise NotImplementedError(
-                f"{cfg.name}: TaskAdapterStore serves one-stage attention models; the "
-                f"adapters of pattern {cfg.pattern} (the reference's 'out' pair on recurrent "
-                "blocks) are not ported yet (ROADMAP.md section 1, hybrid adapters)"
-            )
         if graph.m != cfg.num_tasks:
             raise ValueError(
                 f"task graph has {graph.m} tasks but the model serves "
@@ -153,20 +157,26 @@ class TaskAdapterStore:
 
     def _zeros_raw(self):
         cfg = self.model.cfg
-        m, r, d, p = cfg.num_tasks, self.rank, cfg.d_model, cfg.num_layers
+        m, r, d = cfg.num_tasks, self.rank, cfg.d_model
 
         def zeros(*shape):
             return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
-        def pair():
-            return {"a": zeros(m, p, d, r), "b": zeros(m, p, r, d)}
+        def pair(reps):
+            return {"a": zeros(m, reps, d, r), "b": zeros(m, reps, r, d)}
 
+        stages = [
+            {f"slot{j}": ({"attn": pair(reps), "mlp": pair(reps)} if kind in ATTN_KINDS
+                          else {"out": pair(reps)})
+             for j, kind in enumerate(kinds)}
+            for kinds, reps, _ in cfg.stages()
+        ]
         task = {"head_bias": zeros(m, cfg.vocab_size)}
         if cfg.norm_kind != "nonparam_ln":
             task["final_gain"] = zeros(m, d)
         if cfg.uses_moe:
             task["router_bias"] = zeros(m, cfg.num_experts)
-        return {"stages": [{"slot0": {"attn": pair(), "mlp": pair()}}], "task": task}
+        return {"stages": stages, "task": task}
 
     def zeros_like_task(self):
         """A zero gradient tree for ONE task (leaves without the leading

@@ -390,12 +390,17 @@ def make_swap(paging, kinds):
     """The eager ``(swap_out, swap_in)`` pair of preemptive swap-out.
 
     ``swap_out(caches, blocks, slot=None)`` gathers the given physical
-    blocks (a slot's real blocks, host ints) of every pool into ONE device
-    staging tensor, one ``index_select`` per pool, and copies it to host
-    memory in one copy: the pages, a ``(2 * attention layers, len(blocks),
-    block_size, KVH, hd)`` tensor whose row ``2 i`` holds the i-th
-    attention layer's K pages and row ``2 i + 1`` its V pages, in ``blocks``
-    order. Beside them it copies the ``slot`` column of every dense
+    blocks (a slot's real blocks, host ints) of every pool into one device
+    staging tensor per pool row shape, one ``index_select`` per pool, and
+    copies each to host memory in one copy: the pages, a list with one
+    ``(pools of that shape, len(blocks), block_size, ...)`` tensor per
+    distinct row shape in cache order, the pools in cache order within it
+    and the blocks in ``blocks`` order. A GQA model has one, ``(2 *
+    attention layers, len(blocks), block_size, KVH, hd)``, whose row ``2 i``
+    holds the i-th attention layer's K pages and row ``2 i + 1`` its V
+    pages; an MLA model two, its (…, kv_lora) latents and its (…, qk_rope)
+    rotary keys; a model with no attention layer none. Beside them it
+    copies the ``slot`` column of every dense
     per-slot entry (a recurrent layer's (conv_tail, ssm) state; ``kinds``,
     the model's ``kinds``, says which entries those are, as the
     reference's ``swap_out(caches, blocks, slot)`` takes them): the columns, a list of tensors in cache
@@ -403,7 +408,7 @@ def make_swap(paging, kinds):
     pinned and every copy asynchronous.
 
     ``swap_in(caches, blocks, saved, slot=None)`` is the inverse: one upload
-    of the pages and one ``index_copy_`` per pool into ``blocks`` (fresh
+    per pages tensor and one ``index_copy_`` per pool into ``blocks`` (fresh
     ones, as many as were saved), and each column written into ``slot``
     (the slot the request is restored to). Every pool and state is written
     IN PLACE and keeps its ``data_ptr``, so the CUDA graphs that read them
@@ -436,12 +441,17 @@ def make_swap(paging, kinds):
         return torch.tensor(ids, dtype=torch.long, device=device)
 
     def _split(caches, slot):
+        """(the pools grouped by row shape and dtype, in cache order; the
+        dense per-slot states)."""
         pooled = [kind in ATTN_KINDS for kind in kinds]
-        pools = [t for entry, p in zip(caches, pooled) if p for t in entry]
+        groups: dict = {}
+        for entry, p in zip(caches, pooled):
+            for t in entry if p else ():
+                groups.setdefault((tuple(t.shape[1:]), t.dtype), []).append(t)
         states = [t for entry, p in zip(caches, pooled) if not p for t in entry]
         if states and slot is None:
             raise ValueError("swap of a model with per-slot recurrent state: pass its slot")
-        return pools, states
+        return list(groups.values()), states
 
     def _host(t: torch.Tensor) -> torch.Tensor:
         """A host copy of ``t`` that no later step writes."""
@@ -452,32 +462,36 @@ def make_swap(paging, kinds):
         return saved
 
     def swap_out(caches, blocks, slot=None):
-        pools, states = _split(caches, slot)
-        first = pools[0]
-        idx = _ids(blocks, first.device)
-        staging = torch.empty((len(pools), len(idx)) + tuple(first.shape[1:]),
-                              dtype=first.dtype, device=first.device)
-        for j, pool in enumerate(pools):
-            torch.index_select(pool, 0, idx, out=staging[j])
-        return _host(staging), [_host(t[slot]) for t in states]
+        groups, states = _split(caches, slot)
+        idx = _ids(blocks, caches[0][0].device)
+        pages = []
+        for pools in groups:
+            first = pools[0]
+            staging = torch.empty((len(pools), len(idx)) + tuple(first.shape[1:]),
+                                  dtype=first.dtype, device=first.device)
+            for j, pool in enumerate(pools):
+                torch.index_select(pool, 0, idx, out=staging[j])
+            pages.append(_host(staging))
+        return pages, [_host(t[slot]) for t in states]
 
     def swap_in(caches, blocks, saved, slot=None):
-        pools, states = _split(caches, slot)
+        groups, states = _split(caches, slot)
         pages, columns = saved
-        first = pools[0]
-        idx = _ids(blocks, first.device)
-        want = (len(pools), len(idx)) + tuple(first.shape[1:])
-        if tuple(pages.shape) != want or pages.dtype != first.dtype or len(columns) != len(
-            states
-        ) or any(c.shape != t.shape[1:] or c.dtype != t.dtype for c, t in zip(columns, states)):
+        idx = _ids(blocks, caches[0][0].device)
+        want = [((len(pools), len(idx)) + tuple(pools[0].shape[1:]), pools[0].dtype)
+                for pools in groups]
+        got = [(tuple(p.shape), p.dtype) for p in pages]
+        if got != want or len(columns) != len(states) or any(
+                c.shape != t.shape[1:] or c.dtype != t.dtype for c, t in zip(columns, states)):
             raise ValueError(
-                f"swap-in of a {pages.dtype} snapshot of shape {tuple(pages.shape)} and "
-                f"{len(columns)} state columns into {len(idx)} blocks: want {first.dtype} of "
-                f"shape {want} and {len(states)} columns shaped as the states' rows"
+                f"swap-in of a snapshot of pages {got} and {len(columns)} state columns into "
+                f"{len(idx)} blocks: want pages {want} and {len(states)} columns shaped as "
+                "the states' rows"
             )
-        rows = pages.to(first.device, non_blocking=True)
-        for j, pool in enumerate(pools):
-            pool.index_copy_(0, idx, rows[j])
+        for pools, saved_pages in zip(groups, pages):
+            rows = saved_pages.to(pools[0].device, non_blocking=True)
+            for j, pool in enumerate(pools):
+                pool.index_copy_(0, idx, rows[j])
         for t, col in zip(states, columns):
             t[slot].copy_(col, non_blocking=True)
         return caches

@@ -99,7 +99,7 @@ def test_swap_pair_round_trips_in_place(cuda):
     swap_out, swap_in = make_swap(spec, model.kinds)
     src, dst = [3, 1, 7], [2, 9, 5]
     saved = swap_out(caches, src)
-    pages, columns = saved
+    (pages,), columns = saved
     assert pages.device.type == "cpu" and pages.is_pinned() and columns == []
     swap_in(caches, dst, saved)
     torch.cuda.synchronize()

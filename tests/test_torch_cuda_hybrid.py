@@ -134,7 +134,7 @@ def test_hybrid_swap_pair_carries_the_slot_columns(cuda):
     ptrs = [t.data_ptr() for entry in caches for t in entry]
     swap_out, swap_in = make_swap(spec, model.kinds)
     saved = swap_out(caches, [3, 1], 0)
-    pages, columns = saved
+    (pages,), columns = saved
     assert pages.is_pinned() and all(c.is_pinned() for c in columns)
     assert len(columns) == 2 * model.kinds.count("mamba")
     swap_in(caches, [2, 5], saved, 2)

@@ -385,7 +385,7 @@ def test_preemption_swaps_out_victim_with_exact_restore():
     assert tight[0].preemptions == 1 and tight[0]._swap is None
     assert _tokens(roomy) == _tokens(tight)
     _assert_clean(b)
-    (jkv,), ((saved, columns),) = snaps["jax"], snaps["torch"]
+    (jkv,), (((saved,), columns),) = snaps["jax"], snaps["torch"]  # one pool row shape
     assert columns == []  # an attention-only model has no per-slot state
     jk, jv = (np.asarray(x) for x in jax.tree.leaves(jkv))  # (L, max_blocks, BS, KVH, hd)
     n = saved.shape[1]
@@ -493,7 +493,7 @@ def test_swap_pair_round_trips_in_place():
     swap_out, swap_in = make_swap(spec, tm.kinds)
     src, dst = [3, 1, 7], [2, 9, 5]
     saved = swap_out(caches, src)
-    pages, columns = saved
+    (pages,), columns = saved  # one pool row shape: one pages tensor
     assert tuple(pages.shape) == (2 * len(caches), 3) + tuple(caches[0][0].shape[1:])
     assert columns == []
     assert swap_in(caches, dst, saved) is caches
@@ -516,11 +516,11 @@ def test_swap_pair_refuses_dense_caches_and_foreign_snapshots():
         swap_out(caches, [0, 1])  # the null block is never a slot's
     with pytest.raises(ValueError, match="block id"):
         swap_out(caches, [spec.num_blocks])
-    pages, columns = swap_out(caches, [1, 2])
+    (pages,), columns = swap_out(caches, [1, 2])
     with pytest.raises(ValueError, match="snapshot"):
-        swap_in(caches, [3], (pages, columns))  # fewer blocks than were saved
+        swap_in(caches, [3], ([pages], columns))  # fewer blocks than were saved
     with pytest.raises(ValueError, match="snapshot"):
-        swap_in(caches, [3, 4], (pages.double(), columns))
+        swap_in(caches, [3, 4], ([pages.double()], columns))
 
 
 # ----------------------------------------------------------- reconciliation

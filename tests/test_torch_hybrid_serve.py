@@ -12,7 +12,7 @@ pressure (tests/test_serve_faults.py), and the prefix-cache refusal
 (tests/test_serve_prefix.py:345). On top: a request served in a reused slot
 gives what a fresh batcher gives, dense and paged; ``reset_slot_state``
 restores every per-slot entry (the mamba states under paging too) to its
-``init_cache`` value as JAX's does; the adapter store refuses the hybrid."""
+``init_cache`` value as JAX's does; the adapter store's trees equal JAX's."""
 import functools
 
 import pytest
@@ -27,8 +27,10 @@ import repro.serve as jserve  # noqa: E402
 import repro_torch.serve as tserve  # noqa: E402
 from repro.configs import get as jax_get  # noqa: E402
 from repro.models import TransformerLM as JaxLM  # noqa: E402
+from repro.core.graph import ring_graph as jax_ring_graph  # noqa: E402
+from repro_torch import tree as tree_lib  # noqa: E402
 from repro_torch.configs import get  # noqa: E402
-from repro_torch.convert import load_numpy_params  # noqa: E402
+from repro_torch.convert import adapters_from_numpy, load_numpy_params  # noqa: E402
 from repro_torch.core.graph import ring_graph  # noqa: E402
 from repro_torch.models import TransformerLM  # noqa: E402
 
@@ -205,7 +207,7 @@ def test_preemption_in_lockstep_with_jax():
     assert (tb.swap_outs, tb.swap_ins) == (1, 1)
     roomy, _ = pressure("torch", 8 * 8, False, [])
     assert roomy == tt
-    (jsaved,), ((pages, columns),) = snaps["jax"], snaps["torch"]
+    (jsaved,), (((pages,), columns),) = snaps["jax"], snaps["torch"]
     conv, ssm = (np.asarray(t)[0, 0] for t in jsaved[0]["slot0"])  # (P, 1, ...) columns
     assert len(columns) == 2 and pages.shape[0] == 2  # one attention layer: its K and V
     np.testing.assert_allclose(columns[0].numpy(), conv, atol=1e-5, rtol=0)
@@ -214,16 +216,30 @@ def test_preemption_in_lockstep_with_jax():
 
 
 def test_prefix_cache_and_adapters_refuse_the_hybrid():
-    """The prefix cache would resume recurrent state from foreign blocks,
-    and the hybrid's adapters are not ported: both raise, with the reason."""
+    """The prefix cache would resume recurrent state from foreign blocks:
+    it raises, with the reason. The adapter store takes the hybrid in the
+    reference's layout — an "out" pair on the mamba slot, an "attn" and an
+    "mlp" pair on the shared-attention slot — and its raw and mixed trees
+    equal the JAX store's (the steps under it: tests/test_torch_xlstm_serve.py)."""
     with pytest.raises(ValueError, match="attention-only"):
         _batcher("torch", paging=_spec("torch"), prefix_cache=True)
     with pytest.raises(ValueError, match="attention-only"):
         tserve.ServeEngine(_built()[2], max_seq=MAX_SEQ, paging=_spec("torch"),
                            prefix_cache=True, cuda_graphs=False).generate(
             {"tokens": np.ones((1, 4), np.int32)}, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.TaskAdapterStore(_built()[2], ring_graph(4), rank=2)
+    jm, _, tm = _built()
+    js = jserve.TaskAdapterStore(jm, jax_ring_graph(4), rank=2)
+    js.randomize(scale=0.5)
+    ts = tserve.TaskAdapterStore(tm, ring_graph(4), rank=2)
+    adapters_from_numpy(ts, jax.tree.map(np.asarray, js.raw))
+    assert sorted(ts.raw["stages"][0]["slot0"]) == ["out"]
+    assert sorted(ts.raw["stages"][0]["slot1"]) == ["attn", "mlp"]
+    for tree, want in ((ts.raw, js.raw), (ts.serving, js.serving)):
+        got = list(tree_lib.paths(tree))
+        ref = list(tree_lib.paths(jax.tree.map(np.asarray, want)))
+        assert [p for p, _ in got] == [p for p, _ in ref]
+        for (p, a), (_, w) in zip(got, ref):
+            np.testing.assert_allclose(a.numpy(), w, atol=1e-6, rtol=1e-6, err_msg=p)
 
 
 def test_engine_generate_matches_jax_engine():

@@ -252,9 +252,10 @@ def test_hybrid_weights_map_layer_by_layer_and_round_trip(name):
     assert jax.tree.structure(back) == jax.tree.structure(tree)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
         assert a.dtype == b.dtype and np.array_equal(a, b)
-    xlstm = {"stages": [{"slot0": {"mlstm": {"w": np.zeros((1, 2), np.float32)}}}]}
-    with pytest.raises(ValueError, match="xLSTM layouts are not ported"):
-        params_from_numpy(xlstm, cfg)
+    # a stage the layout does not have: the smoke config has one stage
+    extra = {"stages": [{}, {"slot0": {"mamba": {"w": np.zeros((1, 2), np.float32)}}}]}
+    with pytest.raises(ValueError, match="not a stage leaf"):
+        params_from_numpy(extra, get("zamba2_7b", smoke=True))
 
 
 def test_hybrid_prefill_and_decode_steps_match_jax():

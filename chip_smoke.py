@@ -17,7 +17,12 @@ Phases; each raises on failure, and then no result line is printed:
                 192 rows), Zamba2-7B's shared attention (MHA, KVH=32,
                 G=1, hd=112: the first head dim that is no power of two;
                 S=2048; decode and prefill C=32, dense and paged, each
-                timed in f32 against its bound and plain version), a
+                timed in f32 against its bound and plain version),
+                Pixtral-12B's (KVH=8, G=4, hd=160, padded to 256 in the
+                decode block; S=2048; decode and prefill C=32: 128 slab
+                rows; dense and paged, each timed in f32 against its bound,
+                plain version and scaled_dot_product_attention with
+                enable_gqa), a
                 sliding window, and every head-dim instantiation; the paged kernels over a pool of 16-token
                 blocks with shuffled ids (1024 logical rows per slot); f32
                 (atol 2e-5) and bf16 (atol 2e-2). At the OLMo-1B f32
@@ -269,12 +274,52 @@ Phases; each raises on failure, and then no result line is printed:
                 decode ticks against the byte bound (the weights once, the
                 4 x 21 mLSTM states read and written); (d) 2 SGD steps at
                 full width and depth, batch 2 x 128, remat on: finite
-                loss, ms per step, peak memory. Logs one {"xlstm": ...}
+                loss, ms per step, peak memory; (e) one step of the same
+                model, weights and batch with xlstm_parallel=True (the
+                chunkwise-parallel mLSTM, chunk 64): its loss within 1e-4
+                relative of (d)'s first step's, its ms logged beside (d)'s.
+                Logs one {"xlstm": ...} JSON line.
+ 15. vlm      — run after phase 14: Pixtral-12B at full width and depth (40
+                layers, d_model 5120, 32 heads of hd 160, 8 KV heads, d_ff
+                14336, vocab 131072; 12.77 B params, ~51.1 GB of f32
+                weights; the depth is cut, and the cut logged, only if the
+                weights and caches would pass 75 GB), random weights from
+                seed 0, max_seq 2048, prefill chunk 32, 4 slots: (a) phase
+                12's 6 prompt lengths, each prompt with seeded vision
+                embeddings over its first half, 16 new tokens, dense and
+                paged, each with CUDA graphs and with cuda_graphs=False: 40
+                attention launches at hd 160 per dispatch (and per
+                warm-up), graph tokens == eager tokens, dense step logits
+                with graphs within 1e-5 of eager, the plain path's tokens
+                (dense) and paged == dense (margin rule), and request 0
+                served text only changes some of its tokens; (b) decode and
+                prefill tok/s, TTFT, peak memory; (c) a profile of 8 graph
+                decode ticks against the byte bound; (d) 2 SGD steps with
+                the graph-mixed update on a 2-layer Pixtral at full width,
+                batch 2 x 256 with vision inputs over each row's first
+                quarter: finite loss, wq, the embedding and
+                task.head_bias moved; ms per step, peak memory. Logs one
+                {"vlm": ...} JSON line.
+ 16. audio    — run after phase 15: MusicGen-large whole (48 layers, d_model
+                2048, 32 heads of hd 64 (MHA), GELU, LayerNorm, 4 codebooks
+                of 2048; 2.45 B params, ~9.8 GB f32, nothing cut): (a) the
+                same 6 prompt lengths as (S0, 4) codebook rows, dense and
+                paged, graphs and eager: 48 attention launches per
+                dispatch, graph rows == eager rows, step logits within
+                1e-5, the plain path's rows (dense) and paged == dense
+                (margin rule, per step over every codebook); two prompts
+                behind one 256-row codebook prefix through the prefix cache
+                (one slot, paged): hit rows > 0, their no-cache tokens; (b)
+                rates in frames (steps) per second, TTFT; (c) a profile of
+                8 graph decode ticks against the byte bound; (d) 2 SGD
+                steps at full depth, batch 2 x 256: finite loss, moved
+                weights, ms per step, peak memory. Logs one {"audio": ...}
                 JSON line.
 
 Output: the card's name and power limit first, per-phase lines, the
 {"paper": ...}, {"serve_rates": ...}, {"train": ...}, {"moe": ...},
-{"hybrid": ...}, {"mla": ...} and {"xlstm": ...} JSON lines, then one
+{"hybrid": ...}, {"mla": ...}, {"xlstm": ...}, {"vlm": ...} and
+{"audio": ...} JSON lines, then one
 {"kernels": [...]} JSON line with the five kernels, and last
 {"ok": true, "device": {...}}.
 Exits non-zero without a result when there is no CUDA device or no
@@ -451,11 +496,12 @@ def phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, gather_pages, br
         o = pre_ref.prefill_attention_reference(qg, k, v, pos, window=window)
         return o.permute(0, 2, 1, 3, 4).reshape(b, c, h, hd)
 
-    def library(q, k, v, table, mask):  # timed at MHA shapes only (G = 1): OLMo-1B, Zamba2
+    def library(q, k, v, table, mask):  # GQA (Pixtral's G 4) through enable_gqa
         if table is not None:  # two calls: the gather, then SDPA
             k, v = gather_pages(k, table), gather_pages(v, table)
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            enable_gqa=q.shape[2] != k.shape[2],
         )
 
     def kernel_op(c, block):
@@ -506,8 +552,16 @@ def phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, gather_pages, br
         ("zamba2_7b", 4, 2048, 32, 1, 112, 32, [0, 700, 1500, 2016], None, None),
         ("zamba2_7b", 4, 2048, 32, 1, 112, 1, [63, 700, 1500, 2047], None, 16),
         ("zamba2_7b", 4, 2048, 32, 1, 112, 32, [0, 700, 1500, 2016], None, 16),
+        # Pixtral-12B: GQA (KVH 8, G 4) at hd 160 (padded to 256 in the decode
+        # block), max_seq 2048; prefill C 32: 128 slab rows (four row tiles in
+        # f32, two in bf16); dense and paged; timed in f32 against the bound
+        ("pixtral_12b", 4, 2048, 8, 4, 160, 1, [63, 700, 1500, 2047], None, None),
+        ("pixtral_12b", 4, 2048, 8, 4, 160, 32, [0, 700, 1500, 2016], None, None),
+        ("pixtral_12b", 4, 2048, 8, 4, 160, 1, [63, 700, 1500, 2047], None, 16),
+        ("pixtral_12b", 4, 2048, 8, 4, 160, 32, [0, 700, 1500, 2016], None, 16),
     ]
-    entries, hd112 = {}, {}
+    entries = {}
+    timed = {"zamba2_7b": ("zamba2_hd112", {}), "pixtral_12b": ("pixtral_hd160", {})}
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for name, b, s, kvh, g, hd, c, pos, window, block in cases:
             op, kname = kernel_op(c, block)
@@ -523,8 +577,8 @@ def phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, gather_pages, br
                 f"(atol {TOL[dname]})")
             if not ok:
                 raise AssertionError(f"{kname} {name} {dname}: max_abs_err {err} > {TOL[dname]}")
-            if name == "zamba2_7b" and dname == "float32":
-                # the kernel at hd 112 against its bound and plain version, 4 input sets
+            if name in timed and dname == "float32":
+                # the kernel at hd 112 / 160 against its bound and plain version, 4 input sets
                 sets = inputs(b, s, kvh, g, hd, c, dtype, block, sets=4)
                 kv_pos = torch.arange(s, device=dev)
                 q_pos = pos_t[:, None] + torch.arange(c, device=dev)
@@ -533,12 +587,14 @@ def phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, gather_pages, br
                 plain_ms = graph_ms(torch, [lambda t=t: plain(*t, pos_t, None) for t in sets])
                 lib_ms = graph_ms(torch, [lambda t=t: library(*t, mask) for t in sets])
                 bound_ms, bound_by = bound(b, s, kvh, g, hd, c, pos, window, dname, block)
-                log(f"time {kname} zamba2_7b hd 112 f32: kernel {ms:.4f} ms, plain "
+                nsplit = (pre_ops.num_splits(q, kvh, s) if c > 1
+                          else dec_ops.num_splits(q, kvh, s, paged=block is not None))
+                log(f"time {kname} {name} hd {hd} f32: kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                    f"({bound_by}): {bound_ms / ms:.1%} of the bound")
-                hd112[kname] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                "library_ms": lib_ms, "bound_ms": bound_ms,
-                                "bound_by": bound_by}
+                    f"({bound_by}): {bound_ms / ms:.1%} of the bound; nsplit {nsplit}")
+                timed[name][1][kname] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                         "library_ms": lib_ms, "bound_ms": bound_ms,
+                                         "bound_by": bound_by, "nsplit": nsplit}
             if name != "olmo_1b" or dname != "float32":
                 continue
             # timing at the main path's shapes, 4 input sets per graph
@@ -570,8 +626,9 @@ def phase_kernels(torch, F, dec_ops, pre_ops, dec_ref, pre_ref, gather_pages, br
                               call(op, q, k, v, table, pos_t),
                               lambda q=q, k=k, v=v, table=table, mask=mask:
                               library(q, k, v, table, mask)))
-    for kname, entry in hd112.items():  # each kernel's row carries its hd-112 timing
-        entries[kname]["zamba2_hd112"] = entry
+    for key, rows in timed.values():  # each kernel's row carries its hd-112 / 160 timing
+        for kname, entry in rows.items():
+            entries[kname][key] = entry
     return entries
 
 
@@ -928,12 +985,23 @@ def check_launches(phase, launches, st, paged, layers=LAYERS, graph_mix=0):
         raise AssertionError(f"{phase}: kernel launches {launches} != expected {want}")
 
 
-def serve_timed(torch, engine, prompts, new, ops, task_ids=None, zero=True):
+def vision_batch(extras):
+    """A VLM's per-request extras (dicts, or None for text only) as the
+    engine's prompt-batch lists, zeros under a False mask for text rows;
+    {} without extras."""
+    if extras is None:
+        return {}
+    return {"vision_embeds": [e["vision_embeds"] for e in extras],
+            "vision_mask": [e["vision_mask"] for e in extras]}
+
+
+def serve_timed(torch, engine, prompts, new, ops, task_ids=None, zero=True, extras=None):
     """One ServeEngine.generate call with the launch counts zeroed just
     before (unless the caller zeroed them earlier: ``zero=False``) and read
-    just after; returns (tokens, launches, ttft list, wall)."""
+    just after; ``extras``: a VLM's per-request vision inputs. Returns
+    (tokens, launches, ttft list, wall)."""
     first = {}
-    batch = {"tokens": prompts}
+    batch = {"tokens": prompts, **vision_batch(extras)}
     if task_ids is not None:
         batch["task_ids"] = task_ids
     torch.cuda.synchronize()
@@ -950,36 +1018,42 @@ def serve_timed(torch, engine, prompts, new, ops, task_ids=None, zero=True):
     return toks, read_counts(ops), sorted(first.values()), wall
 
 
-def report_rates(phase, st, n_req, new, ttft, wall):
+def report_rates(phase, st, n_req, new, ttft, wall, unit="tok"):
+    """Decode and prefill rates, TTFT, wall and capture time; ``unit``
+    "frames" for an audio model, whose step emits one row of K codebook
+    tokens (the rates count steps: frames per second)."""
     decode_tokens = n_req * (new - 1)  # each request's first token comes from prefill
     rates = {
         "decode_tok_s": decode_tokens / st["decode_s"],
         "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
         "ttft_p50_s": statistics.median(ttft), "ttft_max_s": ttft[-1], "wall_s": wall,
-        "capture_s": st["capture_s"],
+        "capture_s": st["capture_s"], "unit": unit,
     }
-    log(f"{phase}: decode {rates['decode_tok_s']:.1f} tok/s ({decode_tokens} tokens in "
-        f"{st['decode_s']:.3f} s), prefill {rates['prefill_tok_s']:.1f} tok/s "
-        f"({st['prefill_tokens']} tokens in {st['prefill_s']:.3f} s), TTFT p50 "
+    log(f"{phase}: decode {rates['decode_tok_s']:.1f} {unit}/s ({decode_tokens} {unit} in "
+        f"{st['decode_s']:.3f} s), prefill {rates['prefill_tok_s']:.1f} {unit}/s "
+        f"({st['prefill_tokens']} {unit} in {st['prefill_s']:.3f} s), TTFT p50 "
         f"{rates['ttft_p50_s']:.3f} s max {rates['ttft_max_s']:.3f} s, wall {wall:.3f} s; "
         f"capture {st['capture_s']:.3f} s ({st['captures']} graphs)")
     return rates
 
 
-def eager_parity(torch, phase, engine, prompts, new, ops, toks, task_ids=None):
+def eager_parity(torch, phase, engine, prompts, new, ops, toks, task_ids=None, extras=None,
+                 unit="tok"):
     """The same requests through ``engine`` (built with cuda_graphs=False):
     greedy tokens identical to the graph run's ``toks``, every request;
     returns the eager run's rates."""
-    etoks, _, ettft, ewall = serve_timed(torch, engine, prompts, new, ops, task_ids)
+    etoks, _, ettft, ewall = serve_timed(torch, engine, prompts, new, ops, task_ids,
+                                         extras=extras)
     if not (etoks.shape == toks.shape and (etoks == toks).all()):
         bad = sorted({int(i) for i in (etoks != toks).nonzero()[0]})
         raise AssertionError(f"{phase}: graph tokens != eager tokens for requests {bad}")
     log(f"{phase}: CUDA-graph tokens == eager tokens on all {toks.size} greedy tokens")
-    return report_rates(f"{phase} (eager)", engine.last_stats, len(prompts), new, ettft, ewall)
+    return report_rates(f"{phase} (eager)", engine.last_stats, len(prompts), new, ettft, ewall,
+                        unit)
 
 
 def logits_parity(np, phase, model, ContinuousBatcher, Request, prompts, max_seq=1024,
-                  **batcher_kw):
+                  extras=None, **batcher_kw):
     """Every logits row every dispatch hands the sampler (greedy), with
     CUDA graphs against eager, for the same requests: within GRAPH_TOL.
     Returns the largest absolute difference."""
@@ -989,12 +1063,13 @@ def logits_parity(np, phase, model, ContinuousBatcher, Request, prompts, max_seq
 
         def keep(req, row, rows=rows):
             rows[(req.uid, len(req.out))] = row.copy()
-            return int(np.argmax(row))
+            return np.argmax(row, axis=-1)
 
         bt = ContinuousBatcher(model, num_slots=4, max_seq=max_seq, prefill_chunk=32,
                                sample_fn=keep, cuda_graphs=graphs, **batcher_kw)
         for uid, p in enumerate(prompts):
-            bt.submit(Request(uid=uid, tokens=p, max_new=NEW))
+            bt.submit(Request(uid=uid, tokens=p, max_new=NEW,
+                              extras=None if extras is None else extras[uid]))
         bt.run()
         bt.close()
         runs.append(rows)
@@ -1029,40 +1104,43 @@ def plain_backend(model):
 
 
 def greedy_run(np, model, prompts, new, ContinuousBatcher, Request, task_ids=None,
-               max_seq=1024, **batcher_kw):
+               max_seq=1024, extras=None, **batcher_kw):
     """The requests through a 4-slot batcher, greedy, with each step's
-    top-2 logit margin recorded: (outputs, margins) by uid."""
+    top-2 logit margin recorded (an audio row's: the smallest over its
+    codebooks): (outputs, margins) by uid."""
     margins: dict = {}
 
     def greedy_with_margin(req, row):
         if not np.isfinite(row).all():
             raise AssertionError(f"non-finite logits for request {req.uid}")
-        top2 = np.partition(row, -2)[-2:]
-        margins.setdefault(req.uid, []).append(float(top2[1] - top2[0]))
-        return int(np.argmax(row))
+        top2 = np.partition(row, -2, axis=-1)[..., -2:]
+        margins.setdefault(req.uid, []).append(float((top2[..., 1] - top2[..., 0]).min()))
+        return np.argmax(row, axis=-1)
 
     batcher = ContinuousBatcher(model, num_slots=4, max_seq=max_seq, prefill_chunk=32,
                                 sample_fn=greedy_with_margin, **batcher_kw)
     for uid, p in enumerate(prompts):
         tid = 0 if task_ids is None else int(task_ids[uid])
-        batcher.submit(Request(uid=uid, tokens=p, max_new=new, task_id=tid))
+        batcher.submit(Request(uid=uid, tokens=p, max_new=new, task_id=tid,
+                               extras=None if extras is None else extras[uid]))
     out = {r.uid: r.out for r in batcher.run()}
     batcher.close()
     return out, margins
 
 
 def plain_run(np, model, prompts, new, ContinuousBatcher, Request, task_ids=None,
-              max_seq=1024, **batcher_kw):
+              max_seq=1024, extras=None, **batcher_kw):
     """The same requests through the plain attention path, greedy, with
     each step's top-2 logit margin recorded: (outputs, margins) by uid."""
     with plain_backend(model):  # the oracle runs eagerly
         return greedy_run(np, model, prompts, new, ContinuousBatcher, Request, task_ids,
-                          max_seq, cuda_graphs=False, **batcher_kw)
+                          max_seq, extras, cuda_graphs=False, **batcher_kw)
 
 
 def compare(phase, what, toks, ref, margins, new):
     """Greedy parity under the margin rule: a request's comparison ends at
-    the first step whose plain top-2 margin is below MARGIN."""
+    the first step whose plain top-2 margin is below MARGIN (an audio step
+    is a row of K codebook tokens, compared whole)."""
     compared = 0
     for uid in range(len(toks)):
         for t in range(new):
@@ -1070,7 +1148,7 @@ def compare(phase, what, toks, ref, margins, new):
                 log(f"{phase}: request {uid} comparison with {what} ends at step {t}: "
                     f"plain top-2 margin {margins[uid][t]:.2e} < {MARGIN}")
                 break
-            if int(ref[uid][t]) != int(toks[uid][t]):
+            if plain_value(ref[uid][t]) != plain_value(toks[uid][t]):
                 raise AssertionError(
                     f"{phase}: request {uid} step {t}: kernel token {toks[uid][t]} != "
                     f"{what} {ref[uid][t]} (margin {margins[uid][t]:.3e})")
@@ -1079,8 +1157,14 @@ def compare(phase, what, toks, ref, margins, new):
     return compared
 
 
-def check_tokens(phase, toks, n, new, vocab):
-    if toks.shape != (n, new) or toks.min() < 0 or toks.max() >= vocab:
+def plain_value(tok):
+    """A greedy step as a Python value: an int, or an audio row's list."""
+    return tok.tolist() if hasattr(tok, "tolist") else tok
+
+
+def check_tokens(phase, toks, n, new, vocab, codebooks=1):
+    want = (n, new) if codebooks == 1 else (n, new, codebooks)
+    if toks.shape != want or toks.min() < 0 or toks.max() >= vocab:
         raise AssertionError(f"{phase}: bad output tokens: shape {toks.shape}")
 
 
@@ -1784,10 +1868,21 @@ def train_steps(tr, model, microbatches=1):
 
 
 def train_batches(tr, cfg, batch, seq, n):
-    """The first n host batches of the token pipeline (seed TRAIN_SEED)."""
+    """The first n host batches of the token pipeline (seed TRAIN_SEED), as
+    the model's input mode takes them (the launcher's ``model_inputs``);
+    a VLM's carry seeded vision embeddings over each row's first quarter."""
     pipe = iter(tr["TokenPipeline"](cfg.vocab_size, seq_len=seq, global_batch=batch,
                                     num_tasks=cfg.num_tasks, seed=TRAIN_SEED))
-    return [next(pipe) for _ in range(n)]
+    out = [tr["model_inputs"](cfg, next(pipe)) for _ in range(n)]
+    if cfg.input_mode == "vlm":
+        import numpy as np
+
+        rng = np.random.default_rng(TRAIN_SEED)
+        for b in out:
+            b["vision_embeds"] = rng.standard_normal(b["vision_embeds"].shape).astype(
+                np.float32)
+            b["vision_mask"][:, : seq // 4] = True
+    return out
 
 
 def free_card(torch):
@@ -2093,8 +2188,7 @@ def profile_ticks(torch, np, phase, model, ContinuousBatcher, Request, max_seq, 
         rng = np.random.default_rng(1)
         bt = ContinuousBatcher(model, num_slots=4, max_seq=max_seq, prefill_chunk=32)
         for uid, n in enumerate(lens):
-            bt.submit(Request(uid=uid, tokens=rng.integers(0, cfg.vocab_size, n)
-                              .astype(np.int32), max_new=64))
+            bt.submit(Request(uid=uid, tokens=prompt_tokens(np, rng, cfg, n), max_new=64))
         bt.capture()
         return _admitted(bt)
 
@@ -2179,8 +2273,9 @@ def decode_tick_bound(model, positions):
             shared += p.numel() * p.element_size() * invocations
         else:
             weights += p.numel() * p.element_size()
-    if not cfg.tie_embeddings:
-        weights += len(positions) * cfg.d_model * model.embed.element_size()
+    if not cfg.tie_embeddings:  # one row a slot, one a codebook for audio
+        weights += (len(positions) * cfg.num_codebooks * cfg.d_model
+                    * model.embed.element_size())
     # one slot's state and one cache row of every layer: the (1, 1, ...) cache
     one = [(kind in ("mamba", "mlstm", "slstm"), sum(t.nbytes for t in entry))
            for kind, entry in zip(model.kinds, model.init_cache(1, 1))]
@@ -2493,44 +2588,60 @@ MLA_PROFILE_LENS = HYBRID_PROFILE_LENS
 MLA_TRAIN = {"batch": 2, "seq": 256, "steps": 2, "lr": 1e-2}
 
 
+def prompt_tokens(np, rng, cfg, n):
+    """A random prompt of ``n`` positions: (n,) ids, or an audio model's
+    (n, K) codebook rows."""
+    shape = (n, cfg.num_codebooks) if cfg.input_mode == "audio" else (n,)
+    return rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+
+
 def serve_family(torch, np, phase, model, ServeEngine, ContinuousBatcher, Request, ops,
-                 max_seq, lens, layouts, reused=()):
-    """The requests of ``lens`` through the engine in each (layout, engine
-    kwargs) of ``layouts``, with CUDA graphs and eagerly: no attention
-    kernel launch (the model has no GQA layer, so the plain backend runs
-    the same code), graph tokens == eager tokens; for the first layout the
-    step logits with graphs within GRAPH_TOL of eager, and the ``reused``
-    requests, each alone in a fresh batcher, under the margin rule; each
-    later layout against the first under the margin rule of a plain run.
-    Returns ({layout: rates}, launches, the first layout's tokens)."""
+                 max_seq, lens, layouts, reused=(), layers=0, extras=None, prompts=None):
+    """The requests of ``lens`` (or the given ``prompts``, with a VLM's
+    per-request ``extras``) through the engine in each (layout, engine
+    kwargs) of ``layouts``, with CUDA graphs and eagerly: ``layers``
+    attention-kernel launches per dispatch (0 for a model with no GQA
+    layer, whose plain backend runs the same code), graph tokens == eager
+    tokens; for the first layout the step logits with graphs within
+    GRAPH_TOL of eager, and the ``reused`` requests, each alone in a fresh
+    batcher, under the margin rule; each later layout against the first
+    under the margin rule of a plain run, which the first layout's tokens
+    meet too. An audio model's steps are rows of K tokens, its rates
+    frames per second. Returns ({layout: rates}, launches, the first
+    layout's tokens)."""
     cfg = model.cfg
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    if prompts is None:
+        prompts = [prompt_tokens(np, rng, cfg, n) for n in lens]
+    unit = "frames" if cfg.input_mode == "audio" else "tok"
     kw = dict(max_seq=max_seq, prefill_chunk=32, num_slots=4)
     out, launches, first = {}, {}, None
     for layout, extra in layouts:
         name = f"{phase} {layout}"
         engine = ServeEngine(model, **kw, **extra)
-        toks, launched, ttft, wall = serve_timed(torch, engine, prompts, NEW, ops)
+        toks, launched, ttft, wall = serve_timed(torch, engine, prompts, NEW, ops,
+                                                 extras=extras)
         st = engine.last_stats
-        check_launches(name, launched, st, paged="paging" in extra, layers=0)
-        check_tokens(name, toks, len(prompts), NEW, cfg.vocab_size)
-        rates = report_rates(name, st, len(prompts), NEW, ttft, wall)
+        check_launches(name, launched, st, paged="paging" in extra, layers=layers)
+        check_tokens(name, toks, len(prompts), NEW, cfg.vocab_size, cfg.num_codebooks)
+        rates = report_rates(name, st, len(prompts), NEW, ttft, wall, unit)
         rates["eager"] = eager_parity(torch, name, ServeEngine(model, cuda_graphs=False, **kw,
                                                                **extra),
-                                      prompts, NEW, ops, toks)
+                                      prompts, NEW, ops, toks, extras=extras, unit=unit)
         if first is None:
             rates["logits_diff_graph_vs_eager"] = logits_parity(
                 np, name, model, ContinuousBatcher, Request, prompts, max_seq=max_seq,
-                **extra)
+                extras=extras, **extra)
             if len(layouts) > 1:  # the margins the later layouts are held under
                 ref, margins = plain_run(np, model, prompts, NEW, ContinuousBatcher, Request,
-                                         max_seq=max_seq, **extra)
+                                         max_seq=max_seq, extras=extras, **extra)
                 rates["plain_compared"] = compare(name, "plain path", toks, ref, margins, NEW)
             first = toks
             if reused:
                 alone = [greedy_run(np, model, [prompts[u]], NEW, ContinuousBatcher, Request,
-                                    max_seq=max_seq, **extra) for u in reused]
+                                    max_seq=max_seq,
+                                    extras=None if extras is None else [extras[u]], **extra)
+                         for u in reused]
                 rates["reuse_compared"] = compare(
                     f"{phase} reuse", "a fresh batcher", toks[list(reused)],
                     [a[0][0] for a in alone], [a[1][0] for a in alone], NEW)
@@ -2592,6 +2703,7 @@ XLSTM_REUSED = HYBRID_REUSED
 XLSTM_PROFILE_LENS = HYBRID_PROFILE_LENS
 XLSTM_ADAPTER_RANK = 8
 XLSTM_TRAIN = {"batch": 2, "seq": 128, "steps": 2, "lr": 1e-2}
+XLSTM_PARALLEL_RTOL = 1e-4  # 14(e): the chunkwise step's loss against the sequential one's
 
 
 def xlstm_adapters(torch, np, model, ServeEngine, ContinuousBatcher, Request,
@@ -2696,11 +2808,206 @@ def phase_xlstm(torch, np, tr, get, TransformerLM, ServeEngine, ContinuousBatche
     out["train"] = train_family(torch, np, tr, "xlstm", cfg, smi, dev, XLSTM_TRAIN,
                                 watched=("layers.0.mlstm.wq",
                                          f"layers.{cfg.period - 1}.slstm.r"))
+    # (e) one step of the chunkwise-parallel mLSTM on (d)'s weights and batch
+    par = train_family(torch, np, tr, "xlstm (e) xlstm_parallel",
+                       dataclasses.replace(cfg, xlstm_parallel=True), smi, dev,
+                       dict(XLSTM_TRAIN, steps=1), watched=("layers.0.mlstm.wq",))
+    rel = abs(par["loss"][0] - out["train"]["loss"][0]) / abs(out["train"]["loss"][0])
+    log(f"xlstm (e): chunkwise-parallel mLSTM (chunk {cfg.xlstm_chunk or 64}) step "
+        f"{par['ms'][0]:.1f} ms against the sequential cell's {out['train']['ms']} ms; loss "
+        f"{par['loss'][0]:.6f} vs {out['train']['loss'][0]:.6f}: relative difference "
+        f"{rel:.2e} (limit {XLSTM_PARALLEL_RTOL})")
+    if not rel <= XLSTM_PARALLEL_RTOL:
+        raise AssertionError(f"xlstm (e): the chunkwise loss differs by {rel:.2e}")
+    out["train_parallel"] = dict(par, loss_rel_diff=rel)
     out["memory_mb_after"] = log_memory(torch, "xlstm (after)")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"xlstm: phase passed in {out['seconds']:.1f} s")
     return out, launches
 
+
+
+# ------------------------------------------------------ phase 15: the VLM
+VLM_MAX_SEQ = 2048
+VLM_LENS = HYBRID_LENS  # 6 requests over 4 slots
+VLM_PROFILE_LENS = HYBRID_PROFILE_LENS
+VLM_PEAK_GB = 75  # serving peak the phase allows itself before it cuts depth
+VLM_TRAIN_LAYERS = 2
+VLM_TRAIN = {"batch": 2, "seq": 256, "steps": 2, "lr": 1e-2}
+
+
+def vlm_requests(np, cfg, lens):
+    """Seeded prompts of ``lens`` tokens, each with vision embeddings over
+    its first half (the image patches' positions), as per-request extras."""
+    rng = np.random.default_rng(0)
+    prompts, extras = [], []
+    for n in lens:
+        prompts.append(rng.integers(0, cfg.vocab_size, n).astype(np.int32))
+        mask = np.zeros(n, bool)
+        mask[: n // 2] = True
+        extras.append({"vision_embeds": rng.standard_normal((n, cfg.d_model))
+                       .astype(np.float32), "vision_mask": mask})
+    return prompts, extras
+
+
+def serving_gb(cfg, max_seq, slots):
+    """f32 weights and the dense and paged caches of a serve phase, GB: what
+    the phase's peak is made of (activations are a few hundred MB)."""
+    c = cfg
+    attn = c.d_model * c.head_dim * (2 * c.num_heads + 2 * c.num_kv_heads)
+    mlp = (3 if c.mlp_kind == "swiglu" else 2) * c.d_model * c.d_ff
+    v = c.vocab_size * c.num_codebooks
+    params = c.num_layers * (attn + mlp) + 2 * v * c.d_model
+    cache = 2 * c.num_layers * max_seq * slots * c.num_kv_heads * c.head_dim
+    return 4 * (params + 2 * cache) / 1e9
+
+
+def phase_vlm(torch, np, tr, get, TransformerLM, ServeEngine, ContinuousBatcher, Request,
+              PagingSpec, ops, smi, dev="cuda"):
+    """Phase 15: Pixtral-12B at full width and depth, served dense and paged
+    with vision inputs, profiled, and trained 2 layers deep (see the
+    docstring). ``dev`` "cpu" rehearses it off the card (a smoke config
+    through ``get``, the card's calls patched)."""
+    t_phase = time.perf_counter()
+    free_card(torch)
+    out = {"memory_mb_before": log_memory(torch, "vlm (before)")}
+    cfg = get("pixtral_12b")
+    full = cfg.num_layers
+    while serving_gb(cfg, VLM_MAX_SEQ, 4) > VLM_PEAK_GB:
+        cfg = dataclasses.replace(cfg, num_layers=cfg.num_layers - 1)
+    if cfg.num_layers != full:
+        log(f"vlm: depth cut to {cfg.num_layers} of {full} layers: the serving peak would "
+            f"pass {VLM_PEAK_GB} GB")
+    t1 = time.perf_counter()
+    model = TransformerLM(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    out["params"] = sum(p.numel() for p in model.parameters())
+    out["layers"] = cfg.num_layers
+    log(f"vlm: Pixtral-12B full width, {cfg.num_layers} of {full} layers (d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads of hd {cfg.head_dim}, {cfg.num_kv_heads} KV "
+        f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {out['params']} params, f32, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB) initialised in "
+        f"{time.perf_counter() - t1:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    prompts, extras = vlm_requests(np, cfg, VLM_LENS)
+    layouts = (("dense", {}),
+               ("paged", {"paging": PagingSpec.sized(16, VLM_MAX_SEQ, 4 * VLM_MAX_SEQ)}))
+    out["serve"], launches, toks = serve_family(
+        torch, np, "vlm", model, ServeEngine, ContinuousBatcher, Request, ops, VLM_MAX_SEQ,
+        VLM_LENS, layouts, layers=cfg.num_layers, extras=extras, prompts=prompts)
+    # the vision inputs reach the card: the first request without them differs
+    text, _ = greedy_run(np, model, prompts[:1], NEW, ContinuousBatcher, Request,
+                         max_seq=VLM_MAX_SEQ)
+    changed = int((np.asarray(text[0]) != toks[0]).sum())
+    log(f"vlm: request 0 text only (no vision inputs) changes {changed} of its {NEW} tokens")
+    if not changed:
+        raise AssertionError("vlm: the vision inputs changed no token of request 0")
+    out["text_only_changed"] = changed
+    out["decode_tick"] = profile_ticks(torch, np, "vlm", model, ContinuousBatcher, Request,
+                                       VLM_MAX_SEQ, VLM_PROFILE_LENS, layers=cfg.num_layers)
+    out["serve_peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+    log(f"vlm: serving peak torch.cuda.max_memory_allocated {out['serve_peak_mb']:.1f} MB; "
+        f"{smi}")
+    del model
+    free_card(torch)
+    out["train"] = train_family(
+        torch, np, tr, "vlm", dataclasses.replace(cfg, num_layers=VLM_TRAIN_LAYERS), smi, dev,
+        VLM_TRAIN, watched=("layers.0.attn.wq", "embed", "task.head_bias"))
+    out["memory_mb_after"] = log_memory(torch, "vlm (after)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"vlm: phase passed in {out['seconds']:.1f} s")
+    return out, launches
+
+
+# ---------------------------------------------------- phase 16: the audio LM
+AUDIO_MAX_SEQ = 2048
+AUDIO_LENS = HYBRID_LENS
+AUDIO_PROFILE_LENS = HYBRID_PROFILE_LENS
+AUDIO_SHARED = 256  # rows of codebook prefix the prefix-cache requests share
+AUDIO_TAILS = (64, 100)
+AUDIO_TRAIN = {"batch": 2, "seq": 256, "steps": 2, "lr": 1e-2}
+
+
+def audio_prefix(torch, np, model, ContinuousBatcher, Request, PagingSpec, ops):
+    """16(a): two prompts of codebook rows behind one AUDIO_SHARED-row
+    prefix, one slot, paged (16-row blocks), with and without the prefix
+    cache: the second hits the first's blocks, and both give their no-cache
+    tokens. Returns the record and the launches."""
+    cfg = model.cfg
+    rng = np.random.default_rng(5)
+    shared = prompt_tokens(np, rng, cfg, AUDIO_SHARED)
+    prompts = [np.concatenate([shared, prompt_tokens(np, rng, cfg, n)]) for n in AUDIO_TAILS]
+    launches = {name: 0 for name in COUNTED}
+    runs = {}
+    for cache in (False, True):
+        bt = ContinuousBatcher(model, num_slots=1, max_seq=AUDIO_MAX_SEQ, prefill_chunk=32,
+                               paging=PagingSpec.sized(16, AUDIO_MAX_SEQ, 2 * AUDIO_MAX_SEQ),
+                               prefix_cache=cache)
+        torch.cuda.synchronize()
+        zero_counts(ops)
+        for uid, p in enumerate(prompts):
+            bt.submit(Request(uid=uid, tokens=p, max_new=NEW))
+        outs = {r.uid: np.stack(r.out) for r in bt.run()}
+        torch.cuda.synchronize()
+        launched = read_counts(ops)
+        check_launches(f"audio prefix (cache {cache})", launched, batcher_stats(bt),
+                       paged=True, layers=cfg.num_layers)
+        for k, n in launched.items():
+            launches[k] += n
+        runs[cache] = (outs, bt.prefix.hit_tokens if cache else 0, bt.prefill_tokens)
+        bt.close()
+    (plain, _, plain_pf), (hit, hits, hit_pf) = runs[False], runs[True]
+    same = all(np.array_equal(plain[u], hit[u]) for u in plain)
+    log(f"audio prefix: {hits} cached codebook rows hit, prefill rows {hit_pf} with the cache "
+        f"against {plain_pf} without; tokens == the no-cache run's: {same}")
+    if not (hits > 0 and same):
+        raise AssertionError(f"audio prefix: hits {hits}, tokens equal {same}")
+    return {"hit_tokens": hits, "prefill_rows": hit_pf, "prefill_rows_no_cache": plain_pf}, \
+        launches
+
+
+def phase_audio(torch, np, tr, get, TransformerLM, ServeEngine, ContinuousBatcher, Request,
+                PagingSpec, ops, smi, dev="cuda"):
+    """Phase 16: MusicGen-large whole, served dense and paged over codebook
+    rows, with the prefix cache, profiled and trained at full depth (see
+    the docstring). ``dev`` "cpu" rehearses it off the card (a smoke config
+    through ``get``, the card's calls patched)."""
+    t_phase = time.perf_counter()
+    free_card(torch)
+    out = {"memory_mb_before": log_memory(torch, "audio (before)")}
+    t1 = time.perf_counter()
+    model = TransformerLM(get("musicgen_large"), device=dev, seed=0)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    out["params"] = sum(p.numel() for p in model.parameters())
+    log(f"audio: MusicGen-large full width and depth ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads of hd {cfg.head_dim} (MHA), GELU, LayerNorm, "
+        f"{cfg.num_codebooks} codebooks of {cfg.vocab_size}; {out['params']} params, f32, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB) initialised in "
+        f"{time.perf_counter() - t1:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    layouts = (("dense", {}),
+               ("paged", {"paging": PagingSpec.sized(16, AUDIO_MAX_SEQ, 4 * AUDIO_MAX_SEQ)}))
+    out["serve"], launches, _ = serve_family(
+        torch, np, "audio", model, ServeEngine, ContinuousBatcher, Request, ops, AUDIO_MAX_SEQ,
+        AUDIO_LENS, layouts, layers=cfg.num_layers)
+    out["prefix"], more = audio_prefix(torch, np, model, ContinuousBatcher, Request,
+                                       PagingSpec, ops)
+    for k, n in more.items():
+        launches[k] = launches.get(k, 0) + n
+    out["decode_tick"] = profile_ticks(torch, np, "audio", model, ContinuousBatcher, Request,
+                                       AUDIO_MAX_SEQ, AUDIO_PROFILE_LENS, layers=cfg.num_layers)
+    out["serve_peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+    log(f"audio: serving peak torch.cuda.max_memory_allocated {out['serve_peak_mb']:.1f} MB; "
+        f"{smi}")
+    del model
+    free_card(torch)
+    out["train"] = train_family(torch, np, tr, "audio", cfg, smi, dev, AUDIO_TRAIN,
+                                watched=("layers.0.mlp.wi", "embed", "task.head_bias"))
+    out["memory_mb_after"] = log_memory(torch, "audio (after)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"audio: phase passed in {out['seconds']:.1f} s")
+    return out, launches
 
 
 def main() -> int:
@@ -2742,6 +3049,7 @@ def main() -> int:
     from repro_torch.core import GraphMultiTask
     from repro_torch.data import TokenPipeline
     from repro_torch.launch.train import main as launch_main
+    from repro_torch.launch.train import model_inputs
     from repro_torch.models.attention import causal_attend
 
     train_lib = {"TransformerLM": TransformerLM, "convert": convert, "tree": tree_lib,
@@ -2749,7 +3057,8 @@ def main() -> int:
                  "band_graph": band_graph, "make_train_step": trainer.make_train_step,
                  "init_state": trainer.init_state, "batch_to_device": trainer.batch_to_device,
                  "TokenPipeline": TokenPipeline, "causal_attend": causal_attend,
-                 "launch_main": launch_main, "load_pytree": load_pytree}
+                 "launch_main": launch_main, "load_pytree": load_pytree,
+                 "model_inputs": model_inputs}
 
     # full f32 products everywhere: no TF32, no reduced-precision bf16 sums
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2812,6 +3121,10 @@ def main() -> int:
     xlstm, xlstm_launches = phase_xlstm(torch, np, train_lib, get, TransformerLM, ServeEngine,
                                         ContinuousBatcher, Request, TaskAdapterStore,
                                         band_graph, tree_lib, ops, smi)
+    vlm, vlm_launches = phase_vlm(torch, np, train_lib, get, TransformerLM, ServeEngine,
+                                  ContinuousBatcher, Request, PagingSpec, ops, smi)
+    audio, audio_launches = phase_audio(torch, np, train_lib, get, TransformerLM, ServeEngine,
+                                        ContinuousBatcher, Request, PagingSpec, ops, smi)
     phase_breakdown(torch, breakdown)
     del breakdown  # its closures hold the phase-2 inputs
     log(json.dumps({"paper": {"device": smi, **paper}}))
@@ -2824,18 +3137,20 @@ def main() -> int:
     log(json.dumps({"hybrid": {"device": smi, **hybrid}}))
     log(json.dumps({"mla": {"device": smi, **mla}}))
     log(json.dumps({"xlstm": {"device": smi, **xlstm}}))
+    log(json.dumps({"vlm": {"device": smi, **vlm}}))
+    log(json.dumps({"audio": {"device": smi, **audio}}))
     log(f"smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     # launches of each kernel on the main paths, each counted from zero:
     # the dense, adapters and train (serving after training) phases for the
     # dense kernels, the paged and prefix phases for the paged ones, the
-    # faults, moe and hybrid phases for both, the adapters and xlstm phases
-    # for the graph mix (the mla phase launches none: MLA is plain, as in
-    # the reference)
+    # faults, moe, hybrid, vlm and audio phases for both, the adapters and
+    # xlstm phases for the graph mix (the mla phase launches none: MLA is
+    # plain, as in the reference)
     launches = {
         name: sum(ph["launches"][name]
                   for ph in (dense, paged, prefix, faults, adapters, train["serve"]))
         + sum(ph.get(name, 0) for ph in (moe_launches, hybrid_launches, mla_launches,
-                                         xlstm_launches))
+                                         xlstm_launches, vlm_launches, audio_launches))
         for name in COUNTED
     }
     meta = {

@@ -1,19 +1,24 @@
 """Architecture config schema + registry of the port.
 
 The port's own copy of the fields of ``repro.configs.base.ArchConfig`` that
-the dense, mixture-of-experts, MLA, Mamba2 and xLSTM serving and training
-paths read (plus ``num_tasks``, ``adapter_rank``, ``q_chunk`` and
-``remat``), with the same values per architecture. The reference's
-``fsdp_gather_moe``, ``mla_replicate_cache`` and ``mla_cache_seq_shard``
-are left out: they are sharding constraints with no arithmetic of their
-own, and come with the port's sharded training. The backend flag
-``attn_backend`` is the port's, and it selects every hand-written kernel,
-not only attention's: ``"kernel"``
-serves attention from the CUDA attention kernels and mixes task adapters
-(``repro_torch.serve.adapters``) with the CUDA graph-mix kernel; ``"plain"`` runs the plain PyTorch version of each
-(the masked-softmax attention that plays the role of the JAX package's
-``"jnp"``, and the einsum graph mix). ``get(name, smoke=)`` resolves either
-variant; ``multitask_linreg`` resolves to the paper's own workload, a
+its serving and training paths read, with the same values per architecture:
+every block kind (dense and mixture-of-experts attention, GQA or MLA,
+Mamba2, mLSTM, sLSTM), the input modes (token ids; a VLM's token ids with
+precomputed vision embeddings; an audio model's codebook tokens), the
+chunkwise-parallel mLSTM, and ``num_tasks``, ``adapter_rank``, ``q_chunk``
+and ``remat``. The reference's ``fsdp_gather_moe``,
+``mla_replicate_cache``, ``mla_cache_seq_shard``, ``activation_sharding``
+and ``logits_sharding`` are left out: they are sharding constraints with no
+arithmetic of their own, and come with the port's sharded training (as do
+``unroll`` and ``long_context_ok``, which no port path reads). The backend
+flag ``attn_backend`` is the port's, and it selects every hand-written
+kernel, not only attention's: ``"kernel"`` serves attention from the CUDA
+attention kernels and mixes task adapters (``repro_torch.serve.adapters``)
+with the CUDA graph-mix kernel; ``"plain"`` runs the plain PyTorch version
+of each (the masked-softmax attention that plays the role of the JAX
+package's ``"jnp"``, and the einsum graph mix). ``get(name, smoke=)``
+resolves either variant of all twelve of the reference's architectures;
+``multitask_linreg`` resolves to the paper's own workload, a
 ``LinRegConfig`` (``repro_torch.configs.multitask_linreg``).
 """
 from __future__ import annotations
@@ -23,6 +28,7 @@ import importlib
 
 ATTN_BACKENDS = ("kernel", "plain")
 BLOCK_KINDS = ("attn", "attn_moe", "shared_attn", "mamba", "mlstm", "slstm")
+INPUT_MODES = ("tokens", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +69,12 @@ class ArchConfig:
     # dispatch groups: the tokens of a dispatch are routed in this many
     # equal groups, each with its own capacity
     moe_groups: int = 1
+    # inputs: "tokens" (B, S) ids; "vlm" ids plus (B, S, d_model)
+    # vision_embeds that replace the embedding where (B, S) vision_mask is
+    # True; "audio" (B, S, num_codebooks) ids, one embedding table and one
+    # head block per codebook, logits (B, S, num_codebooks, vocab_size)
+    input_mode: str = "tokens"
+    num_codebooks: int = 1
     num_tasks: int = 16
     # default low-rank width of the serving-time per-task adapters
     # (repro_torch.serve.adapters.TaskAdapterStore); 0 = the store's caller
@@ -73,7 +85,8 @@ class ArchConfig:
     mamba_chunk: int = 128
     # xLSTM (pattern kinds "mlstm" / "slstm"; repro_torch.models.xlstm):
     # the time loop's rematerialization chunk in training (0 = none; it
-    # changes no value), and the chunkwise-parallel mLSTM (not ported)
+    # changes no value), and the chunkwise-parallel mLSTM of the training
+    # forward (chunk xlstm_chunk, or 64 when that is 0)
     xlstm_chunk: int = 0
     xlstm_parallel: bool = False
     # rematerialize each layer's activations in the backward of ``forward``
@@ -134,6 +147,13 @@ class ArchConfig:
         for kind in self.pattern:
             if kind not in BLOCK_KINDS:
                 raise ValueError(f"unknown block kind {kind!r}; want one of {BLOCK_KINDS}")
+        if self.input_mode not in INPUT_MODES:
+            raise ValueError(f"input_mode must be one of {INPUT_MODES}, got {self.input_mode!r}")
+        if self.num_codebooks < 1 or (self.num_codebooks > 1 and self.input_mode != "audio"):
+            raise ValueError(
+                f"num_codebooks {self.num_codebooks}: want 1, or more for input_mode "
+                f"'audio' (got input_mode {self.input_mode!r})"
+            )
         if self.attn_backend not in ATTN_BACKENDS:
             raise ValueError(
                 f"attn_backend must be one of {ATTN_BACKENDS}, got "
@@ -141,8 +161,9 @@ class ArchConfig:
             )
 
 
-_ARCHS = ["deepseek_v2_236b", "mixtral_8x22b", "multitask_linreg", "multitask_lm", "olmo_1b",
-          "phi4_mini_3_8b", "qwen1_5_110b", "qwen2_5_14b", "xlstm_350m", "zamba2_7b"]
+_ARCHS = ["deepseek_v2_236b", "mixtral_8x22b", "multitask_linreg", "multitask_lm",
+          "musicgen_large", "olmo_1b", "phi4_mini_3_8b", "pixtral_12b", "qwen1_5_110b",
+          "qwen2_5_14b", "xlstm_350m", "zamba2_7b"]
 
 
 def canonical(name: str) -> str:

@@ -34,7 +34,9 @@
 //    The softmax of a chunk is 8 keys wide: three shuffles for the max, three
 //    for the sum. P @ V: lanes over the head dim, 4 dims each (128 / DP key
 //    groups of lanes take alternate keys), the weights of a key broadcast
-//    from the lane that scored it.
+//    from the lane that scored it. A row wider than one warp's 32 x 4 dims
+//    (DP 256: Pixtral's 160) gives each lane DP / 128 groups of 4 dims, 128
+//    apart, and one key group.
 //  * Each warp keeps its own (m, l, acc); the block merges its warps' partials
 //    once, at the end, through shared memory that aliases the ring.
 //
@@ -162,7 +164,11 @@ constexpr int kTileS = kWarps * kChunk; // keys per tile: the unit of the split
 static_assert(kStages >= 2, "a ring needs two stages");
 
 // The head dim a decode block computes at: HD rounded up to a power of two
-// (32, 64, 128). A head dim in between (Zamba2's 112) keeps its rows HD long
+// (32, 64, 128, 256). A head dim in between (Zamba2's 112, Pixtral's 160:
+// the next power of two keeps the XOR swizzle below inside a row, which needs
+// a multiple of 8 pieces, and every lane map a power of two; the price at 160
+// is 96 zero dims in shared memory, one decode block per SM in f32 and two in
+// bf16, where a 160-wide row would hold two in bf16 at best) keeps its rows HD long
 // in the caches and in q and out; only the block's shared-memory rows and
 // its registers are DP wide, their last DP - HD elements zero (copies past
 // HD read nothing and write zeros), so every lane mapping below stays the
@@ -189,9 +195,15 @@ struct DecodePlan {
   static constexpr int kMergeBytes = kWarps * kRows * DP * 4;
   static constexpr int kShared = kRingBytes > kMergeBytes ? kRingBytes : kMergeBytes;
   static constexpr int kBytes = kQBytes + kShared + 2 * kWarps * kRows * 4;
+  // P @ V: each lane holds kVG groups of 4 dims of a row (dims 4 * (dq +
+  // kLPR * g)), kLPR lanes a row, kKG key groups of lanes
+  static constexpr int kVG = DP > 128 ? DP / 128 : 1;
+  static constexpr int kLPR = DP / 4 / kVG;
+  static constexpr int kKG = 32 / kLPR;
   static_assert(HD % VW == 0 && HD % 4 == 0 && HD <= DP, "rows of whole 16-byte pieces");
   static_assert(VPR >= 4 && VPR % 4 == 0, "four score parts of whole pieces");
   static_assert(kChunk * VPR % 32 == 0, "a chunk's copies split evenly over a warp");
+  static_assert(kKG >= 1 && kLPR * kKG == 32 && kChunk % kKG == 0, "P @ V lanes fill a warp");
 };
 
 // Physical 16-byte piece of logical piece `pc` in row `r` of a chunk: the
@@ -242,23 +254,25 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* src) {
 // Keys at or past S take no part (their copies are zero-filled).
 //
 // On return m[r] and l[r] (the same in every lane) are row r's running max
-// and sum over the warp's keys, and acc[r] the unnormalised output of row r,
-// dims 4 * (lane % (DP / 4)) .. + 3, summed over the warp's key groups (zero
-// at dims past HD).
+// and sum over the warp's keys, and acc[r][4 g + e] the unnormalised output
+// of row r at dim 4 * (lane % kLPR + kLPR * g) + e, summed over the warp's
+// key groups (zero at dims past HD).
 template <typename T, int HD, typename Rows>
 __device__ __forceinline__ void attend_chunks(T* ring, const T* qs, const T* __restrict__ kbase,
                                               const T* __restrict__ vbase, const Rows& rows,
                                               int S, int G, int t_begin, int t_end, int qpos,
                                               int window, float scale, float (&m)[kRows],
-                                              float (&l)[kRows], float (&acc)[kRows][4]) {
+                                              float (&l)[kRows],
+                                              float (&acc)[kRows][4 * DecodePlan<T, HD>::kVG]) {
   using P = DecodePlan<T, HD>;
   constexpr int DP = P::DP;
   constexpr int VW = P::VW;
   constexpr int VPR = P::VPR;
   constexpr int kCopies = kChunk * VPR / 32;  // 16-byte copies per lane, K and V each
   constexpr int kQ = VPR / 4;                 // pieces per score part
-  constexpr int kLPR = DP / 4;                // lanes per V row in P @ V
-  constexpr int kKG = 32 / kLPR;              // key groups in P @ V
+  constexpr int kVG = P::kVG;                 // groups of 4 dims per lane in P @ V
+  constexpr int kLPR = P::kLPR;               // lanes per V row in P @ V
+  constexpr int kKG = P::kKG;                 // key groups in P @ V
   constexpr int kKeysPerGroup = kChunk / kKG;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -270,7 +284,7 @@ __device__ __forceinline__ void attend_chunks(T* ring, const T* qs, const T* __r
     m[r] = kNegInf;
     l[r] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
+    for (int e = 0; e < 4 * kVG; ++e) acc[r][e] = 0.f;
   }
 
   // paged: the page of row lane % kChunk of the next chunk to issue, read
@@ -328,7 +342,7 @@ __device__ __forceinline__ void attend_chunks(T* ring, const T* qs, const T* __r
   const int key = lane & (kChunk - 1);  // scores: this lane's key of a chunk
   const int part = lane >> 3;           // ... and its quarter of the head dim
   const int kg = lane / kLPR;           // P @ V: this lane's key group
-  const int dq = lane % kLPR;           // ... and its 4 dims
+  const int dq = lane % kLPR;           // ... and its groups of 4 dims
   for (int u = 0; u < n; ++u) {
     issue(u + kStages - 1);
     cp_async_wait<kStages - 1>();
@@ -355,13 +369,17 @@ __device__ __forceinline__ void attend_chunks(T* ring, const T* qs, const T* __r
         }
       }
     }
-    // this lane's V values: keys kg + kKG * t of the chunk, dims 4 * dq ..
-    float4 vf[kKeysPerGroup];
+    // this lane's V values: keys kg + kKG * t of the chunk, dims 4 * (dq +
+    // kLPR * g) ..
+    float4 vf[kVG][kKeysPerGroup];
 #pragma unroll
-    for (int t = 0; t < kKeysPerGroup; ++t) {
-      const int jr = kg + kKG * t;
-      const int d = 4 * dq;  // logical element; its piece is d / VW
-      vf[t] = load4(tv + jr * DP + swizzle<VPR>(jr, d / VW) * VW + d % VW);
+    for (int g = 0; g < kVG; ++g) {
+#pragma unroll
+      for (int t = 0; t < kKeysPerGroup; ++t) {
+        const int jr = kg + kKG * t;
+        const int d = 4 * (dq + kLPR * g);  // logical element; its piece is d / VW
+        vf[g][t] = load4(tv + jr * DP + swizzle<VPR>(jr, d / VW) * VW + d % VW);
+      }
     }
     const int kv = first + u * kTileS + key;
     const bool live = kv < S;
@@ -385,19 +403,23 @@ __device__ __forceinline__ void attend_chunks(T* ring, const T* qs, const T* __r
         const float a = expf(m[r] - m_new);
         l[r] = a * l[r] + sum;
         m[r] = m_new;
-        float4 o4 = make_float4(acc[r][0] * a, acc[r][1] * a, acc[r][2] * a, acc[r][3] * a);
 #pragma unroll
-        for (int t = 0; t < kKeysPerGroup; ++t) {
-          const float pj = __shfl_sync(0xffffffffu, p, kg + kKG * t);
-          o4.x = fmaf(pj, vf[t].x, o4.x);
-          o4.y = fmaf(pj, vf[t].y, o4.y);
-          o4.z = fmaf(pj, vf[t].z, o4.z);
-          o4.w = fmaf(pj, vf[t].w, o4.w);
+        for (int g = 0; g < kVG; ++g) {
+          float4 o4 = make_float4(acc[r][4 * g] * a, acc[r][4 * g + 1] * a,
+                                  acc[r][4 * g + 2] * a, acc[r][4 * g + 3] * a);
+#pragma unroll
+          for (int t = 0; t < kKeysPerGroup; ++t) {
+            const float pj = __shfl_sync(0xffffffffu, p, kg + kKG * t);
+            o4.x = fmaf(pj, vf[g][t].x, o4.x);
+            o4.y = fmaf(pj, vf[g][t].y, o4.y);
+            o4.z = fmaf(pj, vf[g][t].z, o4.z);
+            o4.w = fmaf(pj, vf[g][t].w, o4.w);
+          }
+          acc[r][4 * g] = o4.x;
+          acc[r][4 * g + 1] = o4.y;
+          acc[r][4 * g + 2] = o4.z;
+          acc[r][4 * g + 3] = o4.w;
         }
-        acc[r][0] = o4.x;
-        acc[r][1] = o4.y;
-        acc[r][2] = o4.z;
-        acc[r][3] = o4.w;
       }
     }
     __syncwarp();  // every lane is done with stage u before it is refilled
@@ -410,7 +432,7 @@ __device__ __forceinline__ void attend_chunks(T* ring, const T* qs, const T* __r
     for (int r = 0; r < kRows; ++r) {
       if (r < G) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], o);
+        for (int e = 0; e < 4 * kVG; ++e) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], o);
       }
     }
   }

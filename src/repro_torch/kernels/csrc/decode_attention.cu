@@ -39,12 +39,15 @@
 //    and writes one partial per split. Paged, each lane resolves one row of
 //    its warp's next chunk through the table one issue ahead of the copies.
 //  * All G query heads of a KV head share one pass over its K/V chunks.
-//  * Head dims 32, 64, 112 and 128. A head dim that is no power of two
-//    (Zamba2's 112) runs at the next one inside the block (padded_dim in
-//    attention_tile.cuh): q, K and V rows land zero-padded in shared memory
-//    (the padding copies read nothing), so the lane mappings stay the
-//    power-of-two ones; the partials and the output keep HD-long rows, and
-//    the lanes that would hold dims past HD write nothing.
+//  * Head dims 32, 64, 112, 128 and 160. A head dim that is no power of two
+//    (Zamba2's 112, Pixtral's 160) runs at the next one inside the block
+//    (padded_dim in attention_tile.cuh): q, K and V rows land zero-padded in
+//    shared memory (the padding copies read nothing), so the lane mappings
+//    stay the power-of-two ones; the partials and the output keep HD-long
+//    rows, and the lanes that would hold dims past HD write nothing. At 160
+//    (padded to 256) each lane of P @ V holds two groups of 4 dims, 128
+//    apart, and the merge's lanes 8 floats each; the block takes 213,504 B of
+//    shared memory in f32 (one block per SM) and 107,008 B in bf16 (two).
 //  * The merge is a second kernel with one warp per (row, KV head, slot):
 //    lanes read the splits' (m, l) once each, lanes over HD sum the
 //    weighted accumulators,
@@ -141,7 +144,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return;
   }
 
-  float m[kRows], l[kRows], acc[kRows][4];
+  float m[kRows], l[kRows], acc[kRows][4 * P::kVG];
   T* ring = rings + warp * P::kWarpRingElems;
   const long stride = (long)KVH * HD;
   if constexpr (PAGED) {
@@ -158,13 +161,15 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   // each warp's partial into shared memory, then one merge over the warps
-  constexpr int kLPR = DP / 4;
-  if (lane < kLPR) {
+  if (lane < P::kLPR) {
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       if (r < G) {
-        *reinterpret_cast<float4*>(wacc + (warp * kRows + r) * DP + 4 * lane) =
-            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+#pragma unroll
+        for (int g = 0; g < P::kVG; ++g) {
+          *reinterpret_cast<float4*>(wacc + (warp * kRows + r) * DP + 4 * (lane + P::kLPR * g)) =
+              make_float4(acc[r][4 * g], acc[r][4 * g + 1], acc[r][4 * g + 2], acc[r][4 * g + 3]);
+        }
       }
     }
   }
@@ -205,10 +210,17 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// kPer consecutive floats of global memory (kPer = 1, 2 or 4).
+// kPer consecutive floats of global memory (kPer = 1, 2, 4 or 8; src
+// aligned to the load's width).
 template <int kPer>
 __device__ __forceinline__ void load_floats(const float* src, float (&x)[kPer]) {
-  if constexpr (kPer == 4) {
+  static_assert(kPer == 1 || kPer == 2 || kPer == 4 || kPer == 8, "a width load_floats reads");
+  if constexpr (kPer == 8) {
+    const float4 a = *reinterpret_cast<const float4*>(src);
+    const float4 b = *reinterpret_cast<const float4*>(src + 4);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  } else if constexpr (kPer == 4) {
     const float4 a = *reinterpret_cast<const float4*>(src);
     x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
   } else if constexpr (kPer == 2) {
@@ -236,6 +248,7 @@ decode_combine_kernel(const int* __restrict__ pos, const float* __restrict__ par
                       int G, int window, int nsplit) {
   constexpr int kPer = padded_dim(HD) / 32;
   constexpr int kBatch = 16;  // splits whose accumulators are in flight at once
+  static_assert(HD % kPer == 0, "each lane's dims lie wholly inside or past HD");
   const int r = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -359,6 +372,7 @@ int dispatch(int dtype, int HD, const void* q, const void* k, const void* v, con
       case 64: DECODE_CASE(float, 64);
       case 112: DECODE_CASE(float, 112);
       case 128: DECODE_CASE(float, 128);
+      case 160: DECODE_CASE(float, 160);
     }
   } else if (dtype == 1) {
     switch (HD) {
@@ -366,6 +380,7 @@ int dispatch(int dtype, int HD, const void* q, const void* k, const void* v, con
       case 64: DECODE_CASE(__nv_bfloat16, 64);
       case 112: DECODE_CASE(__nv_bfloat16, 112);
       case 128: DECODE_CASE(__nv_bfloat16, 128);
+      case 160: DECODE_CASE(__nv_bfloat16, 160);
     }
   }
 #undef DECODE_CASE
@@ -393,6 +408,7 @@ extern "C" int decode_geometry(int dtype, int HD, int paged, int* tile_keys,
       case 64: GEOMETRY_CASE(float, 64);
       case 112: GEOMETRY_CASE(float, 112);
       case 128: GEOMETRY_CASE(float, 128);
+      case 160: GEOMETRY_CASE(float, 160);
     }
   } else if (dtype == 1) {
     switch (HD) {
@@ -400,6 +416,7 @@ extern "C" int decode_geometry(int dtype, int HD, int paged, int* tile_keys,
       case 64: GEOMETRY_CASE(__nv_bfloat16, 64);
       case 112: GEOMETRY_CASE(__nv_bfloat16, 112);
       case 128: GEOMETRY_CASE(__nv_bfloat16, 128);
+      case 160: GEOMETRY_CASE(__nv_bfloat16, 160);
     }
   }
 #undef GEOMETRY_CASE

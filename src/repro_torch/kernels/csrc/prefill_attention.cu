@@ -59,10 +59,12 @@
 //    m-tile of rows; for P @ V it owns the HD n-tiles w, w + 8 and every
 //    m-tile, so all warps work at any row count. Shared-memory row strides
 //    are padded so the fragment reads hit 32 distinct banks.
-//  * Head dims 32, 64, 112 and 128: every loop runs over HD / 8 n-tiles and
-//    HD / VW 16-byte pieces, so 112 (Zamba2: 14 n-tiles, the warps' second
-//    tile guarded) needs no padding; the combine kernel's HD / 4 = 28
-//    threads a row leave 4 of its 256 threads idle.
+//  * Head dims 32, 64, 112, 128 and 160: every loop runs over HD / 8 n-tiles
+//    and HD / VW 16-byte pieces, so 112 (Zamba2: 14 n-tiles, the warps'
+//    second tile guarded) and 160 (Pixtral: 20 n-tiles, three a warp, the
+//    third guarded) need no padding; the combine kernel's HD / 4 threads a
+//    row leave 4 of its 256 threads idle at 112 (9 rows of 28) and 16 at 160
+//    (6 rows of 40). At 160 a block holds 32 rows in f32 and 112 in bf16.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -142,7 +144,7 @@ struct Plan {
   static constexpr int kMaxMT = kMaxRows / 16;
   static_assert(kMaxMT >= 1 && kMaxRows % 16 == 0, "whole m16 tiles of rows must fit");
   // every 16-byte ring and Q row starts 16-byte aligned (HD 112: 464 / 480 B
-  // rows in f32, 240 / 256 B in bf16)
+  // rows in f32, 240 / 256 B in bf16; HD 160: 656 / 672 B and 336 / 352 B)
   static_assert(kKStride * sizeof(T) % 16 == 0 && kVStride * sizeof(T) % 16 == 0,
                 "16-byte aligned K/V rows");
   __host__ __device__ static constexpr int bytes(int rt) { return kFixed + rt * kRowBytes; }
@@ -632,7 +634,7 @@ prefill_combine_kernel(const int* __restrict__ pos, const float* __restrict__ pa
                        const float* __restrict__ part_acc, T* __restrict__ out, int S, int KVH,
                        int C, int G, int window, int nsplit, int row_tile) {
   constexpr int kLanes = HD / 4;  // threads per row
-  constexpr int kRowsPer = kThreads / kLanes;  // 9 at HD 112: threads 252.. idle
+  constexpr int kRowsPer = kThreads / kLanes;  // 9 at HD 112, 6 at 160: threads 252.., 240.. idle
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int R = C * G;
@@ -726,6 +728,7 @@ int dispatch(int dtype, int HD, const void* q, const void* k, const void* v, con
       case 64: PREFILL_CASE(float, 64);
       case 112: PREFILL_CASE(float, 112);
       case 128: PREFILL_CASE(float, 128);
+      case 160: PREFILL_CASE(float, 160);
     }
   } else if (dtype == 1) {
     switch (HD) {
@@ -733,6 +736,7 @@ int dispatch(int dtype, int HD, const void* q, const void* k, const void* v, con
       case 64: PREFILL_CASE(__nv_bfloat16, 64);
       case 112: PREFILL_CASE(__nv_bfloat16, 112);
       case 128: PREFILL_CASE(__nv_bfloat16, 128);
+      case 160: PREFILL_CASE(__nv_bfloat16, 160);
     }
   }
 #undef PREFILL_CASE
@@ -757,6 +761,7 @@ extern "C" int prefill_max_rows(int dtype, int HD) {
       case 64: return Plan<float, 64>::kMaxRows;
       case 112: return Plan<float, 112>::kMaxRows;
       case 128: return Plan<float, 128>::kMaxRows;
+      case 160: return Plan<float, 160>::kMaxRows;
     }
   } else if (dtype == 1) {
     switch (HD) {
@@ -764,6 +769,7 @@ extern "C" int prefill_max_rows(int dtype, int HD) {
       case 64: return Plan<__nv_bfloat16, 64>::kMaxRows;
       case 112: return Plan<__nv_bfloat16, 112>::kMaxRows;
       case 128: return Plan<__nv_bfloat16, 128>::kMaxRows;
+      case 160: return Plan<__nv_bfloat16, 160>::kMaxRows;
     }
   }
   return 0;

@@ -58,7 +58,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-HEAD_DIMS = (32, 64, 112, 128)  # template instantiations of the kernels
+HEAD_DIMS = (32, 64, 112, 128, 160)  # template instantiations of the kernels
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIBS: dict[str, ctypes.CDLL] = {}

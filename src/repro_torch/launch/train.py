@@ -4,7 +4,8 @@ update over a band graph), and run; the port of ``repro.launch.train``.
 
 Runs on CUDA unless ``--device cpu`` is given, and raises without a GPU
 otherwise. Smoke-size configs are the default; ``--no-smoke`` trains the
-full-width config. Only dense ``("attn",)`` architectures are ported.
+full-width config. Every language-model architecture trains; an audio or
+VLM model takes the synthetic token batches as ``model_inputs`` makes them.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch multitask_lm --no-smoke
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo_1b --steps 20 \\
@@ -20,6 +21,8 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
+
 from repro_torch.checkpoint import save_pytree
 from repro_torch.configs import ArchConfig, get
 from repro_torch.convert import params_to_numpy
@@ -29,6 +32,24 @@ from repro_torch.kernels.runtime import require_device
 from repro_torch.models import TransformerLM
 from repro_torch.optim import adamw, cosine_schedule
 from repro_torch.train import batch_to_device, init_state, make_train_step
+
+
+def model_inputs(cfg: ArchConfig, batch: dict) -> dict:
+    """A token pipeline's host batch as ``cfg``'s input mode takes it, as
+    the reference launcher builds it: an audio model's tokens and labels
+    repeated over its codebooks (mod the vocabulary), (B, S, K); a VLM's
+    zero (B, S, d_model) vision embeddings under an all-False mask (text
+    only). A text model's batch is returned as it is."""
+    batch = dict(batch)
+    if cfg.input_mode == "audio":
+        for key in ("tokens", "labels"):
+            batch[key] = np.repeat(np.asarray(batch[key])[..., None], cfg.num_codebooks,
+                                   -1) % cfg.vocab_size
+    if cfg.input_mode == "vlm":
+        b, s = np.shape(batch["tokens"])
+        batch["vision_embeds"] = np.zeros((b, s, cfg.d_model), np.float32)
+        batch["vision_mask"] = np.zeros((b, s), bool)
+    return batch
 
 
 def main(argv=None) -> TransformerLM:
@@ -72,7 +93,7 @@ def main(argv=None) -> TransformerLM:
     for i, batch in enumerate(pipe):
         if i >= args.steps:
             break
-        state, metrics = step_fn(state, batch_to_device(batch, device))
+        state, metrics = step_fn(state, batch_to_device(model_inputs(cfg, batch), device))
         if i % args.log_every == 0 or i == args.steps - 1:
             loss = float(metrics["loss"])  # waits for the step
             print(f"step {i:5d}  loss {loss:.4f}  "

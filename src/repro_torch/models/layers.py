@@ -8,6 +8,8 @@ the input dtype, as the JAX package's ``preferred_element_type`` does.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -114,6 +116,22 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh approximation, its default) as XLA
+    evaluates it: ``F.gelu(approximate="tanh")`` at float32, and at lower
+    precision the reference's op chain ``x * (0.5 * (1 + tanh(c * (x + k *
+    x * x * x))))`` with its constants c = sqrt(2 / pi) and k = 0.044715
+    rounded to the input dtype and one rounding after each op (``F.gelu``
+    rounds once, and at bfloat16 more than a tenth of its outputs then
+    differ from the reference's by an ulp: tests/test_torch_bf16.py). The
+    GELU MLP (MusicGen) takes it."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
+    k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
 def init_mlp(d: int, d_ff: int, kind: str, dtype, generator) -> dict:
     if kind == "swiglu":
         return {
@@ -134,8 +152,7 @@ def apply_mlp(params, x: torch.Tensor, kind: str) -> torch.Tensor:
         gate = silu(matmul(x, params["wg"]))
         return matmul(gate * matmul(x, params["wi"]), params["wo"])
     if kind == "gelu":
-        # jax.nn.gelu defaults to the tanh approximation
-        return matmul(F.gelu(matmul(x, params["wi"]), approximate="tanh"), params["wo"])
+        return matmul(gelu(matmul(x, params["wi"])), params["wo"])
     raise ValueError(kind)
 
 

@@ -2,7 +2,19 @@
 (dense), ``("attn_moe",)`` (mixture of experts; either with GQA or with
 DeepSeek-V2's MLA, ``cfg.use_mla``), Mamba2 hybrid (``("mamba", ...,
 "shared_attn")``, Zamba2) and xLSTM (``"mlstm"`` / ``"slstm"`` kinds)
-parts of ``repro.models.model.TransformerLM``.
+parts of ``repro.models.model.TransformerLM``, over every input mode.
+
+Input modes (``cfg.input_mode``), as the reference's:
+  * ``"tokens"`` — ``batch["tokens"]`` (B, S) ids.
+  * ``"vlm"`` (Pixtral) — (B, S) ids, and ``batch["vision_embeds"]`` (B, S,
+    d_model) with ``batch["vision_mask"]`` (B, S) bool: a masked position
+    takes its vision embedding (cast to the model's dtype) in place of its
+    token's. A batch without them is text only (a decode step past the
+    prompt, or a text-only request).
+  * ``"audio"`` (MusicGen) — (B, S, K) ids of K = ``num_codebooks``
+    codebooks; ``embed`` is (K, V, d) and a position's input is the sum of
+    its K codebook embeddings; ``head`` is (d, V * K) and the logits come
+    out as (B, S, K, V); ``task.head_bias`` is (num_tasks, V * K).
 
 The JAX model keeps period-stacked (P, ...) params and ``lax.scan``s over
 them; here each layer is its own module and the stack is a Python loop over
@@ -15,13 +27,14 @@ through ``repro_torch.convert``.
 
 Every weight is a trainable ``nn.Parameter``. Training entry points,
 counterparts of the JAX ones:
-  * ``forward``  — full-sequence logits (B, S, V) float32 and the MoE aux
-    loss (summed over the layers; 0 for a dense model), each layer
-    rematerialized in the backward when
-    ``cfg.remat`` (``torch.utils.checkpoint``, the reference's
-    ``jax.checkpoint``).
+  * ``forward``  — full-sequence logits (B, S, V) float32 ((B, S, K, V)
+    for audio) and the MoE aux loss (summed over the layers; 0 for a dense
+    model), each layer rematerialized in the backward when ``cfg.remat``
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``); an
+    mLSTM layer runs the chunkwise-parallel form under
+    ``cfg.xlstm_parallel``.
   * ``loss_fn``  — softmax cross-entropy (+ ``aux_weight`` * aux) and its
-    metrics.
+    metrics; audio labels are (B, S, K).
 
 Serving entry points, counterparts of the JAX ones, all under
 ``torch.no_grad()``:
@@ -174,9 +187,13 @@ class TransformerLM(nn.Module):
         self.device = require_device(device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         c = cfg
-        self.embed = nn.Parameter(
-            dense_init((c.vocab_size, c.d_model), gen, in_axis=1, dtype=dtype)
-        )
+        v_total = c.vocab_size * c.num_codebooks
+        if c.input_mode == "audio":  # one table per codebook
+            embed = dense_init((c.num_codebooks, c.vocab_size, c.d_model), gen, in_axis=2,
+                               dtype=dtype)
+        else:
+            embed = dense_init((c.vocab_size, c.d_model), gen, in_axis=1, dtype=dtype)
+        self.embed = nn.Parameter(embed)
         self.kinds = c.layer_kinds()
 
         def block(kind):
@@ -189,8 +206,8 @@ class TransformerLM(nn.Module):
             self.shared_attn = _Block(c, dtype, gen)
         self.final_norm = _params(init_norm(c.norm_kind, c.d_model, dtype, self.device))
         if not c.tie_embeddings:
-            self.head = nn.Parameter(dense_init((c.d_model, c.vocab_size), gen, dtype=dtype))
-        task = {"head_bias": torch.zeros((c.num_tasks, c.vocab_size), dtype=dtype,
+            self.head = nn.Parameter(dense_init((c.d_model, v_total), gen, dtype=dtype))
+        task = {"head_bias": torch.zeros((c.num_tasks, v_total), dtype=dtype,
                                          device=self.device)}
         if c.norm_kind != "nonparam_ln":
             task["final_gain"] = torch.zeros((c.num_tasks, c.d_model), dtype=dtype,
@@ -202,11 +219,23 @@ class TransformerLM(nn.Module):
 
     # ----------------------------------------------------------------- embed
     def _embed(self, batch) -> torch.Tensor:
+        """The input embeddings (B, S, d) of the batch's input mode (see
+        the module docstring)."""
+        c = self.cfg
         # token ids come from untrusted callers: clamp an out-of-vocab id to
         # the nearest embedding row, as the JAX model's mode="clip" does
         # (torch indexing would raise, or read stray memory on CUDA)
-        ids = batch["tokens"].clamp(0, self.cfg.vocab_size - 1)
-        return F.embedding(ids, self.embed)
+        ids = batch["tokens"].clamp(0, c.vocab_size - 1)
+        if c.input_mode == "audio":  # (B, S, K): the codebooks' embeddings summed
+            x = F.embedding(ids[..., 0], self.embed[0])
+            for k in range(1, c.num_codebooks):
+                x = x + F.embedding(ids[..., k], self.embed[k])
+            return x
+        x = F.embedding(ids, self.embed)
+        if c.input_mode == "vlm" and "vision_mask" in batch:
+            x = torch.where(batch["vision_mask"][..., None],
+                            batch["vision_embeds"].to(x.dtype), x)
+        return x
 
     def _task_rows(self, table: torch.Tensor, task_ids: torch.Tensor):
         # dead serving lanes carry the null task id num_tasks, one past the
@@ -251,6 +280,8 @@ class TransformerLM(nn.Module):
             if task_ad is not None and "head_bias" in task_ad:
                 hb = hb + task_ad["head_bias"].to(hb.dtype)
             logits = logits + hb[:, None, :].float()
+        if c.num_codebooks > 1:  # (B, S, K * V) -> (B, S, K, V)
+            logits = logits.reshape(logits.shape[:2] + (c.num_codebooks, c.vocab_size))
         return logits
 
     def _gather_adapters(self, adapters, task_ids):
@@ -311,19 +342,17 @@ class TransformerLM(nn.Module):
         """One recurrent layer over the whole sequence from a fresh state
         (the reference's ``_block_full`` "mamba" / "mlstm" / "slstm"
         branches; the xLSTM time loop rematerialized in ``xlstm_chunk``
-        chunks). Returns (x, 0 aux)."""
+        chunks, or the mLSTM chunkwise-parallel under ``xlstm_parallel``).
+        Returns (x, 0 aux)."""
         c = self.cfg
         h = apply_norm(c.norm_kind, x, p.norm or None)
         if kind == "mamba":
             out, _ = mamba_lib.mamba2_full(p.mamba, h, d_state=c.ssm_state,
                                            head_dim=c.ssm_head_dim, chunk=c.mamba_chunk)
+        elif kind == "mlstm" and c.xlstm_parallel:
+            out, _ = xlstm_lib.mlstm_chunkwise(p.mlstm, h, n_heads=c.num_heads,
+                                               chunk=c.xlstm_chunk or 64)
         elif kind == "mlstm":
-            if c.xlstm_parallel:
-                raise NotImplementedError(
-                    f"{c.name}: xlstm_parallel=True (the chunkwise-parallel mLSTM, "
-                    "repro.models.xlstm.mlstm_chunkwise) is not ported yet: see ROADMAP.md "
-                    "section 1"
-                )
             out, _ = xlstm_lib.mlstm_full(p.mlstm, h, n_heads=c.num_heads,
                                           chunk=c.xlstm_chunk)
         else:
@@ -332,9 +361,11 @@ class TransformerLM(nn.Module):
         return x + out, torch.zeros((), device=x.device)
 
     def forward(self, batch):
-        """Training/eval forward. batch: {'tokens': (B, S) [, 'task_ids':
-        (B,)]}. Returns (logits (B, S, V) float32, aux loss () float32: the
-        MoE layers' load-balance losses summed, 0 for a dense model). With
+        """Training/eval forward. batch: {'tokens': (B, S) ((B, S, K) for
+        audio) [, 'task_ids': (B,)] [, 'vision_embeds', 'vision_mask' for a
+        VLM]}. Returns (logits (B, S, V) ((B, S, K, V) for audio) float32,
+        aux loss () float32: the MoE layers' load-balance losses summed, 0
+        for a dense model). With
         ``cfg.remat`` and grad enabled each layer keeps only its input for
         the backward and recomputes the rest."""
         x = self._embed(batch)
@@ -357,7 +388,8 @@ class TransformerLM(nn.Module):
         return self._logits(x, batch), aux
 
     def loss_fn(self, batch, aux_weight: float = 0.01):
-        """Mean softmax cross-entropy of ``batch['labels']`` (B, S), plus
+        """Mean softmax cross-entropy of ``batch['labels']`` (B, S) ((B, S,
+        K) for audio: the mean over every codebook's label), plus
         ``aux_weight`` * aux. The label logit is the reference's masked
         reduction over the vocab, taken as a gather of the one entry that
         can match and a select: a label outside [0, V) matches no entry and
@@ -571,7 +603,9 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def decode_step(self, batch, caches, pos, live=None, block_tables=None,
                     adapters=None):
-        """One-token decode. batch: {'tokens': (B, 1) [, 'task_ids': (B,)]};
+        """One-token decode. batch: {'tokens': (B, 1) ((B, 1, K) for audio)
+        [, 'task_ids': (B,)] [, a VLM's 'vision_embeds' (B, 1, d) and
+        'vision_mask' (B, 1): without them the step is text only]};
         pos: () or (B,) per-slot positions; live: optional (B,) bool — dead
         slots run through the math on their padding token but their cache
         rows are left untouched (paged: their write goes to the null block
@@ -580,7 +614,7 @@ class TransformerLM(nn.Module):
         pools of ``init_cache(..., paging=spec)`` (recurrent states stay
         dense and ignore the table). adapters: optional serving tree of a
         ``TaskAdapterStore`` (needs ``batch['task_ids']``). Returns (logits
-        (B, 1, V) f32, caches)."""
+        (B, 1, V) f32 ((B, 1, K, V) for audio), caches)."""
         x = self._embed(batch)
         pos = pos_vector(pos, x.shape[0], x.device)
         attend = self._make_attend(pos, block_tables)
@@ -606,15 +640,18 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def prefill_step(self, batch, caches, positions, valid, block_tables=None,
                      adapters=None):
-        """Multi-token prefill: a whole (B, C) prompt chunk, all C tokens in
-        parallel, against the caches at per-slot offsets. positions: (B,)
+        """Multi-token prefill: a whole (B, C) prompt chunk ((B, C, K) for
+        audio; a VLM chunk may carry its (B, C, d) 'vision_embeds' and (B,
+        C) 'vision_mask'), all C tokens in parallel, against the caches at
+        per-slot offsets. positions: (B,)
         position of each slot's first chunk token; valid: (B, C)
         contiguous-prefix mask of real prompt tokens (all-False rows ride
         along untouched; paged, their lanes write the null block 0); a
         recurrent layer runs with the slot's state threaded in.
         block_tables: optional (B, max_blocks) int32 for paged pools.
         adapters: optional serving tree, as in ``decode_step``. Returns
-        (logits (B, 1, V) after each slot's LAST valid token, caches) — the
+        (logits (B, 1, V) ((B, 1, K, V) for audio) after each slot's LAST
+        valid token, caches) — the
         lm head runs on one hidden state per slot (all-False rows give
         logits the caller discards)."""
         x = self._embed(batch)

@@ -4,8 +4,10 @@ in plain torch as the reference is plain ``jnp``.
 
 Both are exact stabilized recurrences, one step per token, written as a
 Python loop over time (the reference's ``lax.scan``); the same cell serves
-training, prefill and decode. The chunkwise-parallel mLSTM
-(``xlstm_parallel``) is not ported yet.
+training, prefill and decode. ``mlstm_chunkwise`` is the same mLSTM
+computed chunkwise-parallel (the reference's ``xlstm_parallel`` lever):
+the training forward takes it under ``cfg.xlstm_parallel``; serving keeps
+the sequential cell whatever the flag says, as the reference's does.
 
 ``xlstm_chunk`` is a rematerialization boundary and changes no value: with
 chunk > 1 dividing T (and T > chunk) each chunk of the loop runs under
@@ -169,6 +171,57 @@ def mlstm_step(params, x, state, *, n_heads: int, live=None):
     (y, state)."""
     y, new_state = mlstm_full(params, x, n_heads=n_heads, state=state)
     return y, freeze_dead_slots(new_state, state, live)
+
+
+# ----------------------------------------------- chunkwise-parallel mLSTM
+def mlstm_chunkwise(params, x, *, n_heads: int, chunk: int = 64, state=None, valid=None):
+    """The exact stabilized mLSTM computed chunkwise-parallel, the
+    reference's ``mlstm_chunkwise``: inside a chunk of c tokens every term
+    is a (c x c) product, and one step per chunk carries (C, n, m):
+
+      num_t = e^{cum_t + m_in - m_t} q_t C_in
+              + sum_{s<=t} e^{cum_t - cum_s + i_s - m_t} (q_t . k_s) v_s
+      den_t = max(|e^{cum_t + m_in - m_t} q_t . n_in + sum_s w_ts|, e^{-m_t})
+
+    with cum the within-chunk cumulative log forget gate and m_t the running
+    stabilizer, all in float32. A T that ``chunk`` does not divide is one
+    chunk. Arguments and result as ``mlstm_full``'s."""
+    b, t, _ = x.shape
+    q, k, v, i_pre, f_pre, z, d_inner = _mlstm_qkvif(params, x, n_heads)
+    i_pre, f_pre = _mask_if_gates(i_pre, f_pre, valid)
+    if state is None:
+        state = mlstm_init_state(b, n_heads, d_inner // n_heads, x.device)
+    if t % chunk:
+        chunk = t
+    tril = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    c_st, n_st, m_st = state  # (B,nh,hd,hd), (B,nh,hd), (B,nh)
+    hs = []
+    for lo in range(0, t, chunk):
+        qi, ki, vi = (a[:, lo:lo + chunk].float() for a in (q, k, v))  # (B,c,nh,hd)
+        ii, fi = i_pre[:, lo:lo + chunk], f_pre[:, lo:lo + chunk]  # (B,c,nh)
+        cum = torch.cumsum(F.logsigmoid(fi), dim=1)
+        d_mat = cum[:, :, None, :] - cum[:, None, :, :] + ii[:, None, :, :]  # (B,t,s,nh)
+        d_mat = torch.where(tril[None, :, :, None], d_mat, -torch.inf)
+        state_exp = cum + m_st[:, None, :]  # (B,c,nh)
+        m_loc = torch.maximum(state_exp, d_mat.max(dim=2).values)
+        w = torch.exp(d_mat - m_loc[:, :, None, :]) * torch.einsum("bthd,bshd->btsh", qi, ki)
+        sc = torch.exp(state_exp - m_loc)
+        num = sc[..., None] * torch.einsum("bthd,bhde->bthe", qi, c_st) + torch.einsum(
+            "btsh,bshd->bthd", w, vi)
+        den_raw = sc * torch.einsum("bthd,bhd->bth", qi, n_st) + w.sum(dim=2)
+        den = torch.maximum(den_raw.abs(), torch.exp(-m_loc))
+        hs.append(num / den[..., None])
+        # the chunk-boundary state
+        tail = cum[:, -1:, :] - cum + ii  # (B,c,nh)
+        m_out = torch.maximum(cum[:, -1, :] + m_st, tail.max(dim=1).values)
+        decay = torch.exp(tail - m_out[:, None, :])
+        carry = torch.exp(cum[:, -1, :] + m_st - m_out)
+        c_st = carry[..., None, None] * c_st + torch.einsum("bsh,bshd,bshe->bhde", decay, ki, vi)
+        n_st = carry[..., None] * n_st + torch.einsum("bsh,bshd->bhd", decay, ki)
+        m_st = m_out
+    h = torch.cat(hs, dim=1).reshape(b, t, d_inner).to(x.dtype)
+    h = rms_norm(h, params["norm_gain"]) * silu(z)
+    return matmul(h, params["w_down"]), (c_st, n_st, m_st)
 
 
 # ------------------------------------------------------------------- sLSTM

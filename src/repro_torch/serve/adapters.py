@@ -77,11 +77,13 @@ class TaskAdapterStore:
                         "mlp":  {"a": (m,P,d,r), "b": (m,P,r,d)}}   # attention
                      | {"out":  {"a": (m,P,d,r), "b": (m,P,r,d)}}   # recurrent
           }, ...],
-          "task": {"head_bias": (m, V) [, "final_gain": (m, d)]
+          "task": {"head_bias": (m, V * K) [, "final_gain": (m, d)]
                    [, "router_bias": (m, E)]},
         }
 
-    An ("attn",) model has one stage of one slot with P = num_layers.
+    An ("attn",) model has one stage of one slot with P = num_layers; K is
+    an audio model's codebook count (its head bias spans every codebook's
+    vocabulary), 1 otherwise.
 
     ``serving`` is the graph-mixed copy with one extra ZERO row appended to
     every leaf — row ``null_task == num_tasks`` — gathered by dead lanes.
@@ -171,7 +173,7 @@ class TaskAdapterStore:
              for j, kind in enumerate(kinds)}
             for kinds, reps, _ in cfg.stages()
         ]
-        task = {"head_bias": zeros(m, cfg.vocab_size)}
+        task = {"head_bias": zeros(m, cfg.vocab_size * cfg.num_codebooks)}
         if cfg.norm_kind != "nonparam_ln":
             task["final_gain"] = zeros(m, d)
         if cfg.uses_moe:

@@ -61,7 +61,17 @@ request whose prompt shares a cached prefix aliases those blocks
 one step (``serve.step.make_cow_copy``, counted by ``cow_copies``), a
 prompt's full blocks are registered once its prefill completes, and
 retirement releases (decrefs) instead of freeing. Greedy outputs equal the
-no-sharing path's.
+no-sharing path's. The trie is keyed on token ids (an audio prompt's
+codebook rows), so a VLM request whose ``vision_mask`` masks any position
+in neither matches nor registers blocks: its K/V depend on its image, which
+the ids do not name (the reference keys on ids alone and serves one image's
+cached K/V for another). Text-only requests of a VLM still share prefixes.
+
+Input modes: an audio model's request carries (S0, K) codebook rows and
+emits a K-token row per step (``Request.out`` holds (K,) int32 arrays);
+a VLM request may carry ``extras`` {"vision_embeds": (S0, d_model),
+"vision_mask": (S0,) bool}, aligned with its prompt and checked by
+``submit``; each prefill dispatch carries its chunk's slice of them.
 
 ``adapters`` (a ``repro_torch.serve.adapters.TaskAdapterStore`` over the
 model's ``num_tasks``) serves graph-mixed per-task low-rank adapters: every
@@ -119,6 +129,13 @@ def check_adapters(adapters, model) -> None:
         )
 
 
+def shares_prefix(req) -> bool:
+    """Whether a request's K/V are a function of its token ids alone, so
+    its prompt blocks may be matched and registered in the prefix trie:
+    False for a request whose ``vision_mask`` masks any position in."""
+    return req.extras is None or not np.asarray(req.extras["vision_mask"]).any()
+
+
 class TickBudgetExceeded(RuntimeError):
     """``run(max_ticks)`` spent its budget with requests still unfinished.
 
@@ -130,9 +147,12 @@ class TickBudgetExceeded(RuntimeError):
 @dataclasses.dataclass
 class Request:
     uid: int
-    tokens: np.ndarray  # (S0,) prompt
+    tokens: np.ndarray  # (S0,) prompt, or (S0, K) for audio codebooks
     max_new: int
     task_id: int = 0
+    # a VLM request's inputs, aligned with the prompt: {"vision_embeds":
+    # (S0, d_model) float32, "vision_mask": (S0,) bool}; None is text only
+    extras: dict | None = None
     # scheduling: lower priority value runs first under policy="priority";
     # timeout_s expires the request that many seconds after submit()
     priority: int = 0
@@ -243,8 +263,8 @@ class ContinuousBatcher:
             # resident prefix is a short job (the closure holds the cache,
             # not the batcher, so the batcher and its caches are freed
             # without waiting for the cycle collector)
-            self.scheduler.cost_fn = lambda r: (
-                len(r.tokens) - prefix.match(r.task_id, r.tokens).tokens
+            self.scheduler.cost_fn = lambda r: len(r.tokens) - (
+                prefix.match(r.task_id, r.tokens).tokens if shares_prefix(r) else 0
             )
         # ---- fault tolerance & graceful degradation ----
         self.faults = faults
@@ -362,7 +382,42 @@ class ContinuousBatcher:
                     f"only has {self.paging.num_blocks - 1} allocatable blocks — "
                     "it could never be admitted"
                 )
+        cfg = self.model.cfg
+        want = (n, cfg.num_codebooks) if cfg.input_mode == "audio" else (n,)
+        if np.shape(req.tokens) != want:
+            raise ValueError(
+                f"request {req.uid}: prompt of shape {np.shape(req.tokens)}; a "
+                f"{cfg.input_mode!r} model takes {want}"
+            )
+        self._validate_extras(req, n)
         self.scheduler.submit(req)
+
+    def _validate_extras(self, req: Request, n: int):
+        """A request's extras must be what the prefill dispatch consumes:
+        only a VLM takes them, and then both vision inputs, aligned with the
+        prompt (the reference's rules and messages)."""
+        cfg = self.model.cfg
+        if req.extras is None:
+            return
+        if cfg.input_mode != "vlm":
+            raise ValueError(
+                f"request {req.uid}: extras are only supported for "
+                f"input_mode='vlm' models, not {cfg.input_mode!r}"
+            )
+        missing = {"vision_embeds", "vision_mask"} - set(req.extras)
+        if missing:
+            raise ValueError(
+                f"request {req.uid}: vlm extras must carry "
+                f"'vision_embeds' and 'vision_mask' (missing {sorted(missing)})"
+            )
+        emb = np.asarray(req.extras["vision_embeds"])
+        msk = np.asarray(req.extras["vision_mask"])
+        if emb.shape != (n, cfg.d_model) or msk.shape != (n,):
+            raise ValueError(
+                f"request {req.uid}: vlm extras must be aligned with the "
+                f"prompt — want vision_embeds ({n}, {cfg.d_model}) and "
+                f"vision_mask ({n},), got {emb.shape} and {msk.shape}"
+            )
 
     # ------------------------------------------------------ paged blocks
     def _set_table(self, s: int, blocks: list[int]) -> None:
@@ -384,8 +439,9 @@ class ContinuousBatcher:
 
     def _register_prefix(self, s: int, req: Request):
         """Insert a COMPLETELY prefilled prompt's full blocks into the
-        prefix trie (only final KV values are ever aliasable)."""
-        if self.prefix is not None and req.prefill_remaining == 0:
+        prefix trie (only final KV values are ever aliasable), unless its
+        K/V depend on vision inputs the trie's keys do not hold."""
+        if self.prefix is not None and req.prefill_remaining == 0 and shares_prefix(req):
             self.prefix.insert(req.task_id, req.tokens, self.slot_blocks[s])
 
     def _try_bind(self, s: int, req: Request) -> bool:
@@ -430,7 +486,14 @@ class ContinuousBatcher:
 
     def _bind_prefix(self, s: int, req: Request, needed: int) -> bool:
         """Prefix-cache admission: alias the cached chain, copy-on-write
-        the partially shared boundary block, bind at ``cached_tokens``."""
+        the partially shared boundary block, bind at ``cached_tokens``. A
+        request with vision inputs takes fresh blocks and matches nothing."""
+        if not shares_prefix(req):
+            if not self.prefix.can_alloc(needed) and not self._preempt_for(req, needed):
+                return False
+            self._set_table(s, self.prefix.alloc(needed))
+            self.slots.bind(s, req)
+            return True
         admit = self.prefix.admit(req.task_id, req.tokens, needed)
         if admit is None and self._preempt_for(req, needed):
             admit = self.prefix.admit(req.task_id, req.tokens, needed)
@@ -580,8 +643,9 @@ class ContinuousBatcher:
     # ------------------------------------------------------------- emission
     def _emit(self, req: Request, row=None, greedy=None):
         """Append one generated token (greedy argmax or the pluggable
-        sampler) and stream it."""
-        tok = int(self.sample_fn(req, row) if self.sample_fn is not None else greedy)
+        sampler) and stream it: an int, or an audio model's (K,) int32 row."""
+        tok = self.sample_fn(req, row) if self.sample_fn is not None else greedy
+        tok = int(tok) if np.ndim(tok) == 0 else np.asarray(tok, np.int32)
         req.out.append(tok)
         if self.on_token is not None:
             self.on_token(req, tok)
@@ -594,6 +658,31 @@ class ContinuousBatcher:
         if self.sample_fn is None and not self.quarantine:
             return None
         return logits.cpu().numpy()
+
+    def _slab(self, c: int):
+        """Zeroed host inputs of one (num_slots, c) prefill dispatch: tokens
+        ((num_slots, c, K) for audio), valid, reset, and a VLM's (embeds,
+        vision mask), else None."""
+        cfg = self.model.cfg
+        k = cfg.num_codebooks
+        tokens = np.zeros((self.num_slots, c) + ((k,) if k > 1 else ()), np.int32)
+        vision = None
+        if cfg.input_mode == "vlm":
+            vision = (np.zeros((self.num_slots, c, cfg.d_model), np.float32),
+                      np.zeros((self.num_slots, c), bool))
+        return (tokens, np.zeros((self.num_slots, c), bool), np.zeros(self.num_slots, bool),
+                vision)
+
+    @staticmethod
+    def _fill_row(tokens, valid, vision, s: int, req: Request, n: int) -> None:
+        """Slot ``s``'s first ``n`` lanes: the request's next ``n`` prompt
+        tokens from its cursor, and their slice of its vision inputs."""
+        d = req.prompt_done
+        tokens[s, :n] = np.asarray(req.tokens, np.int32)[d : d + n]
+        valid[s, :n] = True
+        if vision is not None and req.extras is not None:
+            vision[0][s, :n] = np.asarray(req.extras["vision_embeds"], np.float32)[d : d + n]
+            vision[1][s, :n] = np.asarray(req.extras["vision_mask"], bool)[d : d + n]
 
     def _finish_ready(self):
         for s, req in self.slots.live_items():
@@ -706,20 +795,15 @@ class ContinuousBatcher:
             if self.faults is not None and self.faults.fires("dispatch", where="prefill"):
                 self._pending_prefill = set(pending)
                 raise FaultError("injected prefill dispatch failure")
-            tokens = np.zeros((self.num_slots, c), np.int32)
-            valid = np.zeros((self.num_slots, c), bool)
-            reset = np.zeros(self.num_slots, bool)
+            tokens, valid, reset, vision = self._slab(c)
             for s in pending:
                 req = self.slots.reqs[s]
                 reset[s] = s in self._needs_reset
-                d = req.prompt_done
-                t = np.asarray(req.tokens, np.int32)[d : d + c]
-                tokens[s, : len(t)] = t
-                valid[s, : len(t)] = True
+                self._fill_row(tokens, valid, vision, s, req, min(c, req.prefill_remaining))
             self._steps.prepare("prefill", tree)  # capture_s, not prefill_s
             t0 = time.perf_counter()
             greedy, last, positions = self._steps.prefill(
-                tokens, task_ids, self.pos, valid, reset, self._block_tables(), tree,
+                tokens, task_ids, self.pos, valid, reset, self._block_tables(), tree, vision,
             )
             rows = self._rows(last)
             self.prefill_s += time.perf_counter() - t0
@@ -766,7 +850,8 @@ class ContinuousBatcher:
             for s, req in items:
                 if self.faults.fires("nan", slot=s, uid=req.uid):
                     rows[s] = np.full_like(rows[s], np.nan)
-        finite = np.isfinite(np.stack([rows[s] for s, _ in items])).all(axis=1)
+        mat = np.stack([rows[s] for s, _ in items])  # (n, V) or audio's (n, K, V)
+        finite = np.isfinite(mat.reshape(len(items), -1)).all(axis=1)
         for (s, req), ok in zip(items, finite):
             if ok:
                 continue
@@ -787,7 +872,8 @@ class ContinuousBatcher:
             return
         if self.faults is not None and self.faults.fires("dispatch", where="decode"):
             raise FaultError("injected decode dispatch failure")
-        tokens = np.zeros(self.num_slots, np.int32)
+        k = self.model.cfg.num_codebooks
+        tokens = np.zeros((self.num_slots,) + ((k,) if k > 1 else ()), np.int32)
         for s, req in self.slots.live_items():
             tokens[s] = req.out[-1] if req.out else np.asarray(req.tokens)[-1]
         tree = self._adapter_tree()
@@ -828,21 +914,17 @@ class ContinuousBatcher:
             raise FaultError("injected mixed dispatch failure")
         c = self.prefill_chunk
         plan = self.scheduler.plan_prefill(prefilling, c)
-        tokens = np.zeros((self.num_slots, c), np.int32)
-        valid = np.zeros((self.num_slots, c), bool)
-        reset = np.zeros(self.num_slots, bool)
+        tokens, valid, reset, vision = self._slab(c)
         for s, n in plan:
             req = self.slots.reqs[s]
-            d = req.prompt_done
-            tokens[s, :n] = np.asarray(req.tokens, np.int32)[d : d + n]
-            valid[s, :n] = True
-            reset[s] = d == 0
+            self._fill_row(tokens, valid, vision, s, req, n)
+            reset[s] = req.prompt_done == 0
         for s, req in decoding:
             tokens[s, 0] = req.out[-1] if req.out else np.asarray(req.tokens)[-1]
             valid[s, 0] = True
         greedy, last, positions = self._steps.prefill(
             tokens, self.slots.task_ids(self._null_task), self.pos, valid, reset,
-            self._block_tables(), self._adapter_tree(),
+            self._block_tables(), self._adapter_tree(), vision,
         )
         rows = self._rows(last)
         self.ticks += 1

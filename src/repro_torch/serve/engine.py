@@ -8,7 +8,10 @@ and submits one ``Request`` per row: admission prefills the prompts in
 
 ``prompt_batch["tokens"]`` is a (B, S0) array, as in the JAX engine, or a
 list of B 1-D prompts of different lengths (ragged batches served through
-the same path).
+the same path); an audio model's is (B, S0, K) (or a list of (S0, K)
+codebook rows) and the result (B, num_tokens, K). A VLM's batch may carry
+``vision_embeds`` (B, S0, d_model) and ``vision_mask`` (B, S0) (or lists of
+per-prompt arrays): each row's pair becomes its request's extras.
 
 Pass ``paging`` (a ``repro_torch.serve.paging.PagingSpec``) to serve from
 the paged block pool, and ``prefix_cache=True`` to put the radix prefix
@@ -22,7 +25,8 @@ prefix cache).
 Sampling (``temperature > 0``) draws token ``t`` of request ``uid`` with a
 ``torch.Generator`` seeded from ``(seed, uid, t)``: a request's stream is a
 pure function of its own logits, stable under scheduler reordering and slot
-placement. It does not reproduce the JAX engine's PRNG bits.
+placement; an audio row draws one token per codebook from that generator.
+It does not reproduce the JAX engine's PRNG bits.
 
 ``adapters`` (a ``repro_torch.serve.adapters.TaskAdapterStore``) serves
 each row with its task's graph-mixed low-rank adapters; the store's
@@ -73,13 +77,18 @@ def _request_generator(seed: int, uid: int, token_index: int) -> torch.Generator
     return torch.Generator().manual_seed(int(state[0]))
 
 
-def sample(row: np.ndarray, generator: torch.Generator, temperature: float) -> int:
-    """Draw one token from softmax(row / temperature) (greedy at 0)."""
+def sample(row: np.ndarray, generator: torch.Generator, temperature: float):
+    """Draw one token from softmax(row / temperature) (greedy at 0): an int
+    for a (V,) row, a (K,) int32 array for an audio model's (K, V) row, one
+    draw per codebook."""
     logits = torch.as_tensor(row, dtype=torch.float32)
     if temperature <= 0.0:
-        return int(torch.argmax(logits))
-    probs = torch.softmax(logits / temperature, dim=-1)
-    return int(torch.multinomial(probs, 1, generator=generator))
+        tok = torch.argmax(logits, dim=-1)
+    else:
+        probs = torch.softmax(logits / temperature, dim=-1)
+        tok = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1, generator=generator)
+        tok = tok.reshape(probs.shape[:-1])
+    return int(tok) if tok.ndim == 0 else tok.numpy().astype(np.int32)
 
 
 @dataclasses.dataclass
@@ -118,7 +127,9 @@ class ServeEngine:
     def generate(self, prompt_batch: dict, num_tokens: int, seed: int = 0,
                  temperature: float = 0.0, request_ids=None, on_token=None) -> np.ndarray:
         """prompt_batch: {"tokens": (B, S0) array or list of 1-D prompts
-        [, "task_ids": (B,)]}. Returns the generated ids (B, num_tokens)."""
+        ((B, S0, K) or (S0, K) rows for audio) [, "task_ids": (B,)] [, a
+        VLM's "vision_embeds" and "vision_mask"]}. Returns the generated
+        ids (B, num_tokens) ((B, num_tokens, K) for audio)."""
         prompts = [np.asarray(t, np.int32) for t in prompt_batch["tokens"]]
         b = len(prompts)
         longest = max(len(p) for p in prompts)
@@ -162,10 +173,18 @@ class ServeEngine:
             prefix_cache=self.prefix_cache, adapters=self.adapters,
             faults=self.faults, preempt=self.preempt, cuda_graphs=self.cuda_graphs,
         )
+        vision = self.model.cfg.input_mode == "vlm" and "vision_embeds" in prompt_batch
         try:
             for i, uid in enumerate(uids):
+                extras = None
+                if vision:
+                    extras = {
+                        "vision_embeds": np.asarray(prompt_batch["vision_embeds"][i], np.float32),
+                        "vision_mask": np.asarray(prompt_batch["vision_mask"][i], bool),
+                    }
                 batcher.submit(Request(
                     uid=uid, tokens=prompts[i], max_new=num_tokens, task_id=int(task_ids[i]),
+                    extras=extras,
                 ))
             finished = {r.uid: r for r in batcher.run()}
         finally:

@@ -11,10 +11,16 @@ functions built here, so their numerics cannot drift.
     EVERY slot one token at its own position ``positions[b]``. Dead slots
     (``live[b] == False``) run through the math on a padding token but
     their cache rows are left untouched. Returns (greedy next token, step
-    logits, caches).
+    logits, caches). An audio model's tokens are (B, K) codebook rows, its
+    step logits (B, K, V) and its greedy tokens (B, K), argmax over each
+    codebook's vocabulary; a VLM's decode step is text only, as the
+    reference's ``make_step_batch`` without extras.
 
   * ``prefill_chunk(tokens, task_ids, caches, positions, valid, reset,
-    block_tables=None, adapters=None)`` — write a whole (B, C) prompt slice.
+    block_tables=None, adapters=None, extras=None)`` — write a whole (B,
+    C) prompt slice ((B, C, K) for audio); ``extras`` carries a VLM
+    chunk's (B, C, d_model) ``vision_embeds`` and (B, C) ``vision_mask``
+    (None: a text-only chunk).
     ``valid[b, i]`` marks real prompt tokens as a contiguous prefix per
     row; ``reset[b]`` (host bool array) restores a (re)admitted slot's
     per-slot cache entries (dense stripes, recurrent states) to their
@@ -91,38 +97,43 @@ def _step_bodies(model, prefill_mode: str):
             f"prefill_mode must be 'parallel' or 'scan', got {prefill_mode!r}"
         )
 
+    def rows(mask, like):  # a (B,) mask over the rows of (B, V) or (B, K, V) logits
+        return mask.reshape(mask.shape + (1,) * (like.ndim - 1))
+
     def decode_tick(tokens, task_ids, caches, positions, live, block_tables=None,
                     adapters=None):
         logits, caches = model.decode_step(
             {"tokens": tokens[:, None], "task_ids": task_ids}, caches, positions,
             live=live, block_tables=block_tables, adapters=adapters,
         )
-        step_logits = logits[:, 0]  # (B, V) f32
+        step_logits = logits[:, 0]  # (B, V) f32, (B, K, V) for audio
         return step_logits.argmax(dim=-1), step_logits, caches
 
     def prefill_parallel(tokens, task_ids, caches, positions, valid, block_tables=None,
-                         adapters=None):
+                         adapters=None, extras=None):
         logits, caches = model.prefill_step(
-            {"tokens": tokens, "task_ids": task_ids}, caches, positions, valid,
-            block_tables=block_tables, adapters=adapters,
+            {"tokens": tokens, "task_ids": task_ids, **(extras or {})}, caches, positions,
+            valid, block_tables=block_tables, adapters=adapters,
         )
         n_valid = valid.sum(dim=1).to(positions.dtype)  # (B,)
         # slots with no valid token in this chunk report zeros
-        last = torch.where((n_valid > 0)[:, None], logits[:, 0], 0.0)
+        last = torch.where(rows(n_valid > 0, logits[:, 0]), logits[:, 0], 0.0)
         return last, caches, positions + n_valid
 
     def prefill_scan(tokens, task_ids, caches, positions, valid, block_tables=None,
-                     adapters=None):
+                     adapters=None, extras=None):
         last = None
         for i in range(tokens.shape[1]):
             vld = valid[:, i]
+            batch = {"tokens": tokens[:, i : i + 1], "task_ids": task_ids}
+            batch.update({k: t[:, i : i + 1] for k, t in (extras or {}).items()})
             logits, caches = model.decode_step(
-                {"tokens": tokens[:, i : i + 1], "task_ids": task_ids}, caches,
-                positions, live=vld, block_tables=block_tables, adapters=adapters,
+                batch, caches, positions, live=vld, block_tables=block_tables,
+                adapters=adapters,
             )
             step = logits[:, 0]
             last = torch.zeros_like(step) if last is None else last
-            last = torch.where(vld[:, None], step, last)
+            last = torch.where(rows(vld, step), step, last)
             positions = positions + vld.to(positions.dtype)
         return last, caches, positions
 
@@ -133,10 +144,10 @@ def make_serve_step(model, prefill_mode: str = "parallel", paging=None):
     decode_tick, prefill_body = _step_bodies(model, prefill_mode)
 
     def prefill_chunk(tokens, task_ids, caches, positions, valid, reset,
-                      block_tables=None, adapters=None):
+                      block_tables=None, adapters=None, extras=None):
         caches = model.reset_slot_state(caches, reset, paging)
         return prefill_body(tokens, task_ids, caches, positions, valid, block_tables,
-                            adapters)
+                            adapters, extras)
 
     return decode_tick, prefill_chunk
 
@@ -164,15 +175,22 @@ class _Step:
     buffer (pinned on CUDA), its device copy and views of it, and, once
     captured, the graph and its outputs.
 
-    Packed fields, in order: tokens (B, C), task ids (B,), positions (B,)
-    int32, the live / valid mask (B, C) as 0/1, and the (B, max_blocks)
-    block table (paged only)."""
+    Packed fields, in order: tokens (B, C) ((B, C, K) for K > 1 codebooks),
+    task ids (B,), positions (B,) int32, the live / valid mask (B, C) as
+    0/1, the (B, max_blocks) block table (paged only) and, for a VLM's
+    prefill step (``vision_dim`` d_model), the (B, C) vision mask as 0/1.
+    That step also holds a float32 (B, C, d_model) ``vision_embeds`` buffer
+    with its own pinned host copy, uploaded only for a dispatch whose
+    vision mask has a True (elsewhere the model reads no embedding)."""
 
-    def __init__(self, b: int, c: int, max_blocks: int, device: torch.device):
-        sizes = {"tokens": b * c, "task_ids": b, "positions": b, "mask": b * c,
-                 "table": b * max_blocks}
+    def __init__(self, b: int, c: int, max_blocks: int, device: torch.device,
+                 codebooks: int = 1, vision_dim: int = 0):
+        pinned = device.type == "cuda"
+        tok_shape = (b, c) if codebooks == 1 else (b, c, codebooks)
+        sizes = {"tokens": int(np.prod(tok_shape)), "task_ids": b, "positions": b,
+                 "mask": b * c, "table": b * max_blocks, "vision": b * c if vision_dim else 0}
         n = sum(sizes.values())
-        self.host = torch.zeros(n, dtype=torch.int32, pin_memory=device.type == "cuda")
+        self.host = torch.zeros(n, dtype=torch.int32, pin_memory=pinned)
         self.dev = torch.zeros(n, dtype=torch.int32, device=device)
         host_np = self.host.numpy()
         self.fields, self.views, off = {}, {}, 0
@@ -180,23 +198,36 @@ class _Step:
             self.fields[name] = host_np[off : off + size]
             self.views[name] = self.dev[off : off + size]
             off += size
-        self.views["tokens"] = self.views["tokens"].view(b, c)
+        self.views["tokens"] = self.views["tokens"].view(tok_shape)
         self.views["mask"] = self.views["mask"].view(b, c)
         self.views["table"] = self.views["table"].view(b, max_blocks) if max_blocks else None
+        self.views["vision"] = self.views["vision"].view(b, c) if vision_dim else None
+        self.embeds = self.embeds_host = None
+        if vision_dim:
+            self.embeds_host = torch.zeros((b, c, vision_dim), pin_memory=pinned)
+            self.embeds = torch.zeros((b, c, vision_dim), device=device)
         self.graph = None
         self.outputs = None
         self.launches = ()  # per counted op: kernels one replay launches
         self.bound = ()  # data pointers of the adapter tree the graph reads
 
-    def fill(self, tokens, task_ids, positions, mask, table) -> None:
+    def fill(self, tokens, task_ids, positions, mask, table, vision=None) -> None:
         """Write one dispatch's inputs into the host buffer and start their
-        upload on the current stream (one copy)."""
+        upload on the current stream (one copy; a second for the vision
+        embeddings when the ``vision`` (embeds, mask) pair masks any
+        position in)."""
         self.fields["tokens"][:] = np.asarray(tokens).reshape(-1)
         self.fields["task_ids"][:] = task_ids
         self.fields["positions"][:] = positions
         self.fields["mask"][:] = np.asarray(mask).reshape(-1)
         if table is not None:
             self.fields["table"][:] = np.asarray(table).reshape(-1)
+        if self.embeds is not None:
+            emb, vmask = vision if vision is not None else (None, False)
+            self.fields["vision"][:] = np.asarray(vmask).reshape(-1)
+            if self.fields["vision"].any():
+                self.embeds_host.numpy()[:] = emb
+                self.embeds.copy_(self.embeds_host, non_blocking=True)
         self.dev.copy_(self.host, non_blocking=True)
 
 
@@ -240,10 +271,13 @@ class StepExecutor:
         self.num_slots = num_slots
         self.cuda_graphs = use_cuda_graphs(cuda_graphs, model.device)
         self.decode_tick, self.prefill_body = _step_bodies(model, prefill_mode)
+        cfg = model.cfg
         mb = paging.max_blocks_per_slot if paging is not None else 0
+        k = cfg.num_codebooks
+        vision = cfg.d_model if cfg.input_mode == "vlm" else 0
         self._steps = {
-            "decode": _Step(num_slots, 1, mb, model.device),
-            "prefill": _Step(num_slots, prefill_chunk, mb, model.device),
+            "decode": _Step(num_slots, 1, mb, model.device, k),
+            "prefill": _Step(num_slots, prefill_chunk, mb, model.device, k, vision),
         }
         self.capture_s = 0.0
         self.captures = 0
@@ -252,9 +286,11 @@ class StepExecutor:
     # ------------------------------------------------------------ steps
     def _run(self, kind: str, adapters):
         """The step on the static buffers, eagerly (or under capture).
-        Returns (int32 results, logits): decode's next tokens (B,); prefill's
-        greedy tokens and new positions (2B,)."""
-        v = self._steps[kind].views
+        Returns (int32 results, logits): decode's next tokens (B,) ((B, K)
+        for audio); prefill's greedy tokens, flat, then the new positions
+        (B,)."""
+        step = self._steps[kind]
+        v = step.views
         mask = v["mask"] != 0
         if kind == "decode":
             nxt, logits, _ = self.decode_tick(
@@ -262,11 +298,15 @@ class StepExecutor:
                 v["table"], adapters,
             )
             return nxt.to(torch.int32), logits
+        extras = None
+        if step.embeds is not None:
+            extras = {"vision_embeds": step.embeds, "vision_mask": v["vision"] != 0}
         last, _, positions = self.prefill_body(
             v["tokens"], v["task_ids"], self.caches, v["positions"], mask, v["table"],
-            adapters,
+            adapters, extras,
         )
-        return torch.cat([last.argmax(dim=-1).to(torch.int32), positions.to(torch.int32)]), last
+        greedy = last.argmax(dim=-1).to(torch.int32).reshape(-1)
+        return torch.cat([greedy, positions.to(torch.int32)]), last
 
     def prepare(self, kind: str, adapters=None) -> None:
         """Capture step ``kind`` ("decode" or "prefill") now, as its first
@@ -320,29 +360,34 @@ class StepExecutor:
         return step.outputs
 
     def decode(self, tokens, task_ids, positions, live, block_tables=None, adapters=None):
-        """One decode tick. tokens, task_ids, positions: (B,) ints; live:
-        (B,) bool; block_tables: (B, max_blocks) int32 (paged) or None.
-        Returns (greedy next tokens (B,) numpy int32, step logits (B, V) f32
-        on the device — a graph output, overwritten by the next tick)."""
+        """One decode tick. tokens, task_ids, positions: (B,) ints (tokens
+        (B, K) for audio); live: (B,) bool; block_tables: (B, max_blocks)
+        int32 (paged) or None. Returns (greedy next tokens (B,) ((B, K))
+        numpy int32, step logits (B, V) ((B, K, V)) f32 on the device — a
+        graph output, overwritten by the next tick)."""
         self.prepare("decode", adapters)
         self._steps["decode"].fill(tokens, task_ids, positions, live, block_tables)
         ints, logits = self._dispatch("decode", adapters)
         return ints.cpu().numpy(), logits
 
     def prefill(self, tokens, task_ids, positions, valid, reset, block_tables=None,
-                adapters=None):
-        """One (B, C) prefill chunk. valid: (B, C) bool; reset: (B,) bool,
-        the slots admitted by this dispatch. Returns (greedy tokens after
-        each slot's last valid token (B,), those logits (B, V) on the
-        device, overwritten by the next chunk, new positions (B,) int32)."""
+                adapters=None, vision=None):
+        """One (B, C) prefill chunk ((B, C, K) tokens for audio). valid: (B,
+        C) bool; reset: (B,) bool, the slots admitted by this dispatch;
+        vision: a VLM chunk's (embeds (B, C, d_model) float32, mask (B, C)
+        bool), or None for text only. Returns (greedy tokens after each
+        slot's last valid token (B,) ((B, K)), those logits (B, V) ((B, K,
+        V)) on the device, overwritten by the next chunk, new positions (B,)
+        int32)."""
         self.prepare("prefill", adapters)
         reset = np.asarray(reset, bool)
         if reset.any():
             self.model.reset_slot_state(self.caches, reset, self.paging)
-        self._steps["prefill"].fill(tokens, task_ids, positions, valid, block_tables)
+        self._steps["prefill"].fill(tokens, task_ids, positions, valid, block_tables, vision)
         ints, last = self._dispatch("prefill", adapters)
         out = ints.cpu().numpy()
-        return out[: self.num_slots], last, out[self.num_slots :]
+        b = self.num_slots
+        return out[:-b].reshape((b,) + last.shape[1:-1]), last, out[-b:]
 
     def close(self) -> None:
         """Release both graphs and their memory pool; a later dispatch

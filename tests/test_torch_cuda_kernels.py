@@ -12,12 +12,16 @@ The dense and paged flash-decode kernels against their plain versions at
 forced split counts (1, 3, one per key tile and the wrapper's own), at the
 decode shapes above, multitask-LM's (G 4, hd 64), Mixtral-8x22B's (G 6,
 window 4096 over S 8192), Zamba2-7B's (hd 112, the first head dim that is
-no power of two) and S 2048 (64 splits, merged in two groups), a
+no power of two), Pixtral-12B's (hd 160, padded to 256 in the decode
+block: two groups of 4 dims a lane) and S 2048 (64 splits, merged in two
+groups), a
 stale position, block sizes 8 and 16 with out-of-pool ids. The dense and
 paged flash-prefill kernels against their plain versions at forced split
 counts (1, 3 and the wrapper's own), at C * G of 3, 32, 128, 160, 192 and
 200 (a ragged m16 tile, rows over several m16 tiles, several row tiles) and
-at hd 112, and refusing hd 160, which no kernel instantiates,
+at hd 112 and 160 (Pixtral: 128 rows in four row tiles in f32, two in
+bf16, the combine kernel's 6-row blocks crossing them), both decode and
+prefill launching at 160 and refusing hd 96, which no kernel instantiates,
 with a window, a slot at pos 0 beside one at 992, a row that sees no key,
 and, paged, block sizes 8 and 16 with a poisoned null block and
 out-of-pool ids.
@@ -105,6 +109,10 @@ _PREFILL_CASES = [
     # chunk's last row at the cache's last row
     (4, 2048, 32, 1, 112, 32, [0, 700, 1500, 2016], None),
     (3, 304, 2, 1, 112, 32, [0, 131, 272], None),
+    # Pixtral-12B: hd 160 (G 4), its serving shape (128 slab rows) and a
+    # ragged S with a window
+    (4, 2048, 8, 4, 160, 32, [0, 700, 1500, 2016], None),
+    (3, 304, 2, 4, 160, 8, [0, 131, 290], 64),
 ]
 
 
@@ -166,6 +174,10 @@ _DECODE_CASES = [
     # and at the last row
     (4, 2048, 32, 1, 112, [63, 700, 1500, 2047], None),
     (3, 304, 2, 1, 112, [0, 150, 303], None),
+    # Pixtral-12B: hd 160 (G 4), at its serving shape and at a ragged S with
+    # a window
+    (4, 2048, 8, 4, 160, [63, 700, 1500, 2047], None),
+    (3, 304, 2, 4, 160, [0, 150, 303], 100),
 ]
 
 
@@ -215,8 +227,8 @@ def test_decode_kernels_match_plain_versions_at_forced_splits(dtype, nsplit, blo
 
 @pytest.mark.cuda
 def test_attention_kernels_refuse_head_dims_they_do_not_instantiate():
-    """hd 112 launches; hd 160 (pixtral) is in no instantiation and raises
-    before any launch, dense and paged, decode and prefill."""
+    """hd 112 and 160 (Pixtral) launch; hd 96 is in no instantiation and
+    raises before any launch, dense and paged, decode and prefill."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -224,7 +236,7 @@ def test_attention_kernels_refuse_head_dims_they_do_not_instantiate():
     table = torch.ones((2, 2), dtype=torch.int32, device=dev)
     ops = (dec_ops.decode_attention, dec_ops.paged_decode_attention,
            pre_ops.prefill_attention, pre_ops.paged_prefill_attention)
-    for hd, ok in ((112, True), (160, False)):
+    for hd, ok in ((112, True), (160, True), (96, False)):
         before = [op.launches for op in ops]
         for c in (1, 4):
             q = torch.zeros((2, c, 4, hd), device=dev)
@@ -238,7 +250,7 @@ def test_attention_kernels_refuse_head_dims_they_do_not_instantiate():
                 if ok:
                     call()
                 else:
-                    with pytest.raises(ValueError, match="head_dim 160"):
+                    with pytest.raises(ValueError, match="head_dim 96"):
                         call()
         torch.cuda.synchronize()
         want = [n + 1 if ok else n for n in before]

@@ -17,7 +17,8 @@ and 128, with a sliding window, and with a stale position whose row sees no
 key and so averages every row. Zamba2's hd 112 runs at the block's padded
 width (``padded_dim`` in the tile header: q, K and V zero past hd, the
 output cut back to hd), dense and paged, with ragged S and positions at
-the edges, held to the same references within 1e-5."""
+the edges, held to the same references within 1e-5; Pixtral's hd 160 (G 4)
+at its padded width of 256, dense with a window and paged."""
 import functools
 import math
 import re
@@ -160,11 +161,17 @@ _PAGED = [
 # and the last row; paged, 16-row pages with slot 0 half unmapped
 _CASES_112 = [(3, 300, 2, 1, 112, (0, 150, 299), None)]
 _PAGED_112 = [(2, 19, 16, 2, 1, 112, (303, 0), None)]
+# Pixtral-12B's hd 160 (G 4): a window over a ragged S; paged, slot 0 half
+# unmapped and slot 1 at its last row
+_CASES_160 = [(2, 300, 2, 4, 160, (299, 40), 100)]
+_PAGED_160 = [(2, 19, 16, 2, 4, 160, (150, 303), None)]
+_DENSE_SETS = {"dense": _CASES, "hd112": _CASES_112, "hd160": _CASES_160}
+_PAGED_SETS = {"paged": _PAGED, "hd112": _PAGED_112, "hd160": _PAGED_160}
 
 
 @functools.lru_cache(maxsize=None)
 def _case(i, cases="dense"):
-    b, s, kvh, g, hd, pos, window = (_CASES if cases == "dense" else _CASES_112)[i]
+    b, s, kvh, g, hd, pos, window = _DENSE_SETS[cases][i]
     rng = np.random.default_rng(60 + i)
     q = rng.standard_normal((b, kvh, g, hd)).astype(np.float32)
     k = rng.standard_normal((b, s, kvh, hd)).astype(np.float32)
@@ -178,7 +185,7 @@ def _case(i, cases="dense"):
 
 @functools.lru_cache(maxsize=None)
 def _paged_case(i, cases="paged"):
-    b, mb, bs, kvh, g, hd, pos, window = (_PAGED if cases == "paged" else _PAGED_112)[i]
+    b, mb, bs, kvh, g, hd, pos, window = _PAGED_SETS[cases][i]
     rng = np.random.default_rng(80 + i)
     nb = b * mb + 1
     q = rng.standard_normal((b, kvh, g, hd)).astype(np.float32)
@@ -240,6 +247,27 @@ def test_hd112_paged_split_merge_matches_jax_paged_decode(nsplit):
     _check(got, ref, pallas)
 
 
+@pytest.mark.parametrize("nsplit", [1, 3, 10])
+def test_hd160_split_merge_matches_jax_decode(nsplit):
+    """hd 160 at the block's padded width of 256 (two groups of 4 dims a
+    lane in the kernel), dense, with a window."""
+    (q, k, v, pos, window), ref, pallas = _case(0, "hd160")
+    got = _split_merge(*map(torch.from_numpy, (q, k, v)), pos, window, nsplit).numpy()
+    _check(got, ref, pallas)
+
+
+@pytest.mark.parametrize("nsplit", [1, 3])
+def test_hd160_paged_split_merge_matches_jax_paged_decode(nsplit):
+    """hd 160 over a pool: slot 0 reads past its mapped pages into the null
+    block."""
+    (q, k_pool, v_pool, table, pos, window), ref, pallas = _paged_case(0, "hd160")
+    t = torch.from_numpy(table)
+    k = gather_pages(torch.from_numpy(k_pool), t)
+    v = gather_pages(torch.from_numpy(v_pool), t)
+    got = _split_merge(torch.from_numpy(q), k, v, pos, window, nsplit).numpy()
+    _check(got, ref, pallas)
+
+
 def test_row_without_keys_averages_every_row_across_splits():
     """Slot 0 of the stale case sees no key: the merge of 5 splits (every
     tile visited, each split's m at -1e30) gives the uniform average of all
@@ -271,14 +299,14 @@ def test_emulated_geometry_is_the_kernels():
     assert re.search(rf"#define DECODE_WARPS {WARPS}\b", src)
     assert re.search(rf"constexpr int kChunk = {CHUNK};", src)
     assert "return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 256;" in src
-    assert [_padded_dim(hd) for hd in (32, 64, 112, 128)] == [32, 64, 128, 128]
+    assert [_padded_dim(hd) for hd in (32, 64, 112, 128, 160)] == [32, 64, 128, 128, 256]
 
 
 def test_head_dims_are_the_sources_instantiations():
-    """Every head dim the wrappers accept (``runtime.HEAD_DIMS``, 112 among
-    them) has a case in each dtype's switch of both attention sources, and
-    no other does: adding 112 opens no path for another width (160, pixtral,
-    is refused before a launch)."""
+    """Every head dim the wrappers accept (``runtime.HEAD_DIMS``, 112 and
+    160 among them) has a case in each dtype's switch of both attention
+    sources, and no other does: adding a width opens no path for another
+    (96 is refused before a launch)."""
     for name, macro in (("decode_attention.cu", "DECODE_CASE"),
                         ("decode_attention.cu", "GEOMETRY_CASE"),
                         ("prefill_attention.cu", "PREFILL_CASE")):
@@ -287,4 +315,4 @@ def test_head_dims_are_the_sources_instantiations():
             found = re.findall(rf"case (\d+): {macro}\({ty}, (\d+)\);", src)
             assert [int(a) for a, _ in found] == list(HEAD_DIMS), (name, macro, ty)
             assert all(a == b for a, b in found)
-    assert 112 in HEAD_DIMS and 160 not in HEAD_DIMS
+    assert 112 in HEAD_DIMS and 160 in HEAD_DIMS and 96 not in HEAD_DIMS

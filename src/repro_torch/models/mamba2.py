@@ -9,7 +9,11 @@ Per-layer state: the conv window (B, CONV_K - 1, conv_dim) in the model's
 dtype and the SSM state (B, n_heads, head_dim, d_state) in float32. The SSD
 arithmetic runs in float32 whatever the model's dtype, as the reference
 casts. Simplifications of the reference kept as they are: one B/C group, no
-bias terms, the norm before the gate.
+bias terms, the norm before the gate. One deliberate divergence: the
+chunked SSD masks its decay matrix before the ``exp`` (the reference after
+it), so the forward is the same and the backward stays finite where the
+reference's overflows to ``0 * inf`` (a full-width chunk of 128 tokens at a
+typical dt already does; ``tests/test_torch_hybrid_train.py``).
 
 ``mamba2_full`` and the projections are functional. ``mamba2_step`` writes
 the new state INTO the given state tensors (``layers.freeze_dead_slots``),
@@ -134,12 +138,20 @@ def mamba2_full(params, x, *, d_state: int, head_dim: int, chunk: int = 256,
         xs_i, b_i, c_i, dt_i, da_i = xs_c[i], b_c[i], c_c[i], dt_c[i], da_c[i]
         cum = torch.cumsum(da_i, dim=1)  # (B, c, nh)
         diff = cum[:, :, None, :] - cum[:, None, :, :]  # (B, t, s', nh)
-        l_mat = torch.where(tri[None, :, :, None], torch.exp(diff), 0.0)
+        # masked before the exp: above the diagonal diff > 0, and a chunk of
+        # 128 steps of dt ~ 0.7 overflows exp there; the reference's
+        # where(tri, exp(diff), 0) gives the same values but 0 * inf = NaN in
+        # the backward (a deliberate divergence: its gradient where finite)
+        l_mat = torch.exp(torch.where(tri[None, :, :, None], diff, -torch.inf))
+        # analysis: ignore[R005] -- r() casts every chunk operand to float32
         cb = torch.einsum("btn,bsn->bts", c_i, b_i)  # one B/C group
         w_mat = cb[..., None] * l_mat * dt_i[:, None, :, :]  # (B, t, s', nh)
+        # analysis: ignore[R005] -- float32: w_mat and xs_i come from r()'s float32 operands
         y_intra = torch.einsum("btsh,bshd->bthd", w_mat, xs_i)
+        # analysis: ignore[R005] -- r() casts every chunk operand to float32; s_prev is float32
         y_inter = torch.einsum("btn,bth,bhdn->bthd", c_i, torch.exp(cum), s_prev)
         decay_to_end = torch.exp(cum[:, -1:, :] - cum)  # (B, c, nh)
+        # analysis: ignore[R005] -- r() casts every chunk operand to float32
         st = torch.einsum("bsh,bsn,bshd->bhdn", decay_to_end * dt_i, b_i, xs_i)
         s_prev = s_prev * torch.exp(cum[:, -1, :])[:, :, None, None] + st
         ys.append(y_intra + y_inter)
@@ -158,6 +170,7 @@ def mamba2_step(params, x, state, *, d_state: int, head_dim: int, live=None):
     conv_tail, ssm = state  # (B, K-1, conv_dim), (B, nh, hd, ds)
     z, xbc, dt, d_inner, nh = _split_proj(params, x, d_model, d_state, head_dim)
     window = torch.cat([conv_tail, xbc], dim=1)  # (B, K, conv_dim)
+    # analysis: ignore[R005] -- the reference's conv contracts at this dtype too (CONV_K terms)
     conv_out = silu(torch.einsum("bkc,kc->bc", window, params["conv_w"]))[:, None, :]
     new_tail = window[:, 1:, :]
     xs = conv_out[..., :d_inner].reshape(bsz, nh, head_dim)
@@ -167,6 +180,7 @@ def mamba2_step(params, x, state, *, d_state: int, head_dim: int, live=None):
     dt = _softplus(dt[:, 0].float() + params["dt_bias"])  # (B, nh)
     a = -torch.exp(params["a_log"])
     dec = torch.exp(dt * a[None, :])  # (B, nh)
+    # analysis: ignore[R005] -- dt is float32 (_softplus of a float32 sum), b_in and xs are cast
     ssm_new = ssm * dec[:, :, None, None] + torch.einsum(
         "bh,bn,bhd->bhdn", dt, b_in.float(), xs.float()
     )

@@ -473,6 +473,7 @@ class TransformerLM(nn.Module):
         idx = torch.as_tensor(rows, device=self.device)
         for kind, entry in per_slot:
             for t, (_, _, fill) in zip(entry, self._cache_spec(kind, 1, 1)):
+                # analysis: ignore[R001] -- rows of the (B,) reset mask: in [0, B) by construction
                 t.index_fill_(0, idx, fill)
         return caches
 

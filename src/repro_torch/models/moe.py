@@ -88,6 +88,7 @@ def _moe_groups(params, xg, bias, top_k: int, cap: int, live):
     # too, as in the reference
     a = t * top_k
     me = probs.mean(dim=1)  # (G, E)
+    # analysis: ignore[R001] -- top-k indices over the E experts lie in [0, E)
     ce = torch.zeros((g, e), dtype=torch.float32, device=dev).scatter_add_(
         1, expert_idx.reshape(g, a), torch.ones((g, a), dtype=torch.float32, device=dev)
     ) / a

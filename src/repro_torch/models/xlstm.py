@@ -72,8 +72,10 @@ def _mlstm_cell(state, inputs):
     i_sc = torch.exp(i_pre - m_new)[..., None]
     c_new = c * f_sc[..., None] + i_sc[..., None] * (k[..., :, None] * v[..., None, :])
     n_new = n * f_sc + i_sc * k
+    # analysis: ignore[R005] -- mlstm_full casts q, k, v to float32; the state is float32
     num = torch.einsum("bhd,bhde->bhe", q, c_new)
     # a fresh state's m is -1e30: exp(-m) is +inf and h is an exact 0
+    # analysis: ignore[R005] -- mlstm_full casts q, k, v to float32; the state is float32
     den = torch.maximum(torch.einsum("bhd,bhd->bh", q, n_new).abs(), torch.exp(-m_new))
     return (c_new, n_new, m_new), num / den[..., None]
 
@@ -88,6 +90,7 @@ def _mlstm_qkvif(params, x, n_heads):
     hd = d_inner // n_heads
     # sqrt(hd) rounded to x's dtype, as the reference casts it (a host
     # number: no device copy inside a captured step)
+    # analysis: ignore[R004] -- a CPU scalar made from a host int: no device tensor, no sync
     root = float(torch.tensor(float(hd)).sqrt().to(x.dtype))
     q = matmul(x_in, params["wq"]).reshape(b, t, n_heads, hd)
     k = matmul(x_in, params["wk"]).reshape(b, t, n_heads, hd) / root
@@ -204,10 +207,13 @@ def mlstm_chunkwise(params, x, *, n_heads: int, chunk: int = 64, state=None, val
         d_mat = torch.where(tril[None, :, :, None], d_mat, -torch.inf)
         state_exp = cum + m_st[:, None, :]  # (B,c,nh)
         m_loc = torch.maximum(state_exp, d_mat.max(dim=2).values)
+        # analysis: ignore[R005] -- qi, ki, vi are cast to float32 above; the gates are float32
         w = torch.exp(d_mat - m_loc[:, :, None, :]) * torch.einsum("bthd,bshd->btsh", qi, ki)
         sc = torch.exp(state_exp - m_loc)
+        # analysis: ignore[R005] -- qi, vi are float32 (cast above), as are w and the states
         num = sc[..., None] * torch.einsum("bthd,bhde->bthe", qi, c_st) + torch.einsum(
             "btsh,bshd->bthd", w, vi)
+        # analysis: ignore[R005] -- qi is float32 (cast above), as is the state n_st
         den_raw = sc * torch.einsum("bthd,bhd->bth", qi, n_st) + w.sum(dim=2)
         den = torch.maximum(den_raw.abs(), torch.exp(-m_loc))
         hs.append(num / den[..., None])
@@ -216,7 +222,9 @@ def mlstm_chunkwise(params, x, *, n_heads: int, chunk: int = 64, state=None, val
         m_out = torch.maximum(cum[:, -1, :] + m_st, tail.max(dim=1).values)
         decay = torch.exp(tail - m_out[:, None, :])
         carry = torch.exp(cum[:, -1, :] + m_st - m_out)
+        # analysis: ignore[R005] -- ki, vi are float32 (cast above), as are the decays
         c_st = carry[..., None, None] * c_st + torch.einsum("bsh,bshd,bshe->bhde", decay, ki, vi)
+        # analysis: ignore[R005] -- ki is float32 (cast above), as are the decays
         n_st = carry[..., None] * n_st + torch.einsum("bsh,bshd->bhd", decay, ki)
         m_st = m_out
     h = torch.cat(hs, dim=1).reshape(b, t, d_inner).to(x.dtype)
@@ -261,6 +269,7 @@ def slstm_full(params, x, *, n_heads: int, state=None, chunk: int = 0, valid=Non
         c, n, h, m = st
         p, keep = inputs
         p = p.float()  # (B, 4, nh, hd)
+        # analysis: ignore[R005] -- h is the float32 sLSTM state; r is cast above
         rec = torch.einsum("bhd,ghde->bghe", h, r)  # (B, 4, nh, hd)
         z_pre, i_pre, f_pre, o_pre = (p[:, g] + rec[:, g] for g in range(4))
         i_gate = i_pre.mean(dim=-1)  # scalar gates per head

@@ -515,6 +515,7 @@ def make_swap(paging, kinds):
             staging = torch.empty((len(pools), len(idx)) + tuple(first.shape[1:]),
                                   dtype=first.dtype, device=first.device)
             for j, pool in enumerate(pools):
+                # analysis: ignore[R001] -- _ids raises unless every id lies in [1, num_blocks)
                 torch.index_select(pool, 0, idx, out=staging[j])
             pages.append(_host(staging))
         return pages, [_host(t[slot]) for t in states]
@@ -536,6 +537,7 @@ def make_swap(paging, kinds):
         for pools, saved_pages in zip(groups, pages):
             rows = saved_pages.to(pools[0].device, non_blocking=True)
             for j, pool in enumerate(pools):
+                # analysis: ignore[R001] -- _ids raises unless every id lies in [1, num_blocks)
                 pool.index_copy_(0, idx, rows[j])
         for t, col in zip(states, columns):
             t[slot].copy_(col, non_blocking=True)

@@ -1,7 +1,8 @@
 """The port stands alone: no module of src/repro_torch, and not
 chip_smoke.py, imports jax, jaxlib or the JAX package repro — checked on
 the source (every import statement) and at run time (importing the serving
-stack, the paper's core and data, or the training stack loads no jax)."""
+stack, the paper's core and data, the training stack or the analysis loads no
+jax)."""
 import ast
 import os
 import subprocess
@@ -74,6 +75,20 @@ def test_importing_the_training_stack_loads_no_jax():
     code = (
         "import sys, repro_torch.train, repro_torch.optim, repro_torch.checkpoint, "
         "repro_torch.launch.train, repro_torch.data.tokens, repro_torch.core.distributed; "
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')); "
+        "assert not bad, bad"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_importing_the_analysis_loads_no_jax():
+    code = (
+        "import sys, repro_torch.analysis, repro_torch.analysis.graph_audit, "
+        "repro_torch.analysis.__main__; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')); "
         "assert not bad, bad"

@@ -8,6 +8,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402, F401
+
 import numpy as np  # noqa: E402
 
 from repro_torch.configs import get  # noqa: E402

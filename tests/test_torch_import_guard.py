@@ -1,8 +1,8 @@
 """The port stands alone: no module of src/repro_torch, and not
 chip_smoke.py, imports jax, jaxlib or the JAX package repro — checked on
 the source (every import statement) and at run time (importing the serving
-stack, the paper's core and data, the training stack or the analysis loads no
-jax)."""
+stack, the paper's core and data, the training stack, the analysis, the
+experiments or the examples loads no jax)."""
 import ast
 import os
 import subprocess
@@ -89,6 +89,22 @@ def test_importing_the_analysis_loads_no_jax():
     code = (
         "import sys, repro_torch.analysis, repro_torch.analysis.graph_audit, "
         "repro_torch.analysis.__main__; "
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')); "
+        "assert not bad, bad"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_importing_the_experiments_and_examples_loads_no_jax():
+    code = (
+        "import sys, pkgutil, importlib, repro_torch.experiments, repro_torch.examples; "
+        "[importlib.import_module(f'{pkg.__name__}.{m.name}') "
+        " for pkg in (repro_torch.experiments, repro_torch.examples) "
+        " for m in pkgutil.iter_modules(pkg.__path__) if m.name != '__main__']; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')); "
         "assert not bad, bad"

@@ -371,9 +371,34 @@ Phases; each raises on failure, and then no result line is printed:
                 the examples' tok/s and one {"experiments": ...} JSON
                 line; the examples' own output goes to
                 build/reports/phase18.log.
+ 19. distributed — run right after phase 18, on a card the parent has
+                freed: W = torch.cuda.device_count() ranks spawned through
+                torch.multiprocessing, one per card, over NCCL (a FileStore
+                rendezvous), under a hard limit of DIST_TIMEOUT_S whose
+                expiry fails the smoke, as does any rank that fails. Rank 0
+                logs W, the backend and torch.cuda.nccl.version(). (a)
+                mix_all_gather and mix_ring at m = W against mu^T theta
+                (float64, on the host), bol_sharded (ring and all-gather)
+                and bsr_sharded at m = W against the port's single-device
+                bol / bsr on the card (DIST_TOL); at W = 1 these are
+                one-task problems ("world 1: plumbing only"); (b) host
+                syncs per bol_sharded / bsr_sharded call (torch sync debug
+                mode), the same at 10 and 40 iterations; (c) the sharded
+                train step (repro_torch.sharding: DTensor parameters, AdamW
+                moments and batch in the rules' placements on a (W, 1)
+                mesh) at multitask-LM full width (AdamW, the mix over
+                band_graph(256, 1), 32 x 256), DIST_TRAIN_STEPS steps from
+                the plain step's weights: losses and every parameter
+                within DIST_TOL relative of the plain step on the card
+                (over W > 1 ranks each parameter's norm: AdamW turns the
+                data-parallel sum's rounding of near-zero gradients into
+                steps of up to lr), the task leaves still DTensors in the
+                rules' placements; ms a step and peak memory of both. Logs one {"distributed": ...}
+                JSON line.
 
 Output: the card's name and power limit first, per-phase lines, the
-{"paper": ...}, {"experiments": ...}, {"serve_rates": ...}, {"train": ...}, {"moe": ...},
+{"paper": ...}, {"experiments": ...}, {"distributed": ...}, {"serve_rates": ...},
+{"train": ...}, {"moe": ...},
 {"hybrid": ...}, {"mla": ...}, {"xlstm": ...}, {"vlm": ...},
 {"audio": ...} and {"analysis": ...} JSON lines, then one
 {"kernels": [...]} JSON line with the five kernels, and last
@@ -3616,6 +3641,261 @@ def phase_analysis(torch, ops, smi, dev="cuda"):
     return out, launched
 
 
+# ------------------------------------------------ phase 19: the distributed layer
+DIST_TIMEOUT_S = 150  # the spawned ranks' hard limit: past it the smoke fails
+DIST_TOL = 1e-5
+DIST_SEED = 0
+DIST_MIX = {"d": 4096, "eta": 0.5, "tau": 2.0, "alpha": 0.04}
+DIST_SOLVER = {"n": 200, "d": 64, "eta": 0.5, "tau": 1.5, "iters": 60, "bsr_iters": 80}
+DIST_SYNC_ITERS = (10, 40)  # host syncs per sharded call must be the same at both
+DIST_TRAIN = {"batch": 32, "seq": 256, "steps": 3}  # phase 10(b)'s shape
+
+
+def dist_close(got, want):
+    """max |got - want| and whether it is within DIST_TOL + DIST_TOL |want|."""
+    diff = (got - want).abs()
+    return diff.max().item(), bool((diff <= DIST_TOL + DIST_TOL * want.abs()).all())
+
+
+def dist_band(m):
+    """The phase's band graph over m tasks: bandwidth 2 where the ring has
+    room (its antipodal task at m = 4), 1 at m = 2, none at m = 1."""
+    from repro_torch.core import band_graph
+
+    return band_graph(m, max(1, min(2, m // 2)))
+
+
+def dist_solvers(torch, np, rank, world, dev, record):
+    """19(a) and (b) on this rank: one task per rank, m = world."""
+    from repro_torch import core
+    from repro_torch.core.distributed import mix_all_gather, mix_ring, mixing_spec_for_band_graph
+    from repro_torch.core.runners import bol_sharded, bsr_sharded
+
+    m, g = world, dist_band(world)
+    rng = np.random.default_rng(DIST_SEED)
+    mx = DIST_MIX
+    theta = rng.standard_normal((m, mx["d"])).astype(np.float32)
+    mu = g.bol_mixing(mx["eta"], mx["tau"], mx["alpha"])
+    want = torch.as_tensor((mu.T @ theta.astype(np.float64))[rank:rank + 1], device=dev)
+    local = torch.as_tensor(theta[rank:rank + 1], device=dev)
+    self_w, nbr = mixing_spec_for_band_graph(g, mx["eta"], mx["tau"], mx["alpha"])
+    col = torch.as_tensor(mu[:, rank], dtype=torch.float32, device=dev)
+    for name, got in (("mix_all_gather", mix_all_gather(local, col)),
+                      ("mix_ring", mix_ring(local, self_w, nbr))):
+        err, ok = dist_close(got.double(), want)
+        record[name] = {"max_abs_err": err}
+        if not ok:
+            raise AssertionError(f"distributed (a): rank {rank} {name} is {err:.3e} from "
+                                 "mu^T theta")
+    sv = DIST_SOLVER
+    x = rng.standard_normal((m, sv["n"], sv["d"])).astype(np.float32)
+    w_true = rng.standard_normal((m, sv["d"])).astype(np.float32)
+    y = (np.einsum("mnd,md->mn", x, w_true)
+         + 0.1 * rng.standard_normal((m, sv["n"]))).astype(np.float32)
+    problem = core.MultiTaskProblem(g, core.SQUARED, sv["eta"], sv["tau"])
+    xd, yd = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    runs = {
+        "bol_ring": (lambda k: bol_sharded(problem, x, y, k, use_ring=True, device=dev),
+                     lambda k: core.bol(problem, xd, yd, k, accelerated=False).w, sv["iters"]),
+        "bol_all_gather": (lambda k: bol_sharded(problem, x, y, k, use_ring=False, device=dev),
+                           lambda k: core.bol(problem, xd, yd, k, accelerated=False).w,
+                           sv["iters"]),
+        "bsr": (lambda k: bsr_sharded(problem, x, y, k, device=dev),
+                lambda k: core.bsr(problem, xd, yd, k, accelerated=False).w, sv["bsr_iters"]),
+    }
+    for name, (sharded, single, iters) in runs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sharded(iters)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        err, ok = dist_close(got, single(iters))
+        sync_sites(torch, lambda: sharded(1))  # one-time syncs show on the first call
+        sites = {k: sync_sites(torch, lambda k=k: sharded(k)) for k in DIST_SYNC_ITERS}
+        record[name] = {"iters": iters, "max_abs_err": err, "ms": secs * 1e3,
+                        "syncs": {str(k): len(v) for k, v in sites.items()},
+                        "sync_sites": sorted(set(s for v in sites.values() for s in v))}
+        if not ok:
+            raise AssertionError(f"distributed (a): rank {rank} {name} is {err:.3e} from the "
+                                 "single-device solver")
+        lo, hi = DIST_SYNC_ITERS
+        if len(sites[lo]) != len(sites[hi]):
+            raise AssertionError(f"distributed (b): rank {rank} {name}: host syncs grow with "
+                                 f"the iterations: {sites}")
+
+
+def dist_train(torch, np, rank, world, dev, smi, record):
+    """19(c) on this rank: the plain step, then the sharded step on a
+    (world, 1) mesh from the same weights and batches."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import optim
+    from repro_torch import train as trainer
+    from repro_torch.configs import get
+    from repro_torch.core import GraphMultiTask, band_graph
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import axes_of, make_mesh
+    from repro_torch.launch.train import model_inputs
+    from repro_torch.models import TransformerLM
+    from repro_torch.sharding import (
+        full_params,
+        param_specs,
+        placements,
+        shard_batch,
+        shard_state,
+        sharded_step,
+    )
+
+    tr = {"adamw": optim.adamw, "GraphMultiTask": GraphMultiTask, "band_graph": band_graph,
+          "make_train_step": trainer.make_train_step, "init_state": trainer.init_state,
+          "TokenPipeline": TokenPipeline, "model_inputs": model_inputs}
+    cfg, sp = get("multitask_lm"), DIST_TRAIN
+    batches = [trainer.batch_to_device(b, dev)
+               for b in train_batches(tr, cfg, sp["batch"], sp["seq"], sp["steps"])]
+
+    def timed(step, state, shard=None):
+        losses, ms = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b if shard is None else shard(b))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        return state, {"losses": losses, "ms_per_step": ms,
+                       "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 1e6}
+
+    plain_model = TransformerLM(cfg, device=dev, seed=0)
+    step, state = train_steps(tr, plain_model)
+    state, plain = timed(step, state)
+    want = {k: v.detach().clone() for k, v in plain_model.named_parameters()}
+    del plain_model, step, state
+    free_card(torch)
+
+    model = TransformerLM(cfg, device=dev, seed=0)
+    mesh = make_mesh(world, 1, device=dev.type)
+    axes = axes_of(mesh)
+    specs = param_specs(cfg, dict(model.named_parameters()), axes)
+    step, state = train_steps(tr, model)
+    state = shard_state(model, state, mesh, axes)
+    state, sharded = timed(sharded_step(model, step), state,
+                           lambda b: shard_batch(b, mesh, axes))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(sharded["losses"], plain["losses"]))
+    got = full_params(state.params)
+    param_rel = max(((got[k] - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
+                    for k, v in want.items())
+    norm_rel = max(abs(got[k].norm().item() / max(v.norm().item(), 1e-30) - 1.0)
+                   for k, v in want.items())
+    bad = [k for k, p in state.params.items() if k.startswith("task.")
+           and not (isinstance(p, DTensor)
+                    and tuple(p.placements) == placements(specs[k], mesh))]
+    record["train"] = {"params": sum(v.numel() for v in want.values()), "tasks": cfg.num_tasks,
+                       "mesh": [world, 1], "plain": plain, "sharded": sharded,
+                       "loss_max_rel_err": loss_rel, "param_max_rel_err": param_rel,
+                       "param_norm_max_rel_err": norm_rel,
+                       "task_placements": {k: repr(tuple(state.params[k].placements))
+                                           for k in state.params if k.startswith("task.")},
+                       "device": smi}
+    if rank == 0:
+        log(f"distributed (c): multitask-LM full width ({record['train']['params']} params, "
+            f"{cfg.num_tasks} tasks, AdamW, the mix over band_graph({cfg.num_tasks}, 1)), "
+            f"{sp['steps']} steps of {sp['batch']} x {sp['seq']} on a ({world}, 1) mesh: "
+            f"losses {sharded['losses']} against the plain step's {plain['losses']}; max "
+            f"relative error of losses {loss_rel:.3e}, of parameters {param_rel:.3e}, of "
+            f"parameter norms {norm_rel:.3e} (limit {DIST_TOL}); ms a step sharded "
+            f"{[round(t, 2) for t in sharded['ms_per_step']]}, "
+            f"plain {[round(t, 2) for t in plain['ms_per_step']]}; peak "
+            f"torch.cuda.max_memory_allocated sharded {sharded['max_memory_allocated_mb']:.1f} "
+            f"MB (the plain weights' 1 GB copy resident), plain "
+            f"{plain['max_memory_allocated_mb']:.1f} MB; task leaves "
+            f"{record['train']['task_placements']}; {smi}")
+    # one rank runs the plain step's arithmetic, so every element must
+    # agree; over several the gradients sum in another order, and AdamW
+    # turns a near-zero gradient's rounding into a step of up to lr either
+    # way: there each leaf's norm is held (the rule of phase 10 and of the
+    # CPU tests against JAX)
+    params_ok = (param_rel if world == 1 else norm_rel) <= DIST_TOL
+    if not (loss_rel <= DIST_TOL and params_ok):
+        raise AssertionError(f"distributed (c): rank {rank}: the sharded step is {loss_rel:.3e}"
+                             f" (losses), {param_rel:.3e} (parameters), {norm_rel:.3e} "
+                             "(parameter norms) from the plain step")
+    if bad:
+        raise AssertionError(f"distributed (c): rank {rank}: task leaves off their placements: "
+                             f"{bad}")
+
+
+def dist_rank(rank, world, tmp, smi, device="cuda"):
+    """One rank of phase 19, in its own process: joins the NCCL group on
+    cuda:rank, runs (a)-(c) and writes its record to tmp/rank<r>.json. Any
+    failure raises, and its process exits non-zero. ``device`` "cpu"
+    rehearses it over gloo (the card's calls patched)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    dev = init_distributed(rank, world, device=device,
+                           store=dist.FileStore(os.path.join(tmp, "store"), world))
+    nccl = torch.cuda.nccl.version() if dev.type == "cuda" else None
+    record = {"world": world, "backend": str(dist.get_backend()),
+              "nccl": ".".join(map(str, nccl)) if isinstance(nccl, tuple) else str(nccl),
+              "init_s": time.perf_counter() - t0}
+    if rank == 0:
+        log(f"distributed: world {world}, backend {record['backend']}, NCCL "
+            f"{record['nccl']}, torch {torch.__version__}"
+            + ("; world 1: plumbing only" if world == 1 else ""))
+    dist_solvers(torch, np, rank, world, dev, record)
+    if rank == 0:
+        log("distributed (a), (b): " + ", ".join(
+            f"{k} err {v['max_abs_err']:.2e}" + (f" {v['ms']:.1f} ms, syncs {v['syncs']}"
+                                                 if "ms" in v else "")
+            for k, v in record.items() if isinstance(v, dict)))
+    dist_train(torch, np, rank, world, dev, smi, record)
+    dist.destroy_process_group()
+    record["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def phase_distributed(torch, smi):
+    """Phase 19 (see the docstring): the ranks in their own processes under
+    DIST_TIMEOUT_S; returns rank 0's record."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    world = torch.cuda.device_count()
+    free_card(torch)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    ctx = mp.start_processes(dist_rank, args=(world, tmp, smi), nprocs=world, join=False,
+                             start_method="spawn")
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() - t_phase > DIST_TIMEOUT_S:
+                raise AssertionError(f"distributed: the ranks ran past {DIST_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    records = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            records.append(json.load(f))
+    secs = time.perf_counter() - t_phase
+    log(f"distributed: phase passed in {secs:.1f} s ({world} ranks; rank 0 "
+        f"{records[0]['seconds']:.1f} s after its spawn, NCCL init "
+        f"{records[0]['init_s']:.1f} s)")
+    return dict(records[0], phase_seconds=secs)
+
+
 def main() -> int:
     import torch
 
@@ -3705,6 +3985,7 @@ def main() -> int:
     paper = phase_paper(torch, np, core_lib, data_lib)
     exps = phase_experiments(experiments, examples, convert, TransformerLM, get, ops, smi,
                              paper["f_star"]["card"])
+    distributed = phase_distributed(torch, smi)
     phase_small_reference(torch, get, TransformerLM, PagingSpec)
     t1 = time.perf_counter()
     model = TransformerLM(get("olmo_1b"), device="cuda", seed=0)
@@ -3751,6 +4032,7 @@ def main() -> int:
     analysis, analysis_launches = phase_analysis(torch, ops, smi)
     log(json.dumps({"paper": {"device": smi, **paper}}))
     log(json.dumps({"experiments": exps}, default=str))
+    log(json.dumps({"distributed": distributed}))
     log(json.dumps({"serve_rates": {"dense": dense["rates"], "paged": paged["rates"],
                                     "prefix": prefix["rates"], "faults": faults["rates"],
                                     "adapters": adapters["rates"]},

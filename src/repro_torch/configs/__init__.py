@@ -1,1 +1,1 @@
-from repro_torch.configs.base import ArchConfig, canonical, get
+from repro_torch.configs.base import ArchConfig, canonical, get, list_archs

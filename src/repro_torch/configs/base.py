@@ -6,11 +6,13 @@ every block kind (dense and mixture-of-experts attention, GQA or MLA,
 Mamba2, mLSTM, sLSTM), the input modes (token ids; a VLM's token ids with
 precomputed vision embeddings; an audio model's codebook tokens), the
 chunkwise-parallel mLSTM, and ``num_tasks``, ``adapter_rank``, ``q_chunk``
-and ``remat``. The reference's ``fsdp_gather_moe``,
-``mla_replicate_cache``, ``mla_cache_seq_shard``, ``activation_sharding``
-and ``logits_sharding`` are left out: they are sharding constraints with no
-arithmetic of their own, and come with the port's sharded training (as do
-``unroll`` and ``long_context_ok``, which no port path reads). The backend
+and ``remat``, and the two sharding-only fields the sharding rules
+(``repro_torch.sharding.rules.cache_specs``) read, ``mla_replicate_cache``
+and ``mla_cache_seq_shard``. The reference's ``fsdp_gather_moe``,
+``activation_sharding`` and ``logits_sharding`` are left out: they are
+constraints inside the forward with no arithmetic of their own, and wait
+for in-forward redistributes of the sharded step (as do ``unroll`` and
+``long_context_ok``, which no port path reads). The backend
 flag ``attn_backend`` is the port's, and it selects every hand-written
 kernel, not only attention's: ``"kernel"`` serves attention from the CUDA
 attention kernels and mixes task adapters (``repro_torch.serve.adapters``)
@@ -92,6 +94,11 @@ class ArchConfig:
     # rematerialize each layer's activations in the backward of ``forward``
     # (the JAX package's jax.checkpoint of its layer scan)
     remat: bool = True
+    # sharding rules of an MLA decode cache (B, S, kv_lora): replicate it
+    # over the model axis, or shard its sequence dim over model
+    # (flash-decode layout); neither set: its latent dim on model
+    mla_replicate_cache: bool = False
+    mla_cache_seq_shard: bool = False
     attn_backend: str = "kernel"
     source: str = ""
 
@@ -168,6 +175,10 @@ _ARCHS = ["deepseek_v2_236b", "mixtral_8x22b", "multitask_linreg", "multitask_lm
 
 def canonical(name: str) -> str:
     return name.replace("-", "_").replace(".", "_")
+
+
+def list_archs() -> list[str]:
+    return list(_ARCHS)
 
 
 def get(name: str, smoke: bool = False):

@@ -4,11 +4,13 @@ graph and its mixing matrices (``graph``), the objective and losses
 stochastic solvers of Section 4 (``stochastic``), the baselines of Section 6
 (``baselines``), the consensus limit of Section 5 (``consensus``),
 delay-tolerant BOL of Appendix G (``delayed``), alternating graph learning
-(``graph_learning``), the statistical theory (``theory``) and the mixed
-update of the LM trainer (``distributed.GraphMultiTask``). They run in
-plain torch where the reference runs plain ``jnp``, on the inputs' device.
-The sharded solvers (``mix_all_gather``, ``mix_ring``, ``bol_sharded``,
-``bsr_sharded``) are not ported yet."""
+(``graph_learning``), the statistical theory (``theory``), the mixed
+update of the LM trainer (``distributed.GraphMultiTask``), and the
+distributed programs over ``torch.distributed``, one task per rank: the
+collectives ``mix_all_gather`` / ``mix_ring`` (``distributed``) and the
+sharded solvers ``bol_sharded`` / ``bsr_sharded`` (``runners``). They run
+in plain torch where the reference runs plain ``jnp``, on the inputs'
+device; the collectives on NCCL for CUDA tensors and gloo for CPU ones."""
 from repro_torch.core.graph import (
     TaskGraph,
     band_graph,
@@ -35,5 +37,11 @@ from repro_torch.core.graph_learning import (
     laplacian_from_relationship,
     mtrl_relationship,
 )
-from repro_torch.core.distributed import GraphMultiTask, mixing_spec_for_band_graph
+from repro_torch.core.distributed import (
+    GraphMultiTask,
+    mix_all_gather,
+    mix_ring,
+    mixing_spec_for_band_graph,
+)
+from repro_torch.core.runners import bol_sharded, bsr_sharded
 from repro_torch.core import theory

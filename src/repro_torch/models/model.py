@@ -23,7 +23,9 @@ their own: every one of them runs the ONE ``shared_attn`` block (attention
 + MLP), as the reference closes over ``params["shared_attn"]``. Weights
 come from a seeded ``torch.Generator`` on the model's device (the JAX
 package's ``dense_init`` law, other random numbers) or from the JAX params
-through ``repro_torch.convert``.
+through ``repro_torch.convert``. On ``device="meta"`` every weight (and
+``init_cache``'s and an optimizer's state) is a shape and a dtype with no
+storage and nothing drawn: the sharding rules read full-size models so.
 
 Every weight is a trainable ``nn.Parameter``. Training entry points,
 counterparts of the JAX ones:
@@ -67,10 +69,13 @@ deltas to ``self.task``'s.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.overrides import TorchFunctionMode
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tree_lib
@@ -166,6 +171,18 @@ class _RecurrentBlock(nn.Module):
         setattr(self, kind, _params(mixer))
 
 
+class _FactoriesOnMeta(TorchFunctionMode):
+    """Every tensor factory called inside puts its tensor on ``meta``: a
+    shape and a dtype, no storage and no random draw (the model's meta
+    path, the counterpart of ``jax.eval_shape(model.init)``)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = "meta"
+        return func(*args, **kwargs)
+
+
 class _Shared(nn.Module):
     """A shared-attention position of the stack: no weights of its own (the
     model's one ``shared_attn`` block serves it)."""
@@ -185,8 +202,13 @@ class TransformerLM(nn.Module):
         self.cfg = cfg
         self.dtype = dtype
         self.device = require_device(device)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        c = cfg
+        meta = self.device.type == "meta"
+        gen = torch.Generator(device="cpu" if meta else self.device).manual_seed(seed)
+        with _FactoriesOnMeta() if meta else contextlib.nullcontext():
+            self._init_weights(gen)
+
+    def _init_weights(self, gen: torch.Generator):
+        c, dtype = self.cfg, self.dtype
         v_total = c.vocab_size * c.num_codebooks
         if c.input_mode == "audio":  # one table per codebook
             embed = dense_init((c.num_codebooks, c.vocab_size, c.d_model), gen, in_axis=2,

@@ -29,7 +29,7 @@ def map_(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: map_(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(map_(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree))
+        return _rebuild(tree, [map_(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree)])
     return fn(tree, *rest)
 
 
@@ -38,8 +38,15 @@ def map_with_path(fn, tree, prefix=()):
     if isinstance(tree, dict):
         return {k: map_with_path(fn, tree[k], prefix + (str(k),)) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(map_with_path(fn, t, prefix + (str(i),)) for i, t in enumerate(tree))
+        return _rebuild(tree, [map_with_path(fn, t, prefix + (str(i),))
+                               for i, t in enumerate(tree)])
     return fn("/".join(prefix), tree)
+
+
+def _rebuild(tree, items: list):
+    """A list or tuple of ``tree``'s type holding ``items`` (a NamedTuple,
+    such as an optimizer's state, by its fields)."""
+    return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
 
 
 def unflatten(template, leaves_):

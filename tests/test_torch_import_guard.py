@@ -2,7 +2,7 @@
 chip_smoke.py, imports jax, jaxlib or the JAX package repro — checked on
 the source (every import statement) and at run time (importing the serving
 stack, the paper's core and data, the training stack, the analysis, the
-experiments or the examples loads no jax)."""
+experiments, the examples or the distributed layer loads no jax)."""
 import ast
 import os
 import subprocess
@@ -105,6 +105,22 @@ def test_importing_the_experiments_and_examples_loads_no_jax():
         "[importlib.import_module(f'{pkg.__name__}.{m.name}') "
         " for pkg in (repro_torch.experiments, repro_torch.examples) "
         " for m in pkgutil.iter_modules(pkg.__path__) if m.name != '__main__']; "
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')); "
+        "assert not bad, bad"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_importing_the_distributed_layer_loads_no_jax():
+    code = (
+        "import sys, repro_torch.core.runners, repro_torch.sharding, "
+        "repro_torch.sharding.rules, repro_torch.sharding.dtensor, repro_torch.launch.mesh, "
+        "repro_torch.launch.specs; "
+        "from repro_torch.sharding import placements, shard_state, sharded_step; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')); "
         "assert not bad, bad"

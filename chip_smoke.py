@@ -220,8 +220,9 @@ Phases; each raises on failure, and then no result line is printed:
                 3584, 32 heads of hd 112, ssm_state 64, vocab 32000; 5.74 B
                 params, ~23 GB of f32 weights, nothing cut), random weights
                 from seed 0, max_seq 2048, prefill chunk 32, 4 slots:
-                (a) 6 requests of 64, 300, 700, 1200, 257 and 590 prompt
-                tokens, 16 new tokens each, dense and paged (16-token
+                (a) 6 requests of 64, 150, 350, 600, 128 and 295 prompt
+                tokens (HYBRID_LENS, which phases 13-16 serve too), 16 new
+                tokens each, dense and paged (16-token
                 blocks, an 8192-token pool), each with CUDA graphs and with
                 cuda_graphs=False: 13 attention launches per dispatch (and
                 per warm-up), graph tokens == eager tokens, dense step
@@ -280,7 +281,7 @@ Phases; each raises on failure, and then no result line is printed:
                 counted (2 + 2 per update), zero store == no store, the
                 store's trees == a plain store's; (c) a profile of 8 graph
                 decode ticks against the byte bound (the weights once, the
-                4 x 21 mLSTM states read and written); (d) 2 SGD steps at
+                4 x 21 mLSTM states read and written); (d) one SGD step at
                 full width and depth, batch 2 x 128, remat on: finite
                 loss, ms per step, peak memory; (e) one step of the same
                 model, weights and batch with xlstm_parallel=True (the
@@ -333,10 +334,15 @@ Phases; each raises on failure, and then no result line is printed:
                 cudaMemcpyAsync per replayed dispatch, A005 in place, A006
                 the COW copy, A007 no host sync under
                 set_sync_debug_mode("error"), one graph-mix launch per dtype
-                group), the A003 ids probe in a child process. Fails on any
-                active finding, a probe process that did not exit 0, or a
-                kernel of the five not launched inside the audited run.
-                Logs the launches and one {"analysis": ...} JSON line.
+                group), the A003 ids probe in a child process. The lint and
+                the audit run in a spawned process of their own: after the
+                earlier phases' profiler sessions, torch.profiler in this
+                process drops device records (A002's chunk saw 184-193 of
+                its 231 kernels, a decode tick 164-170 of 211; a fresh
+                process sees them all). Fails on any active finding, a
+                probe process that did not exit 0, or a kernel of the five
+                not launched inside the audited run. Logs the launches and
+                one {"analysis": ...} JSON line.
  18. experiments — run right after phase 9, before any model of the
                 serving phases is built and before any torch.profiler
                 session: the paper's experiments and the five examples
@@ -386,15 +392,25 @@ Phases; each raises on failure, and then no result line is printed:
                 mode), the same at 10 and 40 iterations; (c) the sharded
                 train step (repro_torch.sharding: DTensor parameters, AdamW
                 moments and batch in the rules' placements on a (W, 1)
-                mesh) at multitask-LM full width (AdamW, the mix over
-                band_graph(256, 1), 32 x 256), DIST_TRAIN_STEPS steps from
-                the plain step's weights: losses and every parameter
+                mesh, each weight gathered over fsdp only and the compute
+                tensor-parallel) at multitask-LM full width (AdamW, the mix
+                over band_graph(256, 1), 32 x 256), DIST_TRAIN["steps"] steps
+                from the plain step's weights: losses and every parameter
                 within DIST_TOL relative of the plain step on the card
                 (over W > 1 ranks each parameter's norm: AdamW turns the
                 data-parallel sum's rounding of near-zero gradients into
                 steps of up to lr), the task leaves still DTensors in the
-                rules' placements; ms a step and peak memory of both. Logs one {"distributed": ...}
-                JSON line.
+                rules' placements; ms a step and peak memory of both (the
+                plain step's weights kept on the host); (d) the same on a
+                (1, W) mesh with the residual stream and the logits
+                constrained to DIST_TP_SPEC (tensor-parallel over the model
+                axis; at W = 1 plumbing); (e) in a process of its own (a
+                fake process group, never beside the NCCL ranks): the dry
+                run (repro_torch.launch.dryrun) of DIST_DRYRUN on the 16 x
+                16 mesh, each logged as a {"dryrun": ...} JSON line, and of
+                (c)'s step on a (1, 1) fake mesh, whose argument_bytes +
+                temp_bytes must lie within DIST_MEMORY_RTOL of (c)'s
+                measured peak. Logs one {"distributed": ...} JSON line.
 
 Output: the card's name and power limit first, per-phase lines, the
 {"paper": ...}, {"experiments": ...}, {"distributed": ...}, {"serve_rates": ...},
@@ -2908,7 +2924,10 @@ def phase_moe(torch, np, tr, get, TransformerLM, ServeEngine, ContinuousBatcher,
 
 # ------------------------------------------------- phase 12: the hybrid
 HYBRID_MAX_SEQ = 2048
-HYBRID_LENS = [64, 300, 700, 1200, 257, 590]  # 6 over 4 slots: requests 4 and 5 reuse slots
+# 6 over 4 slots: requests 4 and 5 reuse slots. Halved from 64..1200 to keep
+# the whole smoke inside its 1200 s budget as phase 19 grew: the eager
+# cells of phases 12-16 prefill these prompts at 100-460 tok/s
+HYBRID_LENS = [64, 150, 350, 600, 128, 295]
 HYBRID_REUSED = (4, 5)
 HYBRID_PROFILE_LENS = (700, 300, 500, 100)
 HYBRID_HOG, HYBRID_SHORT = (700, 64), (413, 16)  # (prompt, new): 48 + 27 blocks of 16
@@ -3284,7 +3303,8 @@ XLSTM_LENS = HYBRID_LENS
 XLSTM_REUSED = HYBRID_REUSED
 XLSTM_PROFILE_LENS = HYBRID_PROFILE_LENS
 XLSTM_ADAPTER_RANK = 8
-XLSTM_TRAIN = {"batch": 2, "seq": 128, "steps": 2, "lr": 1e-2}
+# one step: the sequential cell's step takes 11-20 s at full depth
+XLSTM_TRAIN = {"batch": 2, "seq": 128, "steps": 1, "lr": 1e-2}
 XLSTM_PARALLEL_RTOL = 1e-4  # 14(e): the chunkwise step's loss against the sequential one's
 
 
@@ -3641,6 +3661,55 @@ def phase_analysis(torch, ops, smi, dev="cuda"):
     return out, launched
 
 
+ANALYSIS_TIMEOUT_S = 300  # phase 17's process: past it the smoke fails
+
+
+def kernel_ops():
+    """The five kernels' wrappers, by the names of their launch counts."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.graph_mix import ops as mix_ops
+    from repro_torch.kernels.prefill_attention import ops as pre_ops
+
+    return {"decode_attention": dec_ops.decode_attention,
+            "prefill_attention": pre_ops.prefill_attention,
+            "paged_decode_attention": dec_ops.paged_decode_attention,
+            "paged_prefill_attention": pre_ops.paged_prefill_attention,
+            "graph_mix": mix_ops.graph_mix}
+
+
+def analysis_entry(_index, tmp, smi):
+    """Phase 17 in a spawned process (a fresh profiler; the kernels built
+    by phase 1 load from build/kernels): writes tmp/analysis.json with the
+    record and the launches, or fails the process."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out, launched = phase_analysis(torch, kernel_ops(), smi)
+    with open(os.path.join(tmp, "analysis.json"), "w") as f:
+        json.dump({"out": out, "launched": launched}, f, default=str)
+
+
+def phase_analysis_spawned(torch, smi):
+    """Phase 17 (see the docstring) in its own process under
+    ANALYSIS_TIMEOUT_S; returns (the record, the launches)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    free_card(torch)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_analysis_")
+    t0 = time.perf_counter()
+    spawn_and_wait(mp, analysis_entry, (tmp, smi), 1, t0 + ANALYSIS_TIMEOUT_S,
+                   "the analysis", ANALYSIS_TIMEOUT_S)
+    with open(os.path.join(tmp, "analysis.json")) as f:
+        rec = json.load(f)
+    log(f"analysis: its process took {time.perf_counter() - t0:.1f} s")
+    return rec["out"], rec["launched"]
+
+
 # ------------------------------------------------ phase 19: the distributed layer
 DIST_TIMEOUT_S = 150  # the spawned ranks' hard limit: past it the smoke fails
 DIST_TOL = 1e-5
@@ -3649,6 +3718,9 @@ DIST_MIX = {"d": 4096, "eta": 0.5, "tau": 2.0, "alpha": 0.04}
 DIST_SOLVER = {"n": 200, "d": 64, "eta": 0.5, "tau": 1.5, "iters": 60, "bsr_iters": 80}
 DIST_SYNC_ITERS = (10, 40)  # host syncs per sharded call must be the same at both
 DIST_TRAIN = {"batch": 32, "seq": 256, "steps": 3}  # phase 10(b)'s shape
+DIST_TP_SPEC = ("data", None, "model")  # 19(d): the residual stream and the logits
+DIST_MEMORY_RTOL = 0.25  # 19(e): the dry run's step memory against 19(c)'s measured peak
+DIST_DRYRUN = (("olmo_1b", "decode_32k"), ("multitask_lm", "train_4k"))  # at 16 x 16
 
 
 def dist_close(got, want):
@@ -3724,18 +3796,15 @@ def dist_solvers(torch, np, rank, world, dev, record):
                                  f"the iterations: {sites}")
 
 
-def dist_train(torch, np, rank, world, dev, smi, record):
-    """19(c) on this rank: the plain step, then the sharded step on a
-    (world, 1) mesh from the same weights and batches."""
+def dist_sharded(torch, tr, cfg, mesh_shape, dev, timed, want, plain):
+    """One sharded run of 19(c) / (d): the model of ``cfg`` from seed 0 on
+    a ``mesh_shape`` (data, model) mesh, sharded in the rules' placements,
+    stepped by ``sharding.sharded_step`` over the phase's batches; its
+    record against the plain step's (``want``: the plain step's updated
+    parameters, on the host)."""
     from torch.distributed.tensor import DTensor
 
-    from repro_torch import optim
-    from repro_torch import train as trainer
-    from repro_torch.configs import get
-    from repro_torch.core import GraphMultiTask, band_graph
-    from repro_torch.data import TokenPipeline
     from repro_torch.launch.mesh import axes_of, make_mesh
-    from repro_torch.launch.train import model_inputs
     from repro_torch.models import TransformerLM
     from repro_torch.sharding import (
         full_params,
@@ -3745,6 +3814,43 @@ def dist_train(torch, np, rank, world, dev, smi, record):
         shard_state,
         sharded_step,
     )
+
+    model = TransformerLM(cfg, device=dev, seed=0)
+    mesh = make_mesh(*mesh_shape, device=dev.type)
+    axes = axes_of(mesh)
+    specs = param_specs(cfg, dict(model.named_parameters()), axes)
+    step, state = train_steps(tr, model)
+    state = shard_state(model, state, mesh, axes)
+    state, rec = timed(sharded_step(model, step), state, lambda b: shard_batch(b, mesh, axes))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"], plain["losses"]))
+    got = {k: v.cpu() for k, v in full_params(state.params).items()}
+    param_rel = max(((got[k] - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
+                    for k, v in want.items())
+    norm_rel = max(abs(got[k].norm().item() / max(v.norm().item(), 1e-30) - 1.0)
+                   for k, v in want.items())
+    bad = [k for k, p in state.params.items() if k.startswith("task.")
+           and not (isinstance(p, DTensor)
+                    and tuple(p.placements) == placements(specs[k], mesh))]
+    rec.update(mesh=list(mesh_shape), loss_max_rel_err=loss_rel, param_max_rel_err=param_rel,
+               param_norm_max_rel_err=norm_rel, bad_task_placements=bad,
+               task_placements={k: repr(tuple(state.params[k].placements))
+                                for k in state.params if k.startswith("task.")})
+    del model, step, state, got
+    return rec
+
+
+def dist_train(torch, np, rank, world, dev, smi, record):
+    """19(c) and (d) on this rank: the plain step, then the sharded step
+    on a (world, 1) mesh and the tensor-parallel one on a (1, world) mesh,
+    each from the same weights and batches. The plain step's updated
+    weights wait on the host, so a sharded run's peak is its own step's."""
+    from repro_torch import optim
+    from repro_torch import train as trainer
+    from repro_torch.configs import get
+    from repro_torch.core import GraphMultiTask, band_graph
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import model_inputs
+    from repro_torch.models import TransformerLM
 
     tr = {"adamw": optim.adamw, "GraphMultiTask": GraphMultiTask, "band_graph": band_graph,
           "make_train_step": trainer.make_train_step, "init_state": trainer.init_state,
@@ -3769,65 +3875,103 @@ def dist_train(torch, np, rank, world, dev, smi, record):
     plain_model = TransformerLM(cfg, device=dev, seed=0)
     step, state = train_steps(tr, plain_model)
     state, plain = timed(step, state)
-    want = {k: v.detach().clone() for k, v in plain_model.named_parameters()}
+    want = {k: v.detach().cpu() for k, v in plain_model.named_parameters()}
     del plain_model, step, state
     free_card(torch)
-
-    model = TransformerLM(cfg, device=dev, seed=0)
-    mesh = make_mesh(world, 1, device=dev.type)
-    axes = axes_of(mesh)
-    specs = param_specs(cfg, dict(model.named_parameters()), axes)
-    step, state = train_steps(tr, model)
-    state = shard_state(model, state, mesh, axes)
-    state, sharded = timed(sharded_step(model, step), state,
-                           lambda b: shard_batch(b, mesh, axes))
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(sharded["losses"], plain["losses"]))
-    got = full_params(state.params)
-    param_rel = max(((got[k] - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
-                    for k, v in want.items())
-    norm_rel = max(abs(got[k].norm().item() / max(v.norm().item(), 1e-30) - 1.0)
-                   for k, v in want.items())
-    bad = [k for k, p in state.params.items() if k.startswith("task.")
-           and not (isinstance(p, DTensor)
-                    and tuple(p.placements) == placements(specs[k], mesh))]
+    tp_cfg = dataclasses.replace(cfg, activation_sharding=DIST_TP_SPEC,
+                                 logits_sharding=DIST_TP_SPEC)
+    runs = {}
+    for key, run_cfg, shape in (("sharded", cfg, (world, 1)), ("tensor_parallel", tp_cfg,
+                                                              (1, world))):
+        runs[key] = dist_sharded(torch, tr, run_cfg, shape, dev, timed, want, plain)
+        free_card(torch)
     record["train"] = {"params": sum(v.numel() for v in want.values()), "tasks": cfg.num_tasks,
-                       "mesh": [world, 1], "plain": plain, "sharded": sharded,
-                       "loss_max_rel_err": loss_rel, "param_max_rel_err": param_rel,
-                       "param_norm_max_rel_err": norm_rel,
-                       "task_placements": {k: repr(tuple(state.params[k].placements))
-                                           for k in state.params if k.startswith("task.")},
-                       "device": smi}
+                       "plain": plain, **runs, "device": smi}
     if rank == 0:
-        log(f"distributed (c): multitask-LM full width ({record['train']['params']} params, "
-            f"{cfg.num_tasks} tasks, AdamW, the mix over band_graph({cfg.num_tasks}, 1)), "
-            f"{sp['steps']} steps of {sp['batch']} x {sp['seq']} on a ({world}, 1) mesh: "
-            f"losses {sharded['losses']} against the plain step's {plain['losses']}; max "
-            f"relative error of losses {loss_rel:.3e}, of parameters {param_rel:.3e}, of "
-            f"parameter norms {norm_rel:.3e} (limit {DIST_TOL}); ms a step sharded "
-            f"{[round(t, 2) for t in sharded['ms_per_step']]}, "
-            f"plain {[round(t, 2) for t in plain['ms_per_step']]}; peak "
-            f"torch.cuda.max_memory_allocated sharded {sharded['max_memory_allocated_mb']:.1f} "
-            f"MB (the plain weights' 1 GB copy resident), plain "
-            f"{plain['max_memory_allocated_mb']:.1f} MB; task leaves "
-            f"{record['train']['task_placements']}; {smi}")
+        for label, key in (("c", "sharded"), ("d", "tensor_parallel")):
+            r = runs[key]
+            log(f"distributed ({label}): multitask-LM full width ({record['train']['params']} "
+                f"params, {cfg.num_tasks} tasks, AdamW, the mix over band_graph("
+                f"{cfg.num_tasks}, 1)"
+                + (f", residual stream and logits constrained to {DIST_TP_SPEC}"
+                   if key == "tensor_parallel" else "")
+                + f"), {sp['steps']} steps of {sp['batch']} x {sp['seq']} on a "
+                f"{tuple(r['mesh'])} mesh: losses {r['losses']} against the plain step's "
+                f"{plain['losses']}; max relative error of losses {r['loss_max_rel_err']:.3e}, "
+                f"of parameters {r['param_max_rel_err']:.3e}, of parameter norms "
+                f"{r['param_norm_max_rel_err']:.3e} (limit {DIST_TOL}); ms a step "
+                f"{[round(t, 2) for t in r['ms_per_step']]}, plain "
+                f"{[round(t, 2) for t in plain['ms_per_step']]}; peak "
+                f"torch.cuda.max_memory_allocated {r['max_memory_allocated_mb']:.1f} MB, plain "
+                f"{plain['max_memory_allocated_mb']:.1f} MB; task leaves "
+                f"{r['task_placements']}; {smi}")
     # one rank runs the plain step's arithmetic, so every element must
     # agree; over several the gradients sum in another order, and AdamW
     # turns a near-zero gradient's rounding into a step of up to lr either
     # way: there each leaf's norm is held (the rule of phase 10 and of the
     # CPU tests against JAX)
-    params_ok = (param_rel if world == 1 else norm_rel) <= DIST_TOL
-    if not (loss_rel <= DIST_TOL and params_ok):
-        raise AssertionError(f"distributed (c): rank {rank}: the sharded step is {loss_rel:.3e}"
-                             f" (losses), {param_rel:.3e} (parameters), {norm_rel:.3e} "
-                             "(parameter norms) from the plain step")
-    if bad:
-        raise AssertionError(f"distributed (c): rank {rank}: task leaves off their placements: "
-                             f"{bad}")
+    for label, key in (("c", "sharded"), ("d", "tensor_parallel")):
+        r = runs[key]
+        params_ok = (r["param_max_rel_err"] if world == 1
+                     else r["param_norm_max_rel_err"]) <= DIST_TOL
+        if not (r["loss_max_rel_err"] <= DIST_TOL and params_ok):
+            raise AssertionError(
+                f"distributed ({label}): rank {rank}: the {key} step is "
+                f"{r['loss_max_rel_err']:.3e} (losses), {r['param_max_rel_err']:.3e} "
+                f"(parameters), {r['param_norm_max_rel_err']:.3e} (parameter norms) from the "
+                "plain step")
+        if r["bad_task_placements"]:
+            raise AssertionError(f"distributed ({label}): rank {rank}: task leaves off their "
+                                 f"placements: {r['bad_task_placements']}")
+
+
+def dist_dryrun(tmp, measured_mb, smi):
+    """19(e), in a process of its own (its fake process group never meets
+    the NCCL ranks): the dry run of DIST_DRYRUN on the 16 x 16 mesh, and of
+    19(c)'s step (multitask-LM, 32 x 256, AdamW, f32) on a (1, 1) fake
+    mesh, whose argument_bytes + temp_bytes must lie within
+    DIST_MEMORY_RTOL of 19(c)'s measured peak. Writes tmp/dryrun.json."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_fake_mesh
+    from repro_torch.launch.specs import InputShape
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    t0 = time.perf_counter()
+    out = {"combos": {}}
+    for arch, shape in DIST_DRYRUN:
+        r = dryrun.run_one(arch, shape, False, False, None)
+        out["combos"][f"{arch}__{shape}"] = r
+        log(json.dumps({"dryrun": r}))
+    sp = DIST_TRAIN
+    shape = InputShape(f"train_{sp['batch']}x{sp['seq']}", sp["seq"], sp["batch"], "train")
+    step = dryrun.account(get("multitask_lm"), shape, make_fake_mesh(shape=(1, 1)),
+                          dtype=torch.float32)
+    mem = step["memory"]
+    predicted = (mem["argument_bytes"] + mem["temp_bytes"]) / 1e6
+    rel = abs(predicted - measured_mb) / measured_mb
+    out["step_1x1"] = dict(step, predicted_mb=predicted, measured_mb=measured_mb,
+                           rel_err=rel, device=smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"distributed (e): dry run of 19(c)'s step on a (1, 1) fake mesh: argument_bytes "
+        f"{mem['argument_bytes'] / 1e6:.1f} MB + temp_bytes {mem['temp_bytes'] / 1e6:.1f} MB = "
+        f"{predicted:.1f} MB against the measured peak torch.cuda.max_memory_allocated "
+        f"{measured_mb:.1f} MB of 19(c): relative difference {rel:.3f} (limit "
+        f"{DIST_MEMORY_RTOL}); {step['cost']['flops']:.4e} FLOPs a step; the dry runs took "
+        f"{out['seconds']:.1f} s on the host; {smi}")
+    with open(os.path.join(tmp, "dryrun.json"), "w") as f:
+        json.dump(out, f)
+    if not rel <= DIST_MEMORY_RTOL:
+        raise AssertionError(f"distributed (e): the dry run's step memory {predicted:.1f} MB is "
+                             f"{rel:.3f} from the measured {measured_mb:.1f} MB")
 
 
 def dist_rank(rank, world, tmp, smi, device="cuda"):
     """One rank of phase 19, in its own process: joins the NCCL group on
-    cuda:rank, runs (a)-(c) and writes its record to tmp/rank<r>.json. Any
+    cuda:rank, runs (a)-(d) and writes its record to tmp/rank<r>.json. Any
     failure raises, and its process exits non-zero. ``device`` "cpu"
     rehearses it over gloo (the card's calls patched)."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -3863,9 +4007,31 @@ def dist_rank(rank, world, tmp, smi, device="cuda"):
         json.dump(record, f)
 
 
+def spawn_and_wait(mp, fn, args, nprocs, deadline, what, limit=None):
+    """``nprocs`` spawned processes of ``fn`` (``torch.multiprocessing``),
+    joined until ``deadline`` (``time.perf_counter()``; ``limit``, its
+    seconds for the message, DIST_TIMEOUT_S by default); past it, or if one
+    fails, the smoke fails. Every process is stopped on the way out."""
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{what} ran past {limit or DIST_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def dist_dryrun_entry(_index, tmp, measured_mb, smi):
+    dist_dryrun(tmp, measured_mb, smi)
+
+
 def phase_distributed(torch, smi):
-    """Phase 19 (see the docstring): the ranks in their own processes under
-    DIST_TIMEOUT_S; returns rank 0's record."""
+    """Phase 19 (see the docstring): the ranks in their own processes, then
+    the dry run (19(e)) in another, each under DIST_TIMEOUT_S; returns rank
+    0's record with the dry run's."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -3874,26 +4040,24 @@ def phase_distributed(torch, smi):
     world = torch.cuda.device_count()
     free_card(torch)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
-    ctx = mp.start_processes(dist_rank, args=(world, tmp, smi), nprocs=world, join=False,
-                             start_method="spawn")
-    try:
-        while not ctx.join(timeout=1.0):
-            if time.perf_counter() - t_phase > DIST_TIMEOUT_S:
-                raise AssertionError(f"distributed: the ranks ran past {DIST_TIMEOUT_S} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join()
+    spawn_and_wait(mp, dist_rank, (world, tmp, smi), world, t_phase + DIST_TIMEOUT_S,
+                   "distributed: the ranks")
     records = []
     for r in range(world):
         with open(os.path.join(tmp, f"rank{r}.json")) as f:
             records.append(json.load(f))
+    measured = records[0]["train"]["sharded"]["max_memory_allocated_mb"]
+    t_dry = time.perf_counter()
+    spawn_and_wait(mp, dist_dryrun_entry, (tmp, measured, smi), 1, t_dry + DIST_TIMEOUT_S,
+                   "distributed: the dry run")
+    with open(os.path.join(tmp, "dryrun.json")) as f:
+        dry = json.load(f)
     secs = time.perf_counter() - t_phase
     log(f"distributed: phase passed in {secs:.1f} s ({world} ranks; rank 0 "
         f"{records[0]['seconds']:.1f} s after its spawn, NCCL init "
-        f"{records[0]['init_s']:.1f} s)")
-    return dict(records[0], phase_seconds=secs)
+        f"{records[0]['init_s']:.1f} s; the dry run's process {time.perf_counter() - t_dry:.1f}"
+        " s)")
+    return dict(records[0], dryrun=dry, phase_seconds=secs)
 
 
 def main() -> int:
@@ -3970,11 +4134,7 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
-    ops = {"decode_attention": dec_ops.decode_attention,
-           "prefill_attention": pre_ops.prefill_attention,
-           "paged_decode_attention": dec_ops.paged_decode_attention,
-           "paged_prefill_attention": pre_ops.paged_prefill_attention,
-           "graph_mix": mix_ops.graph_mix}
+    ops = kernel_ops()
     t0 = time.perf_counter()
     phase_build(runtime)
     breakdown = []  # (kernel, entry, kernel call, library call) for phase_breakdown
@@ -4029,7 +4189,7 @@ def main() -> int:
                                         ContinuousBatcher, Request, PagingSpec, ops, smi)
     phase_breakdown(torch, breakdown)
     del breakdown  # its closures hold the phase-2 inputs
-    analysis, analysis_launches = phase_analysis(torch, ops, smi)
+    analysis, analysis_launches = phase_analysis_spawned(torch, smi)
     log(json.dumps({"paper": {"device": smi, **paper}}))
     log(json.dumps({"experiments": exps}, default=str))
     log(json.dumps({"distributed": distributed}))

@@ -14,7 +14,7 @@ columns and paged reads (``models/model.py`` ``_embed``, ``_task_rows``,
 
 Flagged, under ``serve/``, ``models/`` and ``kernels/``: a gather
 (``index_select``, ``torch.gather`` / ``.gather``, ``F.embedding``,
-``take_along_dim``, ``index_put_``, ``index_copy_``, ``index_fill_``,
+``tp.embedding``, ``take_along_dim``, ``index_put_``, ``index_copy_``, ``index_fill_``,
 ``index_add_``, ``scatter_`` / ``scatter_add_``, or subscripting a tensor
 with a tensor) whose index is a runtime tensor that the same function does
 not bound. An index is bounded when it is a literal, or when the
@@ -57,6 +57,9 @@ _FUNCTION_GATHERS = {
     "torch.gather": (2, "index"), "torch.index_select": (2, "index"),
     "torch.take_along_dim": (1, "indices"), "F.embedding": (0, "input"),
     "torch.nn.functional.embedding": (0, "input"), "torch.embedding": (1, "indices"),
+    # the vocab-parallel lookup of repro_torch.sharding.tensor_parallel
+    # (F.embedding on plain tensors): its ids must be in range the same way
+    "tp.embedding": (0, "ids"),
 }
 
 

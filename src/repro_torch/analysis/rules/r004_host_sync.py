@@ -54,9 +54,12 @@ STEP_FUNCTIONS = {
         "TransformerLM._logits", "TransformerLM._gather_adapters",
         "TransformerLM._cache_write_slab", "TransformerLM._cache_write",
         "TransformerLM._make_attend", "TransformerLM._attn_block",
-        "TransformerLM._run_layers", "TransformerLM._view",
+        "TransformerLM._run_layers", "TransformerLM._view", "TransformerLM._constrain",
     },
-    "models/attention.py": {"gqa_project", "decode_attend", "cached_attend", "_physical",
+    "sharding/tensor_parallel.py": {"is_dtensor", "constrain", "tp_input", "split_ready",
+                                    "mean_last", "settle", "contiguous_grad", "embedding"},
+    "models/attention.py": {"gqa_project", "masked_scores", "decode_attend", "cached_attend",
+                            "_physical",
                             "paged_cache_write", "paged_cache_write_slab", "mla_decode"},
     "models/layers.py": {"matmul", "rms_norm", "layer_norm", "nonparam_layer_norm",
                          "apply_norm", "rope_frequencies", "apply_rope", "silu", "gelu",

@@ -6,13 +6,17 @@ every block kind (dense and mixture-of-experts attention, GQA or MLA,
 Mamba2, mLSTM, sLSTM), the input modes (token ids; a VLM's token ids with
 precomputed vision embeddings; an audio model's codebook tokens), the
 chunkwise-parallel mLSTM, and ``num_tasks``, ``adapter_rank``, ``q_chunk``
-and ``remat``, and the two sharding-only fields the sharding rules
-(``repro_torch.sharding.rules.cache_specs``) read, ``mla_replicate_cache``
-and ``mla_cache_seq_shard``. The reference's ``fsdp_gather_moe``,
-``activation_sharding`` and ``logits_sharding`` are left out: they are
-constraints inside the forward with no arithmetic of their own, and wait
-for in-forward redistributes of the sharded step (as do ``unroll`` and
-``long_context_ok``, which no port path reads). The backend
+and ``remat``, and the sharding fields: ``mla_replicate_cache`` and
+``mla_cache_seq_shard``, which the sharding rules
+(``repro_torch.sharding.rules.cache_specs``) read, and the reference's
+in-forward constraints ``fsdp_gather_moe``, ``activation_sharding`` and
+``logits_sharding``, which the model reads when its tensors are DTensors
+(``repro_torch.sharding.dtensor.sharded_step``): the residual stream and
+the logits are redistributed to the given ``Spec`` entries, and the MoE's
+expert weights are regathered with only their ff dim on the model axis.
+On plain tensors, and when left at None / False (the reference's
+defaults), they do nothing. ``unroll`` and ``long_context_ok`` are left
+out: no port path reads them. The backend
 flag ``attn_backend`` is the port's, and it selects every hand-written
 kernel, not only attention's: ``"kernel"`` serves attention from the CUDA
 attention kernels and mixes task adapters (``repro_torch.serve.adapters``)
@@ -99,6 +103,15 @@ class ArchConfig:
     # (flash-decode layout); neither set: its latent dim on model
     mla_replicate_cache: bool = False
     mla_cache_seq_shard: bool = False
+    # the reference's in-forward sharding constraints (read on DTensors
+    # only): regather the MoE expert weights with only their ff dim on the
+    # model axis before the expert products; the placements of the residual
+    # stream at each period boundary (and after the embedding) and of the
+    # logits, as Spec entries, e.g. ("data", None, "model"); None: no
+    # constraint
+    fsdp_gather_moe: bool = False
+    activation_sharding: tuple | None = None
+    logits_sharding: tuple | None = None
     attn_backend: str = "kernel"
     source: str = ""
 

@@ -6,9 +6,12 @@ touches no process group and no device.
 ``mesh_axes`` keeps the reference's production sizes (a 16 x 16 mesh per
 pod; two pods join the FSDP dimension as an outer "pod" axis): they are
 inputs to the sharding rules, which the tests hold to the reference's at
-those sizes. The pod's 256-device mesh itself is not built here: the port
-builds a ("data", "model") mesh over the ranks that exist (``make_mesh``),
-after ``init_distributed`` has made the process group.
+those sizes. The port builds a ("data", "model") mesh over the ranks that
+exist (``make_mesh``), after ``init_distributed`` has made the process
+group; and, for the dry run (``repro_torch.launch.dryrun``), the pod's 16 x
+16 or two pods' 2 x 16 x 16 mesh over a ``fake`` process group in one
+process (``make_fake_mesh``), on which DTensors of ``meta`` tensors run
+the sharded programs with no device and no traffic.
 """
 from __future__ import annotations
 
@@ -62,7 +65,39 @@ def make_smoke_mesh(data: int = 2, model: int = 2, device=None):
     return make_mesh(data, model, device)
 
 
+def make_fake_mesh(multi_pod: bool = False, shape: tuple[int, ...] | None = None):
+    """The production mesh over a ``fake`` process group of this process
+    alone: (16, 16) ("data", "model"), or with ``multi_pod`` (2, 16, 16)
+    ("pod", "data", "model"); ``shape`` another (data, model) or (pod,
+    data, model) size. Its collectives move nothing, so it carries DTensors
+    of ``meta`` tensors only. A default group of another size or backend
+    is replaced (it must be no real one: call this in a process of its
+    own, never beside NCCL or gloo ranks)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    shape = tuple(shape or ((2, 16, 16) if multi_pod else (16, 16)))
+    names = ("pod", "data", "model")[-len(shape):]
+    world = 1
+    for n in shape:
+        world *= n
+    if dist.is_initialized():
+        if dist.get_backend() == "fake" and dist.get_world_size() == world:
+            return init_device_mesh("cpu", shape, mesh_dim_names=names)
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"make_fake_mesh: a {dist.get_backend()} group is live here")
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+
 def axes_of(mesh) -> MeshAxes:
-    """The ``MeshAxes`` of a (data, model) mesh of ``make_mesh``."""
-    return MeshAxes(fsdp=("data",), model="model", fsdp_size=mesh.size(0),
-                    model_size=mesh.size(1))
+    """The ``MeshAxes`` of a (data, model) mesh of ``make_mesh`` or a
+    (pod, data, model) one: every dim but "model" joins fsdp, in order."""
+    names = tuple(mesh.mesh_dim_names)
+    fsdp = tuple(n for n in names if n != "model")
+    size = 1
+    for n in fsdp:
+        size *= mesh.size(names.index(n))
+    return MeshAxes(fsdp=fsdp, model="model", fsdp_size=size,
+                    model_size=mesh.size(names.index("model")))

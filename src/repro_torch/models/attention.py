@@ -44,6 +44,12 @@ from repro_torch.kernels.prefill_attention.ops import (
 )
 from repro_torch.kernels.runtime import gather_pages, pos_vector, scale_for
 from repro_torch.models.layers import apply_rope, dense_init, matmul
+from repro_torch.sharding.tensor_parallel import (
+    cached_attention,
+    is_dtensor,
+    split_ready,
+    tp_input,
+)
 
 NEG_INF = -1e30
 
@@ -66,19 +72,20 @@ def init_gqa(d: int, n_heads: int, n_kv: int, head_dim: int, qkv_bias: bool,
 
 def gqa_project(params, x, n_heads, n_kv, head_dim):
     b, s, _ = x.shape
+    x = tp_input(x, params["wq"])  # once for the three products
     q = matmul(x, params["wq"])
     k = matmul(x, params["wk"])
     v = matmul(x, params["wv"])
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     return (
-        q.reshape(b, s, n_heads, head_dim),
-        k.reshape(b, s, n_kv, head_dim),
-        v.reshape(b, s, n_kv, head_dim),
+        split_ready(q, -1, n_heads).reshape(b, s, n_heads, head_dim),
+        split_ready(k, -1, n_kv).reshape(b, s, n_kv, head_dim),
+        split_ready(v, -1, n_kv).reshape(b, s, n_kv, head_dim),
     )
 
 
-def causal_attend(q, k, v, *, sliding_window=None, q_chunk: int = 1024):
+def causal_attend(q, k, v, *, sliding_window=None, q_chunk: int = 1024, q_start: int = 0):
     """Query-chunked causal (optionally windowed) attention, the reference's
     ``causal_attend`` op for op: chunks of ``q_chunk`` queries (one chunk
     when ``q_chunk`` does not divide S), each against all S keys, with the
@@ -86,7 +93,10 @@ def causal_attend(q, k, v, *, sliding_window=None, q_chunk: int = 1024):
     ``NEG_INF`` (never -inf, so a row stays finite), the probabilities cast
     to q's dtype before the second product, accumulated in float32.
 
-    q: (B, S, H, hd); k, v: (B, S, KVH, hd). Returns (B, S, H, hd_v)."""
+    q: (B, S, H, hd); k, v: (B, S_kv, KVH, hd) with S_kv = S, or the whole
+    sequence's keys for a block of S queries from position ``q_start`` (a
+    rank's share of the queries, ``sharding.tensor_parallel.attention``).
+    Returns (B, S, H, hd_v)."""
     b, s, h, hd = q.shape
     hd_v = v.shape[-1]
     kvh = k.shape[2]
@@ -96,12 +106,12 @@ def causal_attend(q, k, v, *, sliding_window=None, q_chunk: int = 1024):
     if s % q_chunk != 0:  # fall back to one chunk when not divisible
         q_chunk = s
     qg = q.reshape(b, s // q_chunk, q_chunk, kvh, g, hd)
-    kv_pos = torch.arange(s, device=q.device)
+    kv_pos = torch.arange(k.shape[1], device=q.device)
     kf, vf = k.float(), v.float()
     outs = []
     for ci in range(s // q_chunk):
         scores = torch.einsum("bqkgd,bskd->bkgqs", qg[:, ci].float(), kf) * scale
-        q_pos = ci * q_chunk + torch.arange(q_chunk, device=q.device)
+        q_pos = q_start + ci * q_chunk + torch.arange(q_chunk, device=q.device)
         mask = kv_pos[None, :] <= q_pos[:, None]
         if sliding_window is not None:
             mask &= kv_pos[None, :] > q_pos[:, None] - sliding_window
@@ -112,6 +122,26 @@ def causal_attend(q, k, v, *, sliding_window=None, q_chunk: int = 1024):
     return torch.cat(outs, dim=1).reshape(b, s, h, hd_v)
 
 
+def masked_scores(q, k_cache, pos, sliding_window=None, kv_start: int = 0):
+    """``decode_attend``'s float32 scores (B, KVH, G, C, S) of a (B, C, H,
+    hd) query chunk against (B, S, KVH, hd) keys, masked to ``NEG_INF``
+    outside ``kv_idx <= pos + i`` (and the window); the keys' first row is
+    position ``kv_start`` (a rank's block of a sequence-split cache,
+    ``sharding.tensor_parallel.cached_attention``)."""
+    b, c, h, hd = q.shape
+    kvh = k_cache.shape[2]
+    qg = q.reshape(b, c, kvh, h // kvh, hd)
+    # analysis: ignore[R005] -- the reference's decode_attend contracts at this dtype too
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache).float()
+    scores = scores * scale_for(hd)  # (B, KVH, G, C, S)
+    kv_pos = torch.arange(kv_start, kv_start + k_cache.shape[1], device=q.device)
+    q_pos = pos_vector(pos, b, q.device)[:, None] + torch.arange(c, device=q.device)
+    mask = kv_pos[None, None, :] <= q_pos[:, :, None]  # (B, C, S)
+    if sliding_window is not None:
+        mask &= kv_pos[None, None, :] > q_pos[:, :, None] - sliding_window
+    return torch.where(mask[:, None, None, :, :], scores, NEG_INF)
+
+
 def decode_attend(q, k_cache, v_cache, pos, *, sliding_window=None):
     """Chunk-of-queries attention against a cache (the plain backend).
 
@@ -119,20 +149,13 @@ def decode_attend(q, k_cache, v_cache, pos, *, sliding_window=None):
     prefill chunk; caches: (B, max_seq, KVH, hd); pos: () or (B,) positions
     of the FIRST query token (query i sits at ``pos + i`` and reads
     ``kv_idx <= pos + i`` only; the cache already holds the whole chunk).
-    Returns (B, C, H, hd)."""
-    b, c, h, hd = q.shape
-    kvh = k_cache.shape[2]
-    qg = q.reshape(b, c, kvh, h // kvh, hd)
-    # analysis: ignore[R005] -- the reference's decode_attend contracts at this dtype too
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache).float()
-    scores = scores * scale_for(hd)  # (B, KVH, G, C, S)
-    kv_pos = torch.arange(k_cache.shape[1], device=q.device)
-    q_pos = pos_vector(pos, b, q.device)[:, None] + torch.arange(c, device=q.device)
-    mask = kv_pos[None, None, :] <= q_pos[:, :, None]  # (B, C, S)
-    if sliding_window is not None:
-        mask &= kv_pos[None, None, :] > q_pos[:, :, None] - sliding_window
-    scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
+    Returns (B, C, H, hd). On DTensor caches (the dry run's serving steps)
+    each rank attends over its own shards (``tp.cached_attention``)."""
+    if is_dtensor(k_cache):
+        return cached_attention(q, k_cache, v_cache, pos, masked_scores,
+                                sliding_window=sliding_window)
+    b, c, h, _ = q.shape
+    w = torch.softmax(masked_scores(q, k_cache, pos, sliding_window), dim=-1)
     # analysis: ignore[R005] -- the reference's decode_attend contracts at this dtype too
     out = torch.einsum("bkgqs,bskd->bqkgd", w.to(q.dtype), v_cache)
     return out.to(q.dtype).reshape(b, c, h, v_cache.shape[-1])

@@ -13,6 +13,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.tensor_parallel import contiguous_grad, mean_last, settle, tp_input
+
 
 def dense_init(shape, generator: torch.Generator, in_axis: int = 0,
                dtype=torch.float32) -> torch.Tensor:
@@ -25,17 +27,20 @@ def dense_init(shape, generator: torch.Generator, in_axis: int = 0,
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w over x's last axis, accumulated in float32, cast to x.dtype."""
+    """x @ w over x's last axis, accumulated in float32, cast to x.dtype.
+    On DTensors ``x`` first takes the layout the weight's placements ask
+    for (``tp_input``: tensor-parallel, the weight never gathered)."""
+    x = tp_input(x, w)
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         # analysis: ignore[R005] -- both operands are float32 (the guard above)
-        return torch.matmul(x, w)
-    return torch.matmul(x.float(), w.float()).to(x.dtype)
+        return contiguous_grad(settle(torch.matmul(x, w)))
+    return contiguous_grad(settle(torch.matmul(x.float(), w.float())).to(x.dtype))
 
 
 # -------------------------------------------------------------------- norms
 def rms_norm(x: torch.Tensor, gain: torch.Tensor | None, eps: float = 1e-6):
     xf = x.float()
-    out = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    out = xf * torch.rsqrt(mean_last(xf.square()) + eps)
     if gain is not None:
         out = out * (1.0 + gain.float())  # gain stored as (1 + gain)
     return out.to(x.dtype)
@@ -44,8 +49,8 @@ def rms_norm(x: torch.Tensor, gain: torch.Tensor | None, eps: float = 1e-6):
 def layer_norm(x: torch.Tensor, gain: torch.Tensor | None,
                bias: torch.Tensor | None, eps: float = 1e-5):
     xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)  # biased, like jnp.var
+    mu = mean_last(xf)
+    var = mean_last((xf - mu).square())  # biased, like jnp.var
     out = (xf - mu) * torch.rsqrt(var + eps)
     if gain is not None:
         out = out * gain.float()
@@ -149,6 +154,7 @@ def init_mlp(d: int, d_ff: int, kind: str, dtype, generator) -> dict:
 
 
 def apply_mlp(params, x: torch.Tensor, kind: str) -> torch.Tensor:
+    x = tp_input(x, params["wi"])  # once for both input products
     if kind == "swiglu":
         gate = silu(matmul(x, params["wg"]))
         return matmul(gate * matmul(x, params["wi"]), params["wo"])

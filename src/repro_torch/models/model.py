@@ -73,7 +73,6 @@ import contextlib
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.overrides import TorchFunctionMode
 from torch.utils.checkpoint import checkpoint
@@ -100,6 +99,7 @@ from repro_torch.models.layers import (
     matmul,
 )
 from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.sharding import tensor_parallel as tp
 
 
 _PATTERNS = (("attn",), ("attn_moe",))
@@ -249,11 +249,11 @@ class TransformerLM(nn.Module):
         # (torch indexing would raise, or read stray memory on CUDA)
         ids = batch["tokens"].clamp(0, c.vocab_size - 1)
         if c.input_mode == "audio":  # (B, S, K): the codebooks' embeddings summed
-            x = F.embedding(ids[..., 0], self.embed[0])
+            x = tp.embedding(ids[..., 0], self.embed[0])
             for k in range(1, c.num_codebooks):
-                x = x + F.embedding(ids[..., k], self.embed[k])
+                x = x + tp.embedding(ids[..., k], self.embed[k])
             return x
-        x = F.embedding(ids, self.embed)
+        x = tp.embedding(ids, self.embed)
         if c.input_mode == "vlm" and "vision_mask" in batch:
             x = torch.where(batch["vision_mask"][..., None],
                             batch["vision_embeds"].to(x.dtype), x)
@@ -263,7 +263,8 @@ class TransformerLM(nn.Module):
         # dead serving lanes carry the null task id num_tasks, one past the
         # table: clamp like the JAX model's _TAKE_MODE = "clip" (the gathered
         # rows only feed discarded dead-lane outputs)
-        return table[task_ids.clamp(0, table.shape[0] - 1)]
+        idx = task_ids.clamp(0, table.shape[0] - 1)
+        return tp.embedding(idx, table) if tp.is_dtensor(table) else table[idx]
 
     def _router_bias(self, batch, seq: int, task_ad=None):
         """Each row's per-task router bias (plus its adapter delta),
@@ -282,7 +283,8 @@ class TransformerLM(nn.Module):
         c = self.cfg
         if c.uses_moe:
             return apply_moe(p.moe, h, top_k=c.top_k, capacity_factor=c.capacity_factor,
-                             router_bias=router_bias, groups=c.moe_groups, live=live)
+                             router_bias=router_bias, groups=c.moe_groups,
+                             fsdp_gather=c.fsdp_gather_moe, live=live)
         return apply_mlp(p.mlp, h, c.mlp_kind), torch.zeros((), device=h.device)
 
     def _logits(self, x, batch, task_ad=None) -> torch.Tensor:
@@ -296,12 +298,14 @@ class TransformerLM(nn.Module):
                 gain = gain + task_ad["final_gain"].to(gain.dtype)
             x = x * (1.0 + gain[:, None, :].to(x.dtype))
         head = self.embed.t() if c.tie_embeddings else self.head
-        logits = torch.matmul(x.float(), head.float())  # f32 logits, any dtype
+        # f32 logits, any dtype
+        logits = torch.matmul(tp.tp_input(x, head).float(), head.float())
         if "task_ids" in batch:
             hb = self._task_rows(self.task["head_bias"], batch["task_ids"])
             if task_ad is not None and "head_bias" in task_ad:
                 hb = hb + task_ad["head_bias"].to(hb.dtype)
             logits = logits + hb[:, None, :].float()
+        logits = tp.constrain(logits, c.logits_sharding)
         if c.num_codebooks > 1:  # (B, S, K * V) -> (B, S, K, V)
             logits = logits.reshape(logits.shape[:2] + (c.num_codebooks, c.vocab_size))
         return logits
@@ -352,8 +356,9 @@ class TransformerLM(nn.Module):
                                            c.head_dim)
             q = apply_rope(q, positions, c.rope_theta)
             k = apply_rope(k, positions, c.rope_theta)
-            o = attn_lib.causal_attend(q, k, v, sliding_window=c.sliding_window,
-                                       q_chunk=c.q_chunk)
+            o = tp.attention(lambda q, k, v, start: attn_lib.causal_attend(
+                q, k, v, sliding_window=c.sliding_window, q_chunk=c.q_chunk, q_start=start),
+                q, k, v)
             out = matmul(o.reshape(b, s, c.num_heads * c.head_dim), p.attn["wo"])
         x = x + out
         h = apply_norm(c.norm_kind, x, p.norm2 or None)
@@ -382,6 +387,18 @@ class TransformerLM(nn.Module):
                                           chunk=c.xlstm_chunk)
         return x + out, torch.zeros((), device=x.device)
 
+    def _constrain(self, x):
+        """The reference's ``_constrain``: the residual stream in the
+        placements of ``cfg.activation_sharding`` (``tp.constrain``; a
+        no-op on plain tensors)."""
+        return tp.constrain(x, self.cfg.activation_sharding)
+
+    def _period_ends(self) -> set[int]:
+        """The layers that close a period of their stage, where the
+        reference's scanned body ends and constrains its carry."""
+        return {first + len(kinds) * (r + 1) - 1
+                for kinds, reps, first in self.cfg.stages() for r in range(reps)}
+
     def forward(self, batch):
         """Training/eval forward. batch: {'tokens': (B, S) ((B, S, K) for
         audio) [, 'task_ids': (B,)] [, 'vision_embeds', 'vision_mask' for a
@@ -389,14 +406,17 @@ class TransformerLM(nn.Module):
         aux loss () float32: the MoE layers' load-balance losses summed, 0
         for a dense model). With
         ``cfg.remat`` and grad enabled each layer keeps only its input for
-        the backward and recomputes the rest."""
-        x = self._embed(batch)
+        the backward and recomputes the rest. The residual stream is
+        constrained after the embedding and at each period's end, as in the
+        reference."""
+        x = self._constrain(self._embed(batch))
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
         rb = self._router_bias(batch, s)
         remat = self.cfg.remat and torch.is_grad_enabled()
+        ends = self._period_ends()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for kind, p in zip(self.kinds, self.layers):
+        for i, (kind, p) in enumerate(zip(self.kinds, self.layers)):
             if kind in RECURRENT_KINDS:
                 fn, args = self._recurrent_full, (kind, p, x)
             else:
@@ -406,6 +426,8 @@ class TransformerLM(nn.Module):
                 x, a = checkpoint(fn, *args, use_reentrant=False)
             else:
                 x, a = fn(*args)
+            if i in ends:
+                x = self._constrain(x)
             aux = aux + a
         return self._logits(x, batch), aux
 
@@ -413,16 +435,14 @@ class TransformerLM(nn.Module):
         """Mean softmax cross-entropy of ``batch['labels']`` (B, S) ((B, S,
         K) for audio: the mean over every codebook's label), plus
         ``aux_weight`` * aux. The label logit is the reference's masked
-        reduction over the vocab, taken as a gather of the one entry that
-        can match and a select: a label outside [0, V) matches no entry and
-        contributes 0 (it is not clamped). Returns (loss, {'nll', 'aux'})."""
+        reduction over the vocab (``tp.label_logits``), never a gather, so
+        vocab-sharded logits stay sharded: a label outside [0, V) matches no
+        entry and contributes 0 (it is not clamped). Returns (loss, {'nll',
+        'aux'})."""
         logits, aux = self.forward(batch)
         labels = batch["labels"].long()
-        v = logits.shape[-1]
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = logits.gather(-1, labels.clamp(0, v - 1)[..., None])[..., 0]
-        label_logit = torch.where((labels >= 0) & (labels < v), picked, 0.0)
-        nll = (lse - label_logit).mean()
+        nll = tp.reduced((tp.logsumexp(logits) - tp.label_logits(logits, labels)).mean())
+        aux = tp.reduced(aux)
         return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
     # ------------------------------------------------------------- caches
@@ -504,13 +524,16 @@ class TransformerLM(nn.Module):
         """Write a (B, C) slab into the cache IN PLACE: chunk token i of slot
         b lands at row ``pos[b] + i`` when ``valid[b, i]`` and that row
         exists (0 <= pos[b] + i < S); every other lane writes nothing — a
-        position past the cache is dropped, not clamped onto its last row.
+        position past the cache is dropped, not clamped onto its last row. A
+        DTensor cache is written on each rank's own rows (``tp.cache_write``).
 
         One gather + one ``index_put_``, no host sync: each lane targets row
         ``(pos[b] + i) mod S`` — C <= S consecutive integers, so the
         targets of one slot are distinct and the scatter has no collisions —
         and a lane that must not write stores the row's old value back.
         cache: (B, S, ...); new: (B, C, ...); pos: (B,); valid: (B, C)."""
+        if tp.is_dtensor(cache):
+            return tp.cache_write(TransformerLM._cache_write_slab, cache, new, pos, valid)
         b, s = cache.shape[:2]
         c = new.shape[1]
         if c > s:
@@ -638,7 +661,7 @@ class TransformerLM(nn.Module):
         dense and ignore the table). adapters: optional serving tree of a
         ``TaskAdapterStore`` (needs ``batch['task_ids']``). Returns (logits
         (B, 1, V) f32 ((B, 1, K, V) for audio), caches)."""
-        x = self._embed(batch)
+        x = self._constrain(self._embed(batch))
         pos = pos_vector(pos, x.shape[0], x.device)
         attend = self._make_attend(pos, block_tables)
         if block_tables is None:
@@ -677,7 +700,7 @@ class TransformerLM(nn.Module):
         valid token, caches) — the
         lm head runs on one hidden state per slot (all-False rows give
         logits the caller discards)."""
-        x = self._embed(batch)
+        x = self._constrain(self._embed(batch))
         b = x.shape[0]
         pos = pos_vector(positions, b, x.device)
         attend = self._make_attend(pos, block_tables)

@@ -17,18 +17,22 @@ AdamW moments and every in-place update stay sharded over the mesh, and
 the graph mix of the per-task leaves contracts their task axis across the
 data ranks (``GraphMultiTask.mix_task_params``).
 
-Compute: inside ``sharded_step`` the forward and backward read each weight
-gathered to a replicated DTensor (``redistribute``, whose backward
-reduce-scatters the gradient back into the rule's placements), over a
-batch sharded on the data axis, so the step computes data-parallel over a
-fully sharded (FSDP x TP) store: ZeRO-3's schedule. Tensors the forward
-makes for itself (positions, masks) join as replicated
-(``implicit_replication``). Tensor-parallel compute — the rules'
-placements carried through the forward, with the reference's in-forward
-constraints (``activation_sharding``, ``logits_sharding``) — is not done:
-DTensor's propagation through the port's forward fails on a 2-D mesh (the
-vocab-sharded embedding's masked partial meets a data-sharded batch).
-The scope is the dense family (``olmo_1b``, ``multitask_lm``).
+Compute: the reference's FSDP x TP schedule under pjit. Inside
+``sharded_step`` the forward and backward read each weight gathered over
+the fsdp mesh dims only (``fsdp_gathered``: a ``redistribute`` of the
+rule's fsdp entries to ``Replicate``, whose backward reduce-scatters the
+gradient over fsdp alone); the model entry stays, so every product runs
+tensor-parallel on model-split weights over a data-split batch, through
+the model's in-forward constraints (``cfg.activation_sharding``,
+``cfg.logits_sharding``, ``cfg.fsdp_gather_moe``) and its tensor-parallel
+pieces (``repro_torch.sharding.tensor_parallel``: activations gathered for
+column-parallel products and reduce-scattered after row-parallel ones, the
+vocab-parallel embedding and loss, the MoE's shard-local dispatch). No
+weight is gathered over the model axis. Tensors the forward makes for
+itself (positions, masks) join as replicated (``implicit_replication``).
+The scope is the dense family (``olmo_1b``, ``qwen2_5_14b``,
+``qwen1_5_110b``, ``phi4_mini_3_8b``, ``multitask_lm``) and the MoE
+(``mixtral_8x22b``); any other family raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -77,17 +81,34 @@ def shard_batch(batch: dict, mesh, axes: MeshAxes) -> dict:
     return {k: _distribute(v, specs[k], mesh) for k, v in batch.items()}
 
 
-@contextlib.contextmanager
-def _gathered_weights(held):
-    """Each DTensor parameter's module reads the parameter gathered to a
-    replicated DTensor (autograd flows back to the sharded parameter);
-    restored on exit."""
-    from torch.distributed.tensor import Replicate
+def check_tensor_parallel(cfg) -> None:
+    """Raises ``NotImplementedError`` unless the model's forward runs
+    tensor-parallel on DTensors: the dense and MoE attention patterns with
+    GQA over token ids."""
+    if not (tuple(cfg.pattern) in (("attn",), ("attn_moe",)) and not cfg.use_mla
+            and cfg.input_mode == "tokens"):
+        raise NotImplementedError(
+            f"{cfg.name}: the tensor-parallel sharded forward covers the dense and MoE "
+            "families (GQA over token ids); this family's waits (ROADMAP §1 item 3)")
 
+
+@contextlib.contextmanager
+def fsdp_gathered(model: nn.Module):
+    """Inside, each DTensor parameter's module reads the parameter gathered
+    over every mesh dim but "model" (autograd flows back to the
+    sharded parameter: the gradient reduce-scatters over those dims);
+    restored on exit. A parameter already whole there is read as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    held = [(*_owner(model, name), p) for name, p in model.named_parameters()
+            if isinstance(p, DTensor)]
     try:
         for owner, leaf, p in held:
-            owner._parameters[leaf] = p.redistribute(p.device_mesh,
-                                                     [Replicate()] * p.device_mesh.ndim)
+            names = p.device_mesh.mesh_dim_names
+            want = tuple(pl if names[i] == "model" else Replicate()
+                         for i, pl in enumerate(p.placements))
+            if want != tuple(p.placements):
+                owner._parameters[leaf] = p.redistribute(p.device_mesh, want)
         yield
     finally:
         for owner, leaf, p in held:
@@ -97,17 +118,18 @@ def _gathered_weights(held):
 def sharded_step(model: nn.Module, step):
     """``step`` (``make_train_step(model, ...)``, unchanged) over the
     DTensor state of ``shard_state`` and a batch of ``shard_batch``: run
-    with the weights gathered for the compute and the forward's own
-    tensors replicated. The metrics come back as full (replicated)
-    tensors; the state's parameters and moments stay in their placements."""
+    with the weights gathered over the fsdp dims (``fsdp_gathered``) and
+    the forward's own tensors replicated, tensor-parallel over the "model"
+    axis. The metrics come back as full (replicated) tensors; the state's
+    parameters and moments stay in their placements. Raises
+    ``NotImplementedError`` for a family ``check_tensor_parallel`` refuses."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import implicit_replication
 
-    held = [(*_owner(model, name), p) for name, p in model.named_parameters()
-            if isinstance(p, DTensor)]
+    check_tensor_parallel(model.cfg)
 
     def run(state, batch):
-        with _gathered_weights(held), implicit_replication():
+        with fsdp_gathered(model), implicit_replication():
             state, metrics = step(state, batch)
         return state, {k: v.full_tensor() if isinstance(v, DTensor) else v
                        for k, v in metrics.items()}

@@ -6,7 +6,11 @@ card, and the sharded DTensor train step (multitask_lm smoke, AdamW, a (W,
 1) mesh) against the plain step: losses within 1e-5 relative, parameters
 elementwise at W = 1 and by leaf norm over more ranks (AdamW turns the
 data-parallel sum's rounding of a near-zero gradient into a step of up to
-lr), the task leaves DTensors in the rules' placements. Needs a CUDA
+lr), the task leaves DTensors in the rules' placements; and the
+tensor-parallel step (the residual stream and the logits constrained to
+("data", None, "model")) on both mesh orientations, (W, 1) and (1, W), of
+the multitask_lm and mixtral_8x22b smoke configs, against the plain step
+under the same rule. Needs a CUDA
 device and skips without one; imports no JAX:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_distributed.py``."""
 import numpy as np
@@ -59,7 +63,12 @@ def solvers_on_the_card(rank, world):
     return out
 
 
-def train_on_the_card(rank, world):
+def train_on_the_card(rank, world, arch="multitask_lm", spec=None, orientation="data"):
+    """The plain step and the sharded one on a (W, 1) mesh (``orientation``
+    "data") or a (1, W) mesh ("model"), with ``spec`` as the residual
+    stream's and the logits' constraint."""
+    import dataclasses
+
     from torch.distributed.tensor import DTensor
 
     from repro_torch.configs import get
@@ -73,7 +82,10 @@ def train_on_the_card(rank, world):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", rank)
-    cfg = get("multitask_lm", smoke=True)
+    cfg = dataclasses.replace(get(arch, smoke=True), activation_sharding=spec,
+                              logits_sharding=spec)
+    if cfg.uses_moe:  # one dispatch group per data rank, on both sides
+        cfg = dataclasses.replace(cfg, moe_groups=world if orientation == "data" else 1)
     pipe = TokenPipeline(cfg.vocab_size, seq_len=32, global_batch=8, num_tasks=cfg.num_tasks,
                          seed=0)
     batches = [batch_to_device(b, dev) for _, b in zip(range(3), pipe)]
@@ -94,7 +106,7 @@ def train_on_the_card(rank, world):
 
     plain_losses, state = run(TransformerLM(cfg, device=dev, seed=0))
     want = {k: v.detach().clone() for k, v in state.params.items()}
-    mesh = make_mesh(world, 1, device="cuda")
+    mesh = make_mesh(*((world, 1) if orientation == "data" else (1, world)), device="cuda")
     losses, state = run(TransformerLM(cfg, device=dev, seed=0), (mesh, axes_of(mesh)))
     got = full_params(state.params)
     if world == 1:
@@ -112,4 +124,12 @@ def test_solvers_over_nccl_match_single_device(world, tmp_path):
 
 def test_sharded_train_step_matches_the_plain_step(world, tmp_path):
     for r in run_ranks(train_on_the_card, world, tmp_path, device="cuda"):
+        assert all(r.values()), r
+
+
+@pytest.mark.parametrize("orientation", ["data", "model"])
+@pytest.mark.parametrize("arch", ["multitask_lm", "mixtral_8x22b"])
+def test_tensor_parallel_step_matches_the_plain_step(world, tmp_path, arch, orientation):
+    for r in run_ranks(train_on_the_card, world, tmp_path, arch, ("data", None, "model"),
+                       orientation, device="cuda"):
         assert all(r.values()), r

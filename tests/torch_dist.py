@@ -151,3 +151,133 @@ def train_step(rank, world, ref_path, num_tasks):
     return {"loss": float(metrics["loss"]),
             "params": {k: _np(v) for k, v in params.items()},
             "placements": {k: repr(tuple(p.placements)) for k, p in state.params.items()}}
+
+
+TP_SPEC = ("data", None, "model")
+
+
+def tp_config(arch: str, fsdp_gather_moe: bool = False, **overrides):
+    """The smoke config of ``arch`` for the 2 x 2 tensor-parallel tests:
+    two tasks, one MoE dispatch group per data rank, the residual stream
+    and the logits constrained to (data, None, model); ``overrides``: other
+    fields (e.g. a head count the model ranks do not divide)."""
+    import dataclasses
+
+    from repro_torch.configs import get
+
+    return dataclasses.replace(get(arch, smoke=True), num_tasks=2, moe_groups=2,
+                               fsdp_gather_moe=fsdp_gather_moe, activation_sharding=TP_SPEC,
+                               logits_sharding=TP_SPEC, **overrides)
+
+
+def tp_batch(cfg, seed: int = 0) -> dict:
+    """A (4, 32) batch of the tensor-parallel tests, two rows per task."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 32), dtype=np.int64)),
+            "labels": torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 32), dtype=np.int64)),
+            "task_ids": torch.as_tensor(np.asarray([0, 0, 1, 1], np.int64))}
+
+
+def tp_model(cfg, params_path=None):
+    """The model of the tensor-parallel tests on the CPU: seed 0, or the
+    JAX weights pickled at ``params_path``."""
+    from repro_torch.convert import load_numpy_params
+    from repro_torch.models import TransformerLM
+
+    model = TransformerLM(cfg, device="cpu", seed=0)
+    if params_path is not None:
+        with open(params_path, "rb") as f:
+            model = load_numpy_params(model, pickle.load(f))
+    return model
+
+
+def tp_optimizer(name: str):
+    from repro_torch.optim import adamw, sgd
+
+    return sgd(1e-2) if name == "sgd" else adamw(3e-4)
+
+
+def tp_step(rank, world, arch, opt_name, fsdp_gather_moe, params_path, overrides=None):
+    """One step of ``arch``'s smoke model through ``sharding.sharded_step``
+    on a 2 x 2 mesh (tensor-parallel), under the dry run's recorder: the
+    loss, the updated parameters as full tensors, this rank's product
+    FLOPs and collectives, and each parameter's fsdp-gathered local shape
+    with the model axis' size."""
+    from repro_torch.core import GraphMultiTask, band_graph
+    from repro_torch.launch.dryrun import mesh_groups, record
+    from repro_torch.launch.mesh import axes_of, make_smoke_mesh
+    from repro_torch.sharding import full_params, shard_batch, shard_state, sharded_step
+    from repro_torch.train import init_state, make_train_step
+
+    cfg = tp_config(arch, fsdp_gather_moe, **(overrides or {}))
+    model = tp_model(cfg, params_path)
+    opt = tp_optimizer(opt_name)
+    step = make_train_step(model, opt, GraphMultiTask(band_graph(2, 1), eta=0.1, tau=1.0))
+    mesh = make_smoke_mesh(device="cpu")
+    axes = axes_of(mesh)
+    state = shard_state(model, init_state(model, opt), mesh, axes)
+    batch = shard_batch(tp_batch(cfg), mesh, axes)
+    run = sharded_step(model, step)
+    (state, metrics), _, rec = record(lambda: run(state, batch), (state, batch),
+                                      mesh_groups(mesh))
+    gathered = {}
+    for k, p in state.params.items():
+        shape = list(p.to_local().shape)
+        for i, pl in enumerate(p.placements):
+            if mesh.mesh_dim_names[i] != "model" and pl.is_shard():
+                shape[pl.dim] = p.shape[pl.dim]
+        gathered[k] = (tuple(p.shape), tuple(shape))
+    return {"loss": float(metrics["loss"]), "flops": rec.flops,
+            "collectives": [(c["kind"], c["axis"], c["shape"]) for c in rec.collectives],
+            "gathered": gathered,
+            "params": {k: _np(v) for k, v in full_params(state.params).items()}}
+
+
+def tp_decode(rank, world, overrides, seq):
+    """One decode_step of the olmo_1b smoke model (``overrides`` applied)
+    on a 2 x 2 mesh: parameters in the rules' placements, gathered over
+    fsdp, caches of ``seq`` rows in the cache rules' layout (kv heads on the
+    model axis, or the sequence where they do not divide it), filled from a
+    seed; the logits and the written caches as full arrays."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.mesh import axes_of, make_smoke_mesh
+    from repro_torch.sharding import cache_specs, fsdp_gathered, placements, shard_state
+    from repro_torch.train.trainer import TrainState
+
+    cfg = tp_config("olmo_1b", **(overrides or {}))
+    model = tp_model(cfg)
+    mesh = make_smoke_mesh(device="cpu")
+    axes = axes_of(mesh)
+    caches = tp_caches(model, seq)
+    specs = cache_specs(cfg, caches, axes)
+    shard_state(model, TrainState(dict(model.named_parameters()), (), 0), mesh, axes)
+    dcaches = [tuple(distribute_tensor(t, mesh, placements(sp, mesh)) for t, sp in zip(e, es))
+               for e, es in zip(caches, specs)]
+    batch, pos = tp_decode_inputs(cfg, seq)
+    with fsdp_gathered(model), implicit_replication():
+        logits, _ = model.decode_step(batch, dcaches, pos)
+    return {"logits": _np(logits.full_tensor()),
+            "caches": [[_np(t.full_tensor()) for t in e] for e in dcaches],
+            "cache_placements": [repr(tuple(t.placements)) for t in dcaches[0]]}
+
+
+def tp_caches(model, seq):
+    """Seeded (B=4, seq) caches of ``model``."""
+    import torch
+
+    g = torch.Generator().manual_seed(1)
+    return [tuple(torch.randn(t.shape, generator=g) for t in e) for e in model.init_cache(4, seq)]
+
+
+def tp_decode_inputs(cfg, seq):
+    import torch
+
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 1))),
+             "task_ids": torch.as_tensor(np.asarray([0, 1, 1, 0]))}
+    return batch, torch.as_tensor(np.asarray([3, seq // 2 + 5, seq - 1, 0], np.int32))

@@ -215,10 +215,11 @@ Phases; each raises on failure, and then no result line is printed:
                 line.
 
  12. hybrid   — run after phase 11, every earlier model freed: Zamba2-7B at
-                full width and depth (81 layers: 68 mamba2 layers and 13
-                invocations of ONE shared attention + MLP block; d_model
-                3584, 32 heads of hd 112, ssm_state 64, vocab 32000; 5.74 B
-                params, ~23 GB of f32 weights, nothing cut), random weights
+                full width and HYBRID_LAYERS of its 81 layers (45: 7 of its
+                13 periods of 5 mamba2 layers and an invocation of ONE
+                shared attention + MLP block, then its 3-layer remainder;
+                d_model 3584, 32 heads of hd 112, ssm_state 64, vocab
+                32000; depth is the only cut), random weights
                 from seed 0, max_seq 2048, prefill chunk 32, 4 slots:
                 (a) 6 requests of 64, 150, 350, 600, 128 and 295 prompt
                 tokens (HYBRID_LENS, which phases 13-16 serve too), 16 new
@@ -238,11 +239,11 @@ Phases; each raises on failure, and then no result line is printed:
                 preemption over 2 slots: a 700-token hog (64 new,
                 priority 10) and a 413-token request (16 new, priority 0)
                 in a 1024-token pool: one swap-out (the hog's pages and its
-                68 layers' recurrent columns) and one swap-in, tokens ==
+                mamba layers' recurrent columns) and one swap-in, tokens ==
                 a 4096-token pool's, caches unmoved; (e) 2 SGD steps with
                 the graph-mixed update on the same model at full width and
-                depth (the depth cut, and the cut logged, only if the step
-                would pass 75 GB), batch 2 x 256, remat on: finite loss,
+                the phase's depth (cut further, and the cut logged, only if
+                the step would pass 75 GB), batch 2 x 256, remat on: finite loss,
                 a_log, dt_bias, conv_w and the shared block's weights moved,
                 ms per step and peak memory logged; then a 2-layer Zamba2 at
                 full width (a mamba2 layer and the shared block): the
@@ -269,9 +270,10 @@ Phases; each raises on failure, and then no result line is printed:
                 width, batch 2 x 256: finite loss and aux, aux > 0, the
                 router, task.router_bias and w_uk moved; ms per step, peak
                 memory. Logs one {"mla": ...} JSON line.
- 14. xlstm    — run after phase 13: xLSTM-350M whole (24 layers = 3 x (7
-                mLSTM + 1 sLSTM), d_model 1024, 4 heads, vocab 50304;
-                519 M parameters, f32, nothing cut), the same 6 requests
+ 14. xlstm    — run after phase 13: xLSTM-350M at full width and
+                XLSTM_LAYERS of its 24 layers (16 = 2 of its 3 periods of
+                7 mLSTM + 1 sLSTM; d_model 1024, 4 heads, vocab 50304; f32,
+                depth is the only cut), the same 6 requests
                 over 4 slots: (a) graphs and eager: no attention-kernel
                 launch, graph tokens == eager tokens, step logits within
                 1e-5, requests 4 and 5 (admitted into reused slots) ==
@@ -281,8 +283,8 @@ Phases; each raises on failure, and then no result line is printed:
                 counted (2 + 2 per update), zero store == no store, the
                 store's trees == a plain store's; (c) a profile of 8 graph
                 decode ticks against the byte bound (the weights once, the
-                4 x 21 mLSTM states read and written); (d) one SGD step at
-                full width and depth, batch 2 x 128, remat on: finite
+                mLSTM states read and written); (d) one SGD step at
+                full width and the phase's depth, batch 2 x 128, remat on: finite
                 loss, ms per step, peak memory; (e) one step of the same
                 model, weights and batch with xlstm_parallel=True (the
                 chunkwise-parallel mLSTM, chunk 64): its loss within 1e-4
@@ -404,13 +406,29 @@ Phases; each raises on failure, and then no result line is printed:
                 plain step's weights kept on the host); (d) the same on a
                 (1, W) mesh with the residual stream and the logits
                 constrained to DIST_TP_SPEC (tensor-parallel over the model
-                axis; at W = 1 plumbing); (e) in a process of its own (a
-                fake process group, never beside the NCCL ranks): the dry
-                run (repro_torch.launch.dryrun) of DIST_DRYRUN on the 16 x
-                16 mesh, each logged as a {"dryrun": ...} JSON line, and of
-                (c)'s step on a (1, 1) fake mesh, whose argument_bytes +
-                temp_bytes must lie within DIST_MEMORY_RTOL of (c)'s
-                measured peak. Logs one {"distributed": ...} JSON line.
+                axis; at W = 1 plumbing), and then for each family of
+                DIST_TP_FAMILIES (DeepSeek-V2 one layer, Pixtral and
+                MusicGen two, full width, each at its own phase's SGD
+                steps and batch): the plain step, then the tensor-parallel
+                one from the same weights, the same limits (CUDA's float
+                atomics made deterministic, so W = 1 compares bit for bit);
+                (e) in a process of its own running beside the ranks (a
+                fake process group on the host, two torch threads): the
+                dry run (repro_torch.launch.dryrun) of
+                DIST_DRYRUN on the 16 x 16 mesh (with Mixtral's long_500k,
+                DeepSeek-V2's, Pixtral's and MusicGen's decode_32k), each
+                logged as a {"dryrun": ...} JSON line with its host
+                seconds, and of (c)'s step on a (1, 1) fake mesh, whose
+                argument_bytes + temp_bytes must lie within
+                DIST_MEMORY_RTOL of (c)'s measured peak; (f) for each
+                family of DIST_SERVE (Mixtral two layers, DeepSeek-V2 one,
+                Pixtral and MusicGen two; full width, plain attention): one
+                16-token prefill chunk and DIST_SERVE_TICKS greedy decode
+                ticks on 8192-row caches (deterministic, as (d)), served plain and then
+                tensor-parallel on DTensor caches in the cache rules'
+                layout on a (1, W) mesh: every step's logits and the caches
+                within DIST_TOL, the same greedy tokens. Logs one
+                {"distributed": ...} JSON line.
 
 Output: the card's name and power limit first, per-phase lines, the
 {"paper": ...}, {"experiments": ...}, {"distributed": ...}, {"serve_rates": ...},
@@ -2924,6 +2942,10 @@ def phase_moe(torch, np, tr, get, TransformerLM, ServeEngine, ContinuousBatcher,
 
 # ------------------------------------------------- phase 12: the hybrid
 HYBRID_MAX_SEQ = 2048
+# Zamba2-7B's depth in phase 12: 7 of its 13 periods of 6 and its 3-layer
+# remainder stage (every stage kept; cut from 81 layers to keep the smoke
+# inside its time limit as phase 19 grew)
+HYBRID_LAYERS = 45
 # 6 over 4 slots: requests 4 and 5 reuse slots. Halved from 64..1200 to keep
 # the whole smoke inside its 1200 s budget as phase 19 grew: the eager
 # cells of phases 12-16 prefill these prompts at 100-460 tok/s
@@ -3084,8 +3106,8 @@ def phase_hybrid_train(torch, np, tr, model, smi, dev="cuda"):
         model.to("meta")  # the serving model's memory, before the shallower one's
         model = tr["TransformerLM"](cfg, device=dev, seed=0)
     else:
-        log(f"hybrid train (e): full depth ({cfg.num_layers} layers), the step needs "
-            f"~{est:.1f} GB of {HYBRID_TRAIN_PEAK_GB}: no cut")
+        log(f"hybrid train (e): the served model's depth ({cfg.num_layers} layers), the step "
+            f"needs ~{est:.1f} GB of {HYBRID_TRAIN_PEAK_GB}: no further cut")
     opt = tr["sgd"](HYBRID_TRAIN["lr"])
     gmt = tr["GraphMultiTask"](tr["band_graph"](cfg.num_tasks, 1), eta=TRAIN_ETA,
                                tau=TRAIN_TAU)
@@ -3146,18 +3168,20 @@ def phase_hybrid_train(torch, np, tr, model, smi, dev="cuda"):
 
 def phase_hybrid(torch, np, tr, get, TransformerLM, ServeEngine, ContinuousBatcher, Request,
                  PagingSpec, ops, smi, dev="cuda"):
-    """Phase 12: Zamba2-7B at full width and depth (see the docstring).
+    """Phase 12: Zamba2-7B at full width and HYBRID_LAYERS deep (see the
+    docstring).
     ``dev`` "cpu" rehearses it off the card (a smoke config through
     ``get``, the card's calls patched)."""
     t_phase = time.perf_counter()
     free_card(torch)
     out = {"memory_mb_before": log_memory(torch, "hybrid (before)")}
     t1 = time.perf_counter()
-    model = TransformerLM(get("zamba2_7b"), device=dev, seed=0)
+    cfg = get("zamba2_7b")
+    cfg = dataclasses.replace(cfg, num_layers=min(HYBRID_LAYERS, cfg.num_layers))
+    model = TransformerLM(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
-    cfg = model.cfg
     out["params"] = sum(p.numel() for p in model.parameters())
-    log(f"hybrid: Zamba2-7B full width and depth ({cfg.num_layers} layers: "
+    log(f"hybrid: Zamba2-7B full width, {cfg.num_layers} of 81 layers ("
         f"{model.kinds.count('mamba')} mamba, {model.kinds.count('shared_attn')} invocations "
         f"of one shared block; {out['params']} params, f32, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB) initialised in "
@@ -3299,6 +3323,9 @@ def phase_mla(torch, np, tr, get, TransformerLM, ServeEngine, ContinuousBatcher,
 
 # -------------------------------------------------------- phase 14: xLSTM
 XLSTM_MAX_SEQ = 2048
+# xLSTM-350M's depth in phase 14: 2 of its 3 periods of (7 mLSTM + 1 sLSTM)
+# (cut from 24 layers, as HYBRID_LAYERS)
+XLSTM_LAYERS = 16
 XLSTM_LENS = HYBRID_LENS
 XLSTM_REUSED = HYBRID_REUSED
 XLSTM_PROFILE_LENS = HYBRID_PROFILE_LENS
@@ -3374,7 +3401,7 @@ def xlstm_adapters(torch, np, model, ServeEngine, ContinuousBatcher, Request,
 
 def phase_xlstm(torch, np, tr, get, TransformerLM, ServeEngine, ContinuousBatcher, Request,
                 TaskAdapterStore, band_graph, tree_lib, ops, smi, dev="cuda"):
-    """Phase 14: xLSTM-350M whole, served with CUDA graphs and eagerly,
+    """Phase 14: xLSTM-350M XLSTM_LAYERS deep, served with CUDA graphs and eagerly,
     under an adapter store, profiled and trained (see the docstring).
     ``dev`` "cpu" rehearses it off the card (a smoke config through
     ``get``, the card's calls patched)."""
@@ -3382,11 +3409,12 @@ def phase_xlstm(torch, np, tr, get, TransformerLM, ServeEngine, ContinuousBatche
     free_card(torch)
     out = {"memory_mb_before": log_memory(torch, "xlstm (before)")}
     t1 = time.perf_counter()
-    model = TransformerLM(get("xlstm_350m"), device=dev, seed=0)
+    cfg = get("xlstm_350m")
+    cfg = dataclasses.replace(cfg, num_layers=min(XLSTM_LAYERS, cfg.num_layers))
+    model = TransformerLM(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
-    cfg = model.cfg
     out["params"] = sum(p.numel() for p in model.parameters())
-    log(f"xlstm: xLSTM-350M full width and depth ({cfg.num_layers} layers: "
+    log(f"xlstm: xLSTM-350M full width, {cfg.num_layers} of 24 layers ("
         f"{model.kinds.count('mlstm')} mLSTM, {model.kinds.count('slstm')} sLSTM; d_model "
         f"{cfg.d_model}, {cfg.num_heads} heads; {out['params']} params, f32, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB) initialised in "
@@ -3711,7 +3739,7 @@ def phase_analysis_spawned(torch, smi):
 
 
 # ------------------------------------------------ phase 19: the distributed layer
-DIST_TIMEOUT_S = 150  # the spawned ranks' hard limit: past it the smoke fails
+DIST_TIMEOUT_S = 300  # the spawned ranks' hard limit: past it the smoke fails
 DIST_TOL = 1e-5
 DIST_SEED = 0
 DIST_MIX = {"d": 4096, "eta": 0.5, "tau": 2.0, "alpha": 0.04}
@@ -3720,7 +3748,22 @@ DIST_SYNC_ITERS = (10, 40)  # host syncs per sharded call must be the same at bo
 DIST_TRAIN = {"batch": 32, "seq": 256, "steps": 3}  # phase 10(b)'s shape
 DIST_TP_SPEC = ("data", None, "model")  # 19(d): the residual stream and the logits
 DIST_MEMORY_RTOL = 0.25  # 19(e): the dry run's step memory against 19(c)'s measured peak
-DIST_DRYRUN = (("olmo_1b", "decode_32k"), ("multitask_lm", "train_4k"))  # at 16 x 16
+DIST_DRYRUN = (("olmo_1b", "decode_32k"), ("multitask_lm", "train_4k"),  # at 16 x 16
+               ("mixtral_8x22b", "long_500k"), ("deepseek_v2_236b", "decode_32k"),
+               ("pixtral_12b", "decode_32k"), ("musicgen_large", "decode_32k"))
+# 19(d): the other attention families' tensor-parallel train step, each at
+# its own phase's depth and batch (SGD, as there)
+DIST_TP_FAMILIES = (("deepseek_v2_236b", 1, MLA_TRAIN),
+                    ("pixtral_12b", VLM_TRAIN_LAYERS, VLM_TRAIN),
+                    ("musicgen_large", 2, AUDIO_TRAIN))
+# 19(f): tensor-parallel serving on DTensor caches, full width at these depths
+DIST_SERVE = (("mixtral_8x22b", 2), ("deepseek_v2_236b", 1), ("pixtral_12b", 2),
+              ("musicgen_large", 2))
+DIST_SERVE_SEQ = 8192  # cache rows: past Mixtral's 4096-token window
+DIST_SERVE_CHUNK = 16
+DIST_SERVE_START = (3, 4500, DIST_SERVE_SEQ - DIST_SERVE_CHUNK - 9, 0)
+DIST_SERVE_LENS = (DIST_SERVE_CHUNK, 10, DIST_SERVE_CHUNK, 5)  # each slot's valid prefix
+DIST_SERVE_TICKS = 8
 
 
 def dist_close(got, want):
@@ -3796,12 +3839,28 @@ def dist_solvers(torch, np, rank, world, dev, record):
                                  f"the iterations: {sites}")
 
 
-def dist_sharded(torch, tr, cfg, mesh_shape, dev, timed, want, plain):
+def dist_timed(torch, step, state, batches, shard=None):
+    """``step`` over ``batches`` (each through ``shard`` first): the final
+    state and the losses, ms a step and peak memory."""
+    losses, ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b if shard is None else shard(b))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    return state, {"losses": losses, "ms_per_step": ms,
+                   "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 1e6}
+
+
+def dist_sharded(torch, tr, cfg, mesh_shape, dev, batches, want, plain, steps):
     """One sharded run of 19(c) / (d): the model of ``cfg`` from seed 0 on
     a ``mesh_shape`` (data, model) mesh, sharded in the rules' placements,
-    stepped by ``sharding.sharded_step`` over the phase's batches; its
-    record against the plain step's (``want``: the plain step's updated
-    parameters, on the host)."""
+    stepped by ``sharding.sharded_step`` (``steps(model)``: the step and its
+    state) over ``batches``; its record against the plain step's
+    (``want``: the plain step's updated parameters, on the host)."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.launch.mesh import axes_of, make_mesh
@@ -3819,15 +3878,19 @@ def dist_sharded(torch, tr, cfg, mesh_shape, dev, timed, want, plain):
     mesh = make_mesh(*mesh_shape, device=dev.type)
     axes = axes_of(mesh)
     specs = param_specs(cfg, dict(model.named_parameters()), axes)
-    step, state = train_steps(tr, model)
+    step, state = steps(model)
     state = shard_state(model, state, mesh, axes)
-    state, rec = timed(sharded_step(model, step), state, lambda b: shard_batch(b, mesh, axes))
+    state, rec = dist_timed(torch, sharded_step(model, step), state, batches,
+                            lambda b: shard_batch(b, mesh, axes))
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"], plain["losses"]))
-    got = {k: v.cpu() for k, v in full_params(state.params).items()}
-    param_rel = max(((got[k] - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
-                    for k, v in want.items())
-    norm_rel = max(abs(got[k].norm().item() / max(v.norm().item(), 1e-30) - 1.0)
-                   for k, v in want.items())
+    got = full_params(state.params)
+    param_rel = norm_rel = 0.0
+    for k, v in want.items():  # on the card, one leaf at a time
+        w = v.to(dev)
+        param_rel = max(param_rel, ((got[k] - w).abs().max()
+                                    / w.abs().max().clamp_min(1e-30)).item())
+        norm_rel = max(norm_rel, abs(got[k].norm().item() / max(w.norm().item(), 1e-30) - 1.0))
+        del w
     bad = [k for k, p in state.params.items() if k.startswith("task.")
            and not (isinstance(p, DTensor)
                     and tuple(p.placements) == placements(specs[k], mesh))]
@@ -3839,11 +3902,47 @@ def dist_sharded(torch, tr, cfg, mesh_shape, dev, timed, want, plain):
     return rec
 
 
+@contextlib.contextmanager
+def dist_deterministic(torch):
+    """Inside, ``torch.use_deterministic_algorithms``: CUDA's float atomics
+    (the MoE combine's scatter_add_ of DeepSeek-V2's top-6 terms, the
+    backward's embedding and index gradients) sum in a fixed order, so a
+    run repeats bit for bit and the plain and tensor-parallel runs of 19(d)
+    and (f) compare exactly at W = 1 (``dist_rank`` sets cuBLAS's workspace
+    for it)."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def dist_check(label, key, rank, world, r):
+    """A sharded run's record against the plain step: over one rank the
+    plain step's arithmetic, so every element must agree; over several
+    the gradients sum in another order, and AdamW turns a near-zero
+    gradient's rounding into a step of up to lr either way: there each
+    leaf's norm is held (the rule of phase 10 and of the CPU tests against
+    JAX)."""
+    params_ok = (r["param_max_rel_err"] if world == 1
+                 else r["param_norm_max_rel_err"]) <= DIST_TOL
+    if not (r["loss_max_rel_err"] <= DIST_TOL and params_ok):
+        raise AssertionError(
+            f"distributed ({label}): rank {rank}: the {key} step is "
+            f"{r['loss_max_rel_err']:.3e} (losses), {r['param_max_rel_err']:.3e} "
+            f"(parameters), {r['param_norm_max_rel_err']:.3e} (parameter norms) from the "
+            "plain step")
+    if r["bad_task_placements"]:
+        raise AssertionError(f"distributed ({label}): rank {rank}: task leaves off their "
+                             f"placements: {r['bad_task_placements']}")
+
+
 def dist_train(torch, np, rank, world, dev, smi, record):
     """19(c) and (d) on this rank: the plain step, then the sharded step
     on a (world, 1) mesh and the tensor-parallel one on a (1, world) mesh,
-    each from the same weights and batches. The plain step's updated
-    weights wait on the host, so a sharded run's peak is its own step's."""
+    each from the same weights and batches; then (d) for each family of
+    DIST_TP_FAMILIES. The plain step's updated weights wait on the host,
+    so a sharded run's peak is its own step's."""
     from repro_torch import optim
     from repro_torch import train as trainer
     from repro_torch.configs import get
@@ -3852,29 +3951,16 @@ def dist_train(torch, np, rank, world, dev, smi, record):
     from repro_torch.launch.train import model_inputs
     from repro_torch.models import TransformerLM
 
-    tr = {"adamw": optim.adamw, "GraphMultiTask": GraphMultiTask, "band_graph": band_graph,
-          "make_train_step": trainer.make_train_step, "init_state": trainer.init_state,
-          "TokenPipeline": TokenPipeline, "model_inputs": model_inputs}
+    tr = {"adamw": optim.adamw, "sgd": optim.sgd, "GraphMultiTask": GraphMultiTask,
+          "band_graph": band_graph, "make_train_step": trainer.make_train_step,
+          "init_state": trainer.init_state, "TokenPipeline": TokenPipeline,
+          "model_inputs": model_inputs}
     cfg, sp = get("multitask_lm"), DIST_TRAIN
     batches = [trainer.batch_to_device(b, dev)
                for b in train_batches(tr, cfg, sp["batch"], sp["seq"], sp["steps"])]
-
-    def timed(step, state, shard=None):
-        losses, ms = [], []
-        torch.cuda.reset_peak_memory_stats()
-        for b in batches:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, m = step(state, b if shard is None else shard(b))
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            losses.append(float(m["loss"]))
-        return state, {"losses": losses, "ms_per_step": ms,
-                       "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 1e6}
-
     plain_model = TransformerLM(cfg, device=dev, seed=0)
     step, state = train_steps(tr, plain_model)
-    state, plain = timed(step, state)
+    state, plain = dist_timed(torch, step, state, batches)
     want = {k: v.detach().cpu() for k, v in plain_model.named_parameters()}
     del plain_model, step, state
     free_card(torch)
@@ -3883,7 +3969,8 @@ def dist_train(torch, np, rank, world, dev, smi, record):
     runs = {}
     for key, run_cfg, shape in (("sharded", cfg, (world, 1)), ("tensor_parallel", tp_cfg,
                                                               (1, world))):
-        runs[key] = dist_sharded(torch, tr, run_cfg, shape, dev, timed, want, plain)
+        runs[key] = dist_sharded(torch, tr, run_cfg, shape, dev, batches, want, plain,
+                                 lambda m: train_steps(tr, m))
         free_card(torch)
     record["train"] = {"params": sum(v.numel() for v in want.values()), "tasks": cfg.num_tasks,
                        "plain": plain, **runs, "device": smi}
@@ -3905,32 +3992,182 @@ def dist_train(torch, np, rank, world, dev, smi, record):
                 f"torch.cuda.max_memory_allocated {r['max_memory_allocated_mb']:.1f} MB, plain "
                 f"{plain['max_memory_allocated_mb']:.1f} MB; task leaves "
                 f"{r['task_placements']}; {smi}")
-    # one rank runs the plain step's arithmetic, so every element must
-    # agree; over several the gradients sum in another order, and AdamW
-    # turns a near-zero gradient's rounding into a step of up to lr either
-    # way: there each leaf's norm is held (the rule of phase 10 and of the
-    # CPU tests against JAX)
     for label, key in (("c", "sharded"), ("d", "tensor_parallel")):
-        r = runs[key]
-        params_ok = (r["param_max_rel_err"] if world == 1
-                     else r["param_norm_max_rel_err"]) <= DIST_TOL
-        if not (r["loss_max_rel_err"] <= DIST_TOL and params_ok):
-            raise AssertionError(
-                f"distributed ({label}): rank {rank}: the {key} step is "
-                f"{r['loss_max_rel_err']:.3e} (losses), {r['param_max_rel_err']:.3e} "
-                f"(parameters), {r['param_norm_max_rel_err']:.3e} (parameter norms) from the "
-                "plain step")
-        if r["bad_task_placements"]:
-            raise AssertionError(f"distributed ({label}): rank {rank}: task leaves off their "
-                                 f"placements: {r['bad_task_placements']}")
+        dist_check(label, key, rank, world, runs[key])
+    with dist_deterministic(torch):
+        record["train"]["families"] = {
+            arch: dist_family_train(torch, tr, trainer, get, rank, world, dev, smi, arch, layers,
+                                    mt)
+            for arch, layers, mt in DIST_TP_FAMILIES}
 
 
-def dist_dryrun(tmp, measured_mb, smi):
-    """19(e), in a process of its own (its fake process group never meets
-    the NCCL ranks): the dry run of DIST_DRYRUN on the 16 x 16 mesh, and of
+def dist_family_train(torch, tr, trainer, get, rank, world, dev, smi, arch, layers, mt):
+    """19(d) for one more family: ``arch`` at full width and ``layers``
+    layers, its own phase's SGD steps and batch (``mt``), plain and then
+    tensor-parallel on a (1, world) mesh (residual stream and logits
+    constrained to DIST_TP_SPEC), from the same weights and batches."""
+    from repro_torch.models import TransformerLM
+
+    cfg = dataclasses.replace(get(arch), num_layers=layers)
+    batches = [trainer.batch_to_device(b, dev)
+               for b in train_batches(tr, cfg, mt["batch"], mt["seq"], mt["steps"])]
+
+    def steps(model):
+        opt = tr["sgd"](mt["lr"])
+        gmt = tr["GraphMultiTask"](tr["band_graph"](cfg.num_tasks, 1), eta=TRAIN_ETA,
+                                   tau=TRAIN_TAU)
+        return tr["make_train_step"](model, opt, gmt), tr["init_state"](model, opt)
+
+    t0 = time.perf_counter()
+    model = TransformerLM(cfg, device=dev, seed=0)
+    step, state = steps(model)
+    state, plain = dist_timed(torch, step, state, batches)
+    want = {k: v.detach().cpu() for k, v in model.named_parameters()}
+    del model, step, state
+    free_card(torch)
+    tp_cfg = dataclasses.replace(cfg, activation_sharding=DIST_TP_SPEC,
+                                 logits_sharding=DIST_TP_SPEC)
+    r = dist_sharded(torch, tr, tp_cfg, (1, world), dev, batches, want, plain, steps)
+    free_card(torch)
+    r.update(plain=plain, layers=layers, params=sum(v.numel() for v in want.values()),
+             seconds=time.perf_counter() - t0)
+    if rank == 0:
+        log(f"distributed (d): {cfg.name} full width, {layers} layer(s) ({r['params']} params, "
+            f"SGD lr {mt['lr']}, the mix over band_graph({cfg.num_tasks}, 1)), {mt['steps']} "
+            f"steps of {mt['batch']} x {mt['seq']} tensor-parallel on a {tuple(r['mesh'])} "
+            f"mesh, residual stream and logits constrained to {DIST_TP_SPEC}: losses "
+            f"{r['losses']} against the plain step's {plain['losses']}; max relative error "
+            f"of losses {r['loss_max_rel_err']:.3e}, of parameters "
+            f"{r['param_max_rel_err']:.3e}, of parameter norms "
+            f"{r['param_norm_max_rel_err']:.3e} (limit {DIST_TOL}); ms a step "
+            f"{[round(t, 2) for t in r['ms_per_step']]}, plain "
+            f"{[round(t, 2) for t in plain['ms_per_step']]}; peak "
+            f"torch.cuda.max_memory_allocated {r['max_memory_allocated_mb']:.1f} MB, plain "
+            f"{plain['max_memory_allocated_mb']:.1f} MB; {r['seconds']:.1f} s; {smi}")
+    dist_check("d", f"{arch} tensor-parallel", rank, world, r)
+    return r
+
+
+def dist_serve_run(torch, np, model, caches, cfg, dev):
+    """19(f)'s serving run on ``caches``: ``prefill_step`` of one (4,
+    DIST_SERVE_CHUNK) chunk at DIST_SERVE_START (valid prefixes
+    DIST_SERVE_LENS; a VLM's with seeded vision rows, an audio model's (B,
+    C, K) tokens), then DIST_SERVE_TICKS greedy ``decode_step`` ticks, one
+    lane dead on the third. Returns every step's logits ((B, 1, V) or (B,
+    1, K, V), on the host), the greedy tokens and the seconds."""
+    rng = np.random.default_rng(DIST_SEED)
+    b, c = len(DIST_SERVE_START), DIST_SERVE_CHUNK
+    lead = (b, c) + ((cfg.num_codebooks,) if cfg.input_mode == "audio" else ())
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, lead), device=dev),
+             "task_ids": torch.arange(b, device=dev) % cfg.num_tasks}
+    if cfg.input_mode == "vlm":
+        batch["vision_embeds"] = torch.as_tensor(
+            rng.standard_normal((b, c, cfg.d_model)).astype(np.float32), device=dev)
+        batch["vision_mask"] = torch.as_tensor(rng.random((b, c)) < 0.3, device=dev)
+    valid = torch.as_tensor(np.arange(c)[None, :] < np.asarray(DIST_SERVE_LENS)[:, None],
+                            device=dev)
+    pos = torch.as_tensor(np.asarray(DIST_SERVE_START, np.int32), device=dev)
+    vocab = ((cfg.num_codebooks, cfg.vocab_size) if cfg.num_codebooks > 1
+             else (cfg.vocab_size,))
+
+    def host(t):
+        t = t.full_tensor() if hasattr(t, "full_tensor") else t
+        return t.reshape(t.shape[:2] + vocab).cpu()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = model.prefill_step(batch, caches, pos, valid)
+    out, toks = [host(logits)], []
+    pos = pos + valid.sum(1).to(torch.int32)
+    for tick in range(DIST_SERVE_TICKS):
+        tok = out[-1].argmax(-1).to(dev)
+        toks.append(tok.cpu())
+        live = torch.ones(b, dtype=torch.bool, device=dev)
+        if tick == 2:
+            live[-1] = False
+        logits, _ = model.decode_step({"tokens": tok, "task_ids": batch["task_ids"]}, caches,
+                                      pos, live=live)
+        out.append(host(logits))
+        pos = pos + live.to(torch.int32)
+    torch.cuda.synchronize()
+    return out, toks, time.perf_counter() - t0
+
+
+def dist_serve_caches(torch, model, dev):
+    """Seeded (4, DIST_SERVE_SEQ) caches of ``model``: every row filled, so
+    the rows the run does not write hold keys too."""
+    g = torch.Generator(device=dev).manual_seed(DIST_SEED)
+    return [tuple(torch.randn(t.shape, generator=g, device=dev, dtype=t.dtype) for t in e)
+            for e in model.init_cache(len(DIST_SERVE_START), DIST_SERVE_SEQ)]
+
+
+def dist_serve(torch, np, rank, world, dev, smi, arch, layers):
+    """19(f) for one family: ``arch`` at full width and ``layers`` layers
+    (plain attention, the residual stream and logits constrained to
+    DIST_TP_SPEC), served plain, then, the same model's parameters placed
+    by the rules on a (1, world) mesh, tensor-parallel on DTensor caches
+    in the cache rules' layout (``sharding.shard_caches`` /
+    ``sharded_serving``): every step's logits and the caches within
+    DIST_TOL + DIST_TOL |plain| of the plain steps', the same greedy
+    tokens."""
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import axes_of, make_mesh
+    from repro_torch.models import TransformerLM
+    from repro_torch.sharding import shard_caches, shard_state, sharded_serving
+    from repro_torch.train.trainer import TrainState
+
+    cfg = dataclasses.replace(get(arch), num_layers=layers, attn_backend="plain",
+                              activation_sharding=DIST_TP_SPEC, logits_sharding=DIST_TP_SPEC)
+    model = TransformerLM(cfg, device=dev, seed=0)
+    caches = dist_serve_caches(torch, model, dev)
+    want, want_toks, plain_s = dist_serve_run(torch, np, model, caches, cfg, dev)
+    want_caches = [[t.cpu() for t in e] for e in caches]
+    again, _, _ = dist_serve_run(torch, np, model, dist_serve_caches(torch, model, dev), cfg, dev)
+    repeat_err = max((a - b).abs().max().item() for a, b in zip(again, want))
+    del caches
+    free_card(torch)
+    mesh = make_mesh(1, world, device=dev.type)
+    axes = axes_of(mesh)
+    shard_state(model, TrainState(dict(model.named_parameters()), (), 0), mesh, axes)
+    caches = shard_caches(cfg, dist_serve_caches(torch, model, dev), mesh, axes)
+    torch.cuda.reset_peak_memory_stats()
+    with sharded_serving(model):
+        got, got_toks, tp_s = dist_serve_run(torch, np, model, caches, cfg, dev)
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    close = [dist_close(a, b) for a, b in zip(got, want)]
+    cache_close = [dist_close(t.full_tensor().cpu(), w)
+                   for e, we in zip(caches, want_caches) for t, w in zip(e, we)]
+    err, cache_err = max(e for e, _ in close), max(e for e, _ in cache_close)
+    ok = all(o for _, o in close + cache_close)
+    same = all(torch.equal(a, b) for a, b in zip(got_toks, want_toks))
+    rec = {"layers": layers, "max_abs_err_logits": err, "max_abs_err_caches": cache_err,
+           "plain_repeat_max_abs_err": repeat_err,
+           "tokens_equal": same, "plain_s": plain_s, "tp_s": tp_s,
+           "max_memory_allocated_mb": peak,
+           "cache_placements": [repr(tuple(t.placements)) for t in caches[0]]}
+    del model, caches
+    free_card(torch)
+    if rank == 0:
+        log(f"distributed (f): {cfg.name} full width, {layers} layer(s), one {DIST_SERVE_CHUNK}"
+            f"-token prefill chunk at {list(DIST_SERVE_START)} and {DIST_SERVE_TICKS} greedy "
+            f"decode ticks on {DIST_SERVE_SEQ}-row caches, tensor-parallel on DTensor caches "
+            f"{rec['cache_placements']} over a (1, {world}) mesh against the plain steps: "
+            f"logits max abs err {err:.3e}, caches {cache_err:.3e} (limit {DIST_TOL} + "
+            f"{DIST_TOL} |plain|; a second plain run {repeat_err:.3e}), tokens "
+            f"equal {same}; {plain_s:.2f} s plain, {tp_s:.2f} s tensor-parallel, peak "
+            f"torch.cuda.max_memory_allocated {peak:.1f} MB; {smi}")
+    if not (ok and same):
+        raise AssertionError(f"distributed (f): rank {rank}: {arch}: {rec}")
+    return rec
+
+
+def dist_dryrun(tmp, smi):
+    """19(e), in a process of its own beside the ranks (its fake process
+    group never meets the NCCL ranks; two torch threads, the ranks keep
+    the rest): the dry run of DIST_DRYRUN on the 16 x 16 mesh, and of
     19(c)'s step (multitask-LM, 32 x 256, AdamW, f32) on a (1, 1) fake
-    mesh, whose argument_bytes + temp_bytes must lie within
-    DIST_MEMORY_RTOL of 19(c)'s measured peak. Writes tmp/dryrun.json."""
+    mesh, whose argument_bytes + temp_bytes ``phase_distributed`` holds to
+    19(c)'s measured peak. Writes tmp/dryrun.json."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
 
@@ -3939,11 +4176,13 @@ def dist_dryrun(tmp, measured_mb, smi):
     from repro_torch.launch.mesh import make_fake_mesh
     from repro_torch.launch.specs import InputShape
 
-    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    torch.set_num_threads(2)
     t0 = time.perf_counter()
     out = {"combos": {}}
     for arch, shape in DIST_DRYRUN:
+        t1 = time.perf_counter()
         r = dryrun.run_one(arch, shape, False, False, None)
+        r["host_s"] = time.perf_counter() - t1
         out["combos"][f"{arch}__{shape}"] = r
         log(json.dumps({"dryrun": r}))
     sp = DIST_TRAIN
@@ -3951,27 +4190,17 @@ def dist_dryrun(tmp, measured_mb, smi):
     step = dryrun.account(get("multitask_lm"), shape, make_fake_mesh(shape=(1, 1)),
                           dtype=torch.float32)
     mem = step["memory"]
-    predicted = (mem["argument_bytes"] + mem["temp_bytes"]) / 1e6
-    rel = abs(predicted - measured_mb) / measured_mb
-    out["step_1x1"] = dict(step, predicted_mb=predicted, measured_mb=measured_mb,
-                           rel_err=rel, device=smi)
+    out["step_1x1"] = dict(step, predicted_mb=(mem["argument_bytes"] + mem["temp_bytes"]) / 1e6,
+                           device=smi)
     out["seconds"] = time.perf_counter() - t0
-    log(f"distributed (e): dry run of 19(c)'s step on a (1, 1) fake mesh: argument_bytes "
-        f"{mem['argument_bytes'] / 1e6:.1f} MB + temp_bytes {mem['temp_bytes'] / 1e6:.1f} MB = "
-        f"{predicted:.1f} MB against the measured peak torch.cuda.max_memory_allocated "
-        f"{measured_mb:.1f} MB of 19(c): relative difference {rel:.3f} (limit "
-        f"{DIST_MEMORY_RTOL}); {step['cost']['flops']:.4e} FLOPs a step; the dry runs took "
-        f"{out['seconds']:.1f} s on the host; {smi}")
     with open(os.path.join(tmp, "dryrun.json"), "w") as f:
         json.dump(out, f)
-    if not rel <= DIST_MEMORY_RTOL:
-        raise AssertionError(f"distributed (e): the dry run's step memory {predicted:.1f} MB is "
-                             f"{rel:.3f} from the measured {measured_mb:.1f} MB")
 
 
 def dist_rank(rank, world, tmp, smi, device="cuda"):
     """One rank of phase 19, in its own process: joins the NCCL group on
-    cuda:rank, runs (a)-(d) and writes its record to tmp/rank<r>.json. Any
+    cuda:rank, runs (a)-(d) and (f) and writes its record to
+    tmp/rank<r>.json. Any
     failure raises, and its process exits non-zero. ``device`` "cpu"
     rehearses it over gloo (the card's calls patched)."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -3983,6 +4212,7 @@ def dist_rank(rank, world, tmp, smi, device="cuda"):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # dist_deterministic
     t0 = time.perf_counter()
     dev = init_distributed(rank, world, device=device,
                            store=dist.FileStore(os.path.join(tmp, "store"), world))
@@ -4001,6 +4231,9 @@ def dist_rank(rank, world, tmp, smi, device="cuda"):
                                                  if "ms" in v else "")
             for k, v in record.items() if isinstance(v, dict)))
     dist_train(torch, np, rank, world, dev, smi, record)
+    with dist_deterministic(torch):
+        record["serve"] = {arch: dist_serve(torch, np, rank, world, dev, smi, arch, layers)
+                           for arch, layers in DIST_SERVE}
     dist.destroy_process_group()
     record["seconds"] = time.perf_counter() - t0
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -4012,26 +4245,40 @@ def spawn_and_wait(mp, fn, args, nprocs, deadline, what, limit=None):
     joined until ``deadline`` (``time.perf_counter()``; ``limit``, its
     seconds for the message, DIST_TIMEOUT_S by default); past it, or if one
     fails, the smoke fails. Every process is stopped on the way out."""
-    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False, start_method="spawn")
+    spawn_all(mp, [(fn, args, nprocs, deadline, what, limit)])
+
+
+def spawn_all(mp, jobs):
+    """Every job's processes started together, then each job joined until
+    its deadline, as ``spawn_and_wait``; jobs: (fn, args, nprocs, deadline,
+    what, limit)."""
+    started = []
     try:
-        while not ctx.join(timeout=1.0):
-            if time.perf_counter() > deadline:
-                raise AssertionError(f"{what} ran past {limit or DIST_TIMEOUT_S} s")
+        for fn, args, nprocs, deadline, what, limit in jobs:
+            ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                                     start_method="spawn")
+            started.append((ctx, deadline, what, limit))
+        for ctx, deadline, what, limit in started:
+            while not ctx.join(timeout=1.0):
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"{what} ran past {limit or DIST_TIMEOUT_S} s")
     finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join()
+        for ctx, *_ in started:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
 
 
-def dist_dryrun_entry(_index, tmp, measured_mb, smi):
-    dist_dryrun(tmp, measured_mb, smi)
+def dist_dryrun_entry(_index, tmp, smi):
+    dist_dryrun(tmp, smi)
 
 
 def phase_distributed(torch, smi):
-    """Phase 19 (see the docstring): the ranks in their own processes, then
-    the dry run (19(e)) in another, each under DIST_TIMEOUT_S; returns rank
-    0's record with the dry run's."""
+    """Phase 19 (see the docstring): the ranks in their own processes and,
+    beside them, the dry run (19(e)) in another, each under
+    DIST_TIMEOUT_S; then (e)'s step memory against (c)'s measured peak.
+    Returns rank 0's record with the dry run's."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -4040,23 +4287,35 @@ def phase_distributed(torch, smi):
     world = torch.cuda.device_count()
     free_card(torch)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
-    spawn_and_wait(mp, dist_rank, (world, tmp, smi), world, t_phase + DIST_TIMEOUT_S,
-                   "distributed: the ranks")
+    deadline = t_phase + DIST_TIMEOUT_S
+    spawn_all(mp, [(dist_dryrun_entry, (tmp, smi), 1, deadline, "distributed: the dry run",
+                    None),
+                   (dist_rank, (world, tmp, smi), world, deadline, "distributed: the ranks",
+                    None)])
     records = []
     for r in range(world):
         with open(os.path.join(tmp, f"rank{r}.json")) as f:
             records.append(json.load(f))
-    measured = records[0]["train"]["sharded"]["max_memory_allocated_mb"]
-    t_dry = time.perf_counter()
-    spawn_and_wait(mp, dist_dryrun_entry, (tmp, measured, smi), 1, t_dry + DIST_TIMEOUT_S,
-                   "distributed: the dry run")
     with open(os.path.join(tmp, "dryrun.json")) as f:
         dry = json.load(f)
+    measured = records[0]["train"]["sharded"]["max_memory_allocated_mb"]
+    step = dry["step_1x1"]
+    mem, predicted = step["memory"], step["predicted_mb"]
+    rel = abs(predicted - measured) / measured
+    step.update(measured_mb=measured, rel_err=rel)
+    log(f"distributed (e): dry run of 19(c)'s step on a (1, 1) fake mesh: argument_bytes "
+        f"{mem['argument_bytes'] / 1e6:.1f} MB + temp_bytes {mem['temp_bytes'] / 1e6:.1f} MB = "
+        f"{predicted:.1f} MB against the measured peak torch.cuda.max_memory_allocated "
+        f"{measured:.1f} MB of 19(c): relative difference {rel:.3f} (limit "
+        f"{DIST_MEMORY_RTOL}); {step['cost']['flops']:.4e} FLOPs a step; the dry runs took "
+        f"{dry['seconds']:.1f} s on the host, beside the ranks; {smi}")
+    if not rel <= DIST_MEMORY_RTOL:
+        raise AssertionError(f"distributed (e): the dry run's step memory {predicted:.1f} MB is "
+                             f"{rel:.3f} from the measured {measured:.1f} MB")
     secs = time.perf_counter() - t_phase
     log(f"distributed: phase passed in {secs:.1f} s ({world} ranks; rank 0 "
         f"{records[0]['seconds']:.1f} s after its spawn, NCCL init "
-        f"{records[0]['init_s']:.1f} s; the dry run's process {time.perf_counter() - t_dry:.1f}"
-        " s)")
+        f"{records[0]['init_s']:.1f} s; the dry run {dry['seconds']:.1f} s beside them)")
     return dict(records[0], dryrun=dry, phase_seconds=secs)
 
 

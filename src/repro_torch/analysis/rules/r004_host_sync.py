@@ -57,10 +57,14 @@ STEP_FUNCTIONS = {
         "TransformerLM._run_layers", "TransformerLM._view", "TransformerLM._constrain",
     },
     "sharding/tensor_parallel.py": {"is_dtensor", "constrain", "tp_input", "split_ready",
-                                    "mean_last", "settle", "contiguous_grad", "embedding"},
+                                    "mean_last", "settle", "contiguous_grad", "embedding",
+                                    "_lookup", "whole", "match", "cached_attention",
+                                    "cache_write", "mla_cached_attention"},
     "models/attention.py": {"gqa_project", "masked_scores", "decode_attend", "cached_attend",
                             "_physical",
-                            "paged_cache_write", "paged_cache_write_slab", "mla_decode"},
+                            "paged_cache_write", "paged_cache_write_slab", "mla_decode",
+                            "_mla_absorb", "_mla_scores", "_mla_context", "_mla_values",
+                            "MLAParts.scores"},
     "models/layers.py": {"matmul", "rms_norm", "layer_norm", "nonparam_layer_norm",
                          "apply_norm", "rope_frequencies", "apply_rope", "silu", "gelu",
                          "apply_mlp", "freeze_dead_slots", "apply_task_lora"},

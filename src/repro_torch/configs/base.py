@@ -15,8 +15,10 @@ in-forward constraints ``fsdp_gather_moe``, ``activation_sharding`` and
 the logits are redistributed to the given ``Spec`` entries, and the MoE's
 expert weights are regathered with only their ff dim on the model axis.
 On plain tensors, and when left at None / False (the reference's
-defaults), they do nothing. ``unroll`` and ``long_context_ok`` are left
-out: no port path reads them. The backend
+defaults), they do nothing. ``long_context_ok`` marks the archs whose
+attention span is bounded (a sliding window, a recurrent state), the ones
+the dry run (``repro_torch.launch.dryrun``) also runs at ``long_500k``.
+``unroll`` is left out: no port path reads it. The backend
 flag ``attn_backend`` is the port's, and it selects every hand-written
 kernel, not only attention's: ``"kernel"`` serves attention from the CUDA
 attention kernels and mixes task adapters (``repro_torch.serve.adapters``)
@@ -113,6 +115,9 @@ class ArchConfig:
     activation_sharding: tuple | None = None
     logits_sharding: tuple | None = None
     attn_backend: str = "kernel"
+    # bounded attention span (a sliding window, or a recurrent state): the
+    # dry run adds long_500k for these archs, as the reference's does
+    long_context_ok: bool = False
     source: str = ""
 
     @property

@@ -19,6 +19,7 @@ CONFIG = ArchConfig(
     num_experts=8,
     num_shared_experts=0,
     top_k=2,
+    long_context_ok=True,  # sliding window: a bounded attention span
     source="arXiv:2401.04088",
 )
 

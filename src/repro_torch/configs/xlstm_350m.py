@@ -15,6 +15,7 @@ CONFIG = ArchConfig(
     d_ff=0,
     vocab_size=50304,
     pattern=("mlstm",) * 7 + ("slstm",),
+    long_context_ok=True,  # recurrent state O(1) in the sequence
     source="arXiv:2405.04517",
 )
 

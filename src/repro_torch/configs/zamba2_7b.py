@@ -18,6 +18,7 @@ CONFIG = ArchConfig(
     pattern=("mamba", "mamba", "mamba", "mamba", "mamba", "shared_attn"),
     ssm_state=64,
     ssm_head_dim=64,
+    long_context_ok=True,  # SSM state O(1); only the shared-attention caches grow
     source="arXiv:2411.15242",
 )
 

@@ -48,17 +48,24 @@ shard), ``activation_sharding`` = (batch axis, None, model) (``--act-shard``:
 the model in bfloat16, as the reference's; attention through the plain
 backend (the CUDA kernels run on the card only).
 
-Scope: ``TP_ARCHS`` (the dense family and Mixtral, the families whose
-forward runs tensor-parallel, ``sharding.check_tensor_parallel``); the dense
-family at train_4k, prefill_32k and decode_32k, Mixtral at train_4k. Any
-other (arch, shape) raises ``NotImplementedError`` (ROADMAP §1 item 3).
-prefill_32k runs ``prefill_step`` over the ``cache_specs`` caches in
-``q_chunk``-token chunks; decode_32k one ``decode_step`` token against a
-32768-token cache.
+Scope: ``TP_ARCHS`` (the attention families, whose forward runs
+tensor-parallel, ``sharding.check_tensor_parallel``: dense, Mixtral,
+DeepSeek-V2's MLA, Pixtral, MusicGen) at the reference's shapes
+(``applicable_shapes``): train_4k, prefill_32k and decode_32k, and
+long_500k for a ``long_context_ok`` arch (Mixtral). Zamba2 and xLSTM
+raise ``NotImplementedError`` (ROADMAP §1 item 3). prefill_32k runs
+``prefill_step`` over the ``cache_specs`` caches in ``q_chunk``-token
+chunks; decode_32k one ``decode_step`` token against a 32768-token cache,
+long_500k against a 524288-token one (batch 1: the rules split its
+sequence over both mesh dims). ``--mla-cache`` picks an MLA cache's rule
+(``lora``, the default: its latent on the model axis; ``replicate``;
+``seq``: its sequence there).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch olmo_1b --shape decode_32k --out DIR
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--probes] [--act-shard] --out DIR
+  python -m repro_torch.launch.dryrun --arch deepseek_v2_236b --shape decode_32k \
+      --mla-cache seq --out DIR
 Results go to DIR/<singlepod|multipod>/<arch>__<shape>.json (DIR defaults
 to build/dryrun). The CLI exits 1 if any combination fails.
 """
@@ -77,7 +84,6 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from repro_torch import tree as tree_lib
 from repro_torch.configs import get
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import GraphMultiTask, band_graph
@@ -86,21 +92,22 @@ from repro_torch.launch.specs import INPUT_SHAPES, InputShape, input_specs
 from repro_torch.models import TransformerLM
 from repro_torch.optim import adamw
 from repro_torch.sharding import (
-    cache_specs,
     check_tensor_parallel,
-    fsdp_gathered,
-    placements,
     shard_batch,
+    shard_caches,
     shard_state,
+    sharded_serving,
     sharded_step,
 )
 from repro_torch.train import init_state, make_train_step
 from repro_torch.train.trainer import TrainState
 
 TP_ARCHS = ("olmo_1b", "qwen2_5_14b", "qwen1_5_110b", "phi4_mini_3_8b", "multitask_lm",
-            "mixtral_8x22b")
-DENSE_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
-MOE_SHAPES = ("train_4k",)
+            "mixtral_8x22b", "deepseek_v2_236b", "pixtral_12b", "musicgen_large")
+SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+LONG_SHAPE = "long_500k"
+MLA_CACHE = {"lora": {}, "replicate": {"mla_replicate_cache": True},
+             "seq": {"mla_cache_seq_shard": True}}
 DEFAULT_OUT = os.path.join("build", "dryrun")
 
 _KINDS = {"all_gather_into_tensor": "all-gather", "all_reduce": "all-reduce",
@@ -108,13 +115,14 @@ _KINDS = {"all_gather_into_tensor": "all-gather", "all_reduce": "all-reduce",
 
 
 def applicable_shapes(arch: str) -> list[str]:
-    """The input shapes the dry run covers for ``arch``; raises
-    ``NotImplementedError`` outside ``TP_ARCHS``."""
+    """The input shapes the dry run covers for ``arch``, the reference's:
+    every shape but long_500k, which only a ``long_context_ok`` arch runs;
+    raises ``NotImplementedError`` outside ``TP_ARCHS``."""
     if arch not in TP_ARCHS:
         raise NotImplementedError(f"{arch}: the dry run covers {TP_ARCHS}, whose forward "
-                                  "runs tensor-parallel; the other families wait (ROADMAP §1 "
-                                  "item 3)")
-    return list(MOE_SHAPES if get(arch).uses_moe else DENSE_SHAPES)
+                                  "runs tensor-parallel; the recurrent families wait "
+                                  "(ROADMAP §1 item 3)")
+    return list(SHAPES) + ([LONG_SHAPE] if get(arch).long_context_ok else [])
 
 
 def wire_bytes(kind: str, size: int, g: int) -> int:
@@ -265,18 +273,9 @@ def record(fn, args, groups) -> tuple[object, dict, Recorder]:
     return result, summary, rec
 
 
-def _distribute(tree, specs, mesh):
-    from torch.distributed.tensor import distribute_tensor
-
-    return tree_lib.map_(lambda t, s: distribute_tensor(t, mesh, placements(s, mesh)),
-                         tree, specs)
-
-
 def prepare(cfg: ArchConfig, shape: InputShape, mesh, dtype=torch.bfloat16):
     """(fn, args) of one combination on ``mesh``: ``fn()`` runs the sharded
     program; ``args`` are its arguments (for the byte counts)."""
-    from torch.distributed.tensor.experimental import implicit_replication
-
     check_tensor_parallel(cfg)
     axes = axes_of(mesh)
     model = TransformerLM(cfg, device="meta", dtype=dtype)
@@ -293,14 +292,15 @@ def prepare(cfg: ArchConfig, shape: InputShape, mesh, dtype=torch.bfloat16):
     params = dict(model.named_parameters())
     b, seq = shape.global_batch, shape.seq_len
     caches = model.init_cache(b, seq)
-    caches = [tuple(e) for e in _distribute(caches, cache_specs(cfg, caches, axes), mesh)]
+    caches = shard_caches(cfg, caches, mesh, axes)
     if shape.kind == "prefill":
         chunk = min(cfg.q_chunk, seq)
 
         def fn():
-            with fsdp_gathered(model), implicit_replication():
+            with sharded_serving(model):
                 for i in range(0, seq, chunk):
-                    sub = {k: (v[:, i:i + chunk] if k == "tokens" else v)
+                    # every (B, S, ...) input: tokens, a VLM's vision rows
+                    sub = {k: (v[:, i:i + chunk] if v.ndim >= 2 else v)
                            for k, v in batch.items()}
                     pos = torch.full((b,), i, dtype=torch.int32, device="meta")
                     valid = torch.ones((b, chunk), dtype=torch.bool, device="meta")
@@ -311,7 +311,7 @@ def prepare(cfg: ArchConfig, shape: InputShape, mesh, dtype=torch.bfloat16):
     pos = torch.full((), seq - 1, dtype=torch.int32, device="meta")
 
     def fn():
-        with fsdp_gathered(model), implicit_replication():
+        with sharded_serving(model):
             return model.decode_step(batch, caches, pos)
 
     return fn, (params, batch, caches, pos)
@@ -330,8 +330,10 @@ def probe_cfg(cfg: ArchConfig, periods: int) -> ArchConfig:
     return dataclasses.replace(cfg, num_layers=cfg.period * periods)
 
 
-def combo_cfg(arch: str, shape: InputShape, axes, activation_sharding=None) -> ArchConfig:
-    """The reference's per-combination config edits (``run_one``)."""
+def combo_cfg(arch: str, shape: InputShape, axes, activation_sharding=None,
+              mla_cache: str = "lora") -> ArchConfig:
+    """The reference's per-combination config edits (``run_one``), and an
+    MLA cache's rule (``MLA_CACHE``)."""
     fsdp = tuple(axes.fsdp) if len(axes.fsdp) > 1 else axes.fsdp[0]
     batch_ax = fsdp if shape.global_batch % axes.fsdp_size == 0 else None
     if activation_sharding is None:
@@ -339,29 +341,34 @@ def combo_cfg(arch: str, shape: InputShape, axes, activation_sharding=None) -> A
     return dataclasses.replace(
         get(arch), num_tasks=axes.fsdp_size, moe_groups=axes.fsdp_size,
         activation_sharding=activation_sharding,
-        logits_sharding=(batch_ax, None, axes.model), attn_backend="plain")
+        logits_sharding=(batch_ax, None, axes.model), attn_backend="plain",
+        **MLA_CACHE[mla_cache])
 
 
 def run_one(arch: str, shape_name: str, multi_pod: bool, probes: bool, out_dir: str | None,
-            activation_sharding=None) -> dict:
+            activation_sharding=None, mla_cache: str = "lora") -> dict:
     """One combination (and its probes); written to
-    ``out_dir/<arch>__<shape>.json`` unless ``out_dir`` is None."""
+    ``out_dir/<arch>__<shape>.json`` (``<arch>__<shape>__<mla_cache>.json``
+    for another MLA cache rule) unless ``out_dir`` is None."""
     if shape_name not in applicable_shapes(arch):
         raise NotImplementedError(f"{arch} {shape_name}: the dry run covers "
                                   f"{applicable_shapes(arch)} (ROADMAP §1 item 3)")
     shape = INPUT_SHAPES[shape_name]
     mesh = make_fake_mesh(multi_pod)
-    cfg = combo_cfg(arch, shape, axes_of(mesh), activation_sharding)
+    cfg = combo_cfg(arch, shape, axes_of(mesh), activation_sharding, mla_cache)
     result = {"arch": arch, "shape": shape_name, "mesh": "2x16x16" if multi_pod else "16x16",
               "num_layers": cfg.num_layers, "period": cfg.period,
               "num_periods": cfg.num_periods, "remainder": len(cfg.remainder)}
+    if cfg.use_mla:
+        result["mla_cache"] = mla_cache
     result["scanned"] = account(cfg, shape, mesh)
     if probes:
         for n in (1, 2):
             result[f"probe{n}"] = account(probe_cfg(cfg, n), shape, mesh)
     if out_dir is not None:
         os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, f"{arch}__{shape_name}.json"), "w") as f:
+        tag = "" if mla_cache == "lora" else f"__{mla_cache}"
+        with open(os.path.join(out_dir, f"{arch}__{shape_name}{tag}.json"), "w") as f:
             json.dump(result, f, indent=1)
     return result
 
@@ -375,6 +382,9 @@ def main(argv=None) -> int:
     ap.add_argument("--probes", action="store_true")
     ap.add_argument("--act-shard", action="store_true",
                     help="constrain the residual stream to (data, None, model)")
+    ap.add_argument("--mla-cache", default="lora", choices=list(MLA_CACHE),
+                    help="an MLA cache's rule: its latent on the model axis, replicated, "
+                         "or its sequence there")
     ap.add_argument("--out", default=DEFAULT_OUT)
     args = ap.parse_args(argv)
     if not args.all and not (args.arch and args.shape):
@@ -391,7 +401,8 @@ def main(argv=None) -> int:
     ok, failed = 0, []
     for a, s in combos:
         try:
-            r = run_one(a, s, args.multi_pod, args.probes, out_dir, activation_sharding=act)
+            r = run_one(a, s, args.multi_pod, args.probes, out_dir, activation_sharding=act,
+                        mla_cache=args.mla_cache)
             sc = r["scanned"]
             tot = sum(v or 0 for v in sc["memory"].values())
             print(f"OK   {a:22s} {s:12s} mesh={r['mesh']:8s} run={sc['run_s']:7.1f}s "

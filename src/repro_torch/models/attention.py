@@ -45,10 +45,14 @@ from repro_torch.kernels.prefill_attention.ops import (
 from repro_torch.kernels.runtime import gather_pages, pos_vector, scale_for
 from repro_torch.models.layers import apply_rope, dense_init, matmul
 from repro_torch.sharding.tensor_parallel import (
+    attention,
     cached_attention,
+    cat_shared,
     is_dtensor,
+    mla_cached_attention,
     split_ready,
     tp_input,
+    whole,
 )
 
 NEG_INF = -1e30
@@ -174,8 +178,13 @@ def cached_attend(q, k_cache, v_cache, pos, *, sliding_window=None,
         for a C == 1 query, ``prefill_attention`` /
         ``paged_prefill_attention`` for C > 1: the CUDA kernels on CUDA
         tensors (the paged ones walk the table themselves; no view is
-        built), their plain versions on CPU tensors."""
+        built), their plain versions on CPU tensors. Not on DTensor caches:
+        the tensor-parallel serving steps attend through ``"plain"``
+        (``decode_attend``, each rank on its own shards)."""
     if backend == "kernel":
+        if is_dtensor(k_cache):
+            raise ValueError("the kernel attention takes no DTensor caches: the "
+                             "tensor-parallel serving steps run attn_backend='plain'")
         decode = q.shape[1] == 1
         if block_tables is None:
             op = decode_attention if decode else prefill_attention
@@ -265,22 +274,81 @@ def mla_full(params, x, dims: MLADims, positions, theta, q_chunk: int = 1024):
     up-projected from the latent and attended through ``causal_attend`` at
     query width qk_nope + qk_rope (so scaled by its inverse square root).
     x: (B, S, d); positions: (B, S). Returns (out (B, S, d), (c_kv (B, S,
-    r), k_rope (B, S, qk_rope)))."""
+    r), k_rope (B, S, qk_rope))).
+
+    On DTensors (the tensor-parallel step): the heads of the query and of
+    the up-projections split as their weights' columns; the latent, split
+    over the model ranks by ``w_dkv``'s columns, is gathered before the
+    up-projections (``matmul``'s column-parallel input); the rope key,
+    split over them by ``w_krope``'s columns, is gathered before its
+    rotation (which pairs dim i with i + dr / 2) and joins each rank's
+    heads whole (``cat_shared``); the attention runs head-parallel
+    (``sharding.tensor_parallel.attention``)."""
     b, s, _ = x.shape
     h, dn, dr, dv = dims.n_heads, dims.qk_nope, dims.qk_rope, dims.v_dim
-    q = matmul(x, params["wq"]).reshape(b, s, h, dn + dr)
+    q = split_ready(matmul(x, params["wq"]), -1, h).reshape(b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, theta)
     c_kv = matmul(x, params["w_dkv"])  # (B, S, r)
-    k_rope = apply_rope(matmul(x, params["w_krope"])[:, :, None, :], positions,
+    k_rope = apply_rope(whole(matmul(x, params["w_krope"]), -1)[:, :, None, :], positions,
                         theta)  # (B, S, 1, dr), shared across heads
-    k_nope = matmul(c_kv, params["w_uk"]).reshape(b, s, h, dn)
-    v = matmul(c_kv, params["w_uv"]).reshape(b, s, h, dv)
+    k_nope = split_ready(matmul(c_kv, params["w_uk"]), -1, h).reshape(b, s, h, dn)
+    v = split_ready(matmul(c_kv, params["w_uv"]), -1, h).reshape(b, s, h, dv)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
-    k_full = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
-    out = causal_attend(q_full, k_full, v, q_chunk=q_chunk)
+    k_full = cat_shared(k_nope, k_rope)
+    out = attention(lambda q, k, v, start: causal_attend(q, k, v, q_chunk=q_chunk,
+                                                         q_start=start), q_full, k_full, v)
     out = matmul(out.reshape(b, s, h * dv), params["wo"])
     return out, (c_kv, k_rope[:, :, 0, :])
+
+
+def _mla_absorb(q_nope, w_uk):
+    """The query folded through W_uk (r, H dn): (B, C, H, r) float32."""
+    h, dn = q_nope.shape[2:]
+    return torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_uk.reshape(-1, h, dn).float())
+
+
+def _mla_scores(scale, q_c, q_rope, c_cache, krope_cache, pos, kv_start: int = 0):
+    """The float32 scores (B, H, C, S) of the absorbed queries (B, C, H,
+    r) and the roped ones (B, C, H, dr) against (B, S, r) / (B, S, dr)
+    caches whose first row is position ``kv_start``, times ``scale`` and
+    masked to ``NEG_INF`` outside ``kv_idx <= pos + i``."""
+    b, c = q_c.shape[:2]
+    scores = (torch.einsum("bqhr,bkr->bhqk", q_c.float(), c_cache.float())
+              + torch.einsum("bqhr,bkr->bhqk", q_rope.float(), krope_cache.float())) * scale
+    q_pos = pos_vector(pos, b, q_c.device)[:, None] + torch.arange(c, device=q_c.device)
+    kv_pos = torch.arange(kv_start, kv_start + c_cache.shape[1], device=q_c.device)
+    mask = kv_pos[None, None, :] <= q_pos[:, :, None]  # (B, C, S)
+    return torch.where(mask[:, None, :, :], scores, NEG_INF)
+
+
+def _mla_context(w, c_cache):
+    """The (B, H, C, S) weights over the (B, S, r) latent rows: the
+    context (B, C, H, r) float32."""
+    return torch.einsum("bhqk,bkr->bqhr", w.float(), c_cache.float())
+
+
+def _mla_values(ctx, w_uv):
+    """The context (B, C, H, r) through W_uv (r, H dv): (B, C, H, dv)
+    float32."""
+    h = ctx.shape[2]
+    return torch.einsum("bqhr,rhv->bqhv", ctx.float(),
+                        w_uv.reshape(w_uv.shape[0], h, -1).float())
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAParts:
+    """The plain pieces of ``mla_decode`` that
+    ``sharding.tensor_parallel.mla_cached_attention`` runs between its
+    collectives."""
+    scale: float
+
+    absorb = staticmethod(_mla_absorb)
+    context = staticmethod(_mla_context)
+    values = staticmethod(_mla_values)
+
+    def scores(self, q_c, q_rope, c_cache, krope_cache, pos, kv_start: int = 0):
+        return _mla_scores(self.scale, q_c, q_rope, c_cache, krope_cache, pos, kv_start)
 
 
 def mla_decode(params, x, dims: MLADims, c_cache, krope_cache, pos, theta):
@@ -295,24 +363,21 @@ def mla_decode(params, x, dims: MLADims, c_cache, krope_cache, pos, theta):
     chunk; c_cache (B, S, r) and krope_cache (B, S, qk_rope) already hold
     the whole chunk (a paged pool's ``gather_pages`` view); pos: () or (B,)
     positions of the FIRST query token (query i sits at ``pos + i`` and
-    reads ``kv_idx <= pos + i`` only). Returns (B, C, d)."""
+    reads ``kv_idx <= pos + i`` only). Returns (B, C, d). On DTensor caches
+    each rank serves its heads (``tp.mla_cached_attention``)."""
     b, c, _ = x.shape
-    h, dn, dr, dv, r = dims.n_heads, dims.qk_nope, dims.qk_rope, dims.v_dim, dims.kv_lora
+    h, dn, dr, dv = dims.n_heads, dims.qk_nope, dims.qk_rope, dims.v_dim
     q_pos = pos_vector(pos, b, x.device)[:, None] + torch.arange(c, device=x.device)
-    q = matmul(x, params["wq"]).reshape(b, c, h, dn + dr)
+    q = split_ready(matmul(x, params["wq"]), -1, h).reshape(b, c, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, q_pos, theta)
-    w_uk = params["w_uk"].reshape(r, h, dn)
-    q_c = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_uk.float())
-    c_f = c_cache.float()
-    scores = (torch.einsum("bqhr,bkr->bhqk", q_c, c_f)
-              + torch.einsum("bqhr,bkr->bhqk", q_rope.float(), krope_cache.float())
-              ) * scale_for(dn + dr)
-    kv_pos = torch.arange(c_cache.shape[1], device=x.device)
-    mask = kv_pos[None, None, :] <= q_pos[:, :, None]  # (B, C, S)
-    scores = torch.where(mask[:, None, :, :], scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    ctx = torch.einsum("bhqk,bkr->bqhr", w, c_f)  # (B, C, H, r)
-    w_uv = params["w_uv"].reshape(r, h, dv)
-    out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv.float()).to(x.dtype)
-    return matmul(out.reshape(b, c, h * dv), params["wo"])
+    parts = MLAParts(scale_for(dn + dr))
+    if is_dtensor(c_cache):
+        out = mla_cached_attention(parts, q_nope, q_rope, params["w_uk"], params["w_uv"],
+                                   c_cache, krope_cache, pos)
+    else:
+        scores = parts.scores(parts.absorb(q_nope, params["w_uk"]), q_rope, c_cache,
+                              krope_cache, pos)
+        out = parts.values(parts.context(torch.softmax(scores, dim=-1), c_cache),
+                           params["w_uv"])
+    return matmul(out.to(x.dtype).reshape(b, c, h * dv), params["wo"])

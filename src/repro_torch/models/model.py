@@ -14,7 +14,10 @@ Input modes (``cfg.input_mode``), as the reference's:
   * ``"audio"`` (MusicGen) — (B, S, K) ids of K = ``num_codebooks``
     codebooks; ``embed`` is (K, V, d) and a position's input is the sum of
     its K codebook embeddings; ``head`` is (d, V * K) and the logits come
-    out as (B, S, K, V); ``task.head_bias`` is (num_tasks, V * K).
+    out as (B, S, K, V); ``task.head_bias`` is (num_tasks, V * K). On
+    DTensors (the tensor-parallel steps) they stay (B, S, K * V), their
+    vocab split over the model ranks, and ``loss_fn`` reduces each
+    codebook's columns where they lie.
 
 The JAX model keeps period-stacked (P, ...) params and ``lax.scan``s over
 them; here each layer is its own module and the stack is a Python loop over
@@ -248,15 +251,16 @@ class TransformerLM(nn.Module):
         # the nearest embedding row, as the JAX model's mode="clip" does
         # (torch indexing would raise, or read stray memory on CUDA)
         ids = batch["tokens"].clamp(0, c.vocab_size - 1)
-        if c.input_mode == "audio":  # (B, S, K): the codebooks' embeddings summed
-            x = tp.embedding(ids[..., 0], self.embed[0])
-            for k in range(1, c.num_codebooks):
-                x = x + tp.embedding(ids[..., k], self.embed[k])
-            return x
+        # audio: (B, S, K) ids into the (K, V, d) tables, the codebooks'
+        # embeddings summed
         x = tp.embedding(ids, self.embed)
         if c.input_mode == "vlm" and "vision_mask" in batch:
-            x = torch.where(batch["vision_mask"][..., None],
-                            batch["vision_embeds"].to(x.dtype), x)
+            # on DTensors the lookup's partial sums are reduce-scattered
+            # over d first, and the vision rows take that layout: the
+            # select then runs on each rank's own columns
+            x = tp.settle(x)
+            x = torch.where(tp.match(batch["vision_mask"], x)[..., None],
+                            tp.match(batch["vision_embeds"].to(x.dtype), x), x)
         return x
 
     def _task_rows(self, table: torch.Tensor, task_ids: torch.Tensor):
@@ -306,7 +310,11 @@ class TransformerLM(nn.Module):
                 hb = hb + task_ad["head_bias"].to(hb.dtype)
             logits = logits + hb[:, None, :].float()
         logits = tp.constrain(logits, c.logits_sharding)
-        if c.num_codebooks > 1:  # (B, S, K * V) -> (B, S, K, V)
+        # (B, S, K * V) -> (B, S, K, V); a DTensor's stay flat: a vocab
+        # split over model ranks that K does not divide cannot follow the
+        # reshape without a gather (the loss reduces each codebook's
+        # columns where they lie, ``tp.logsumexp``)
+        if c.num_codebooks > 1 and not tp.is_dtensor(logits):
             logits = logits.reshape(logits.shape[:2] + (c.num_codebooks, c.vocab_size))
         return logits
 
@@ -441,7 +449,9 @@ class TransformerLM(nn.Module):
         'aux'})."""
         logits, aux = self.forward(batch)
         labels = batch["labels"].long()
-        nll = tp.reduced((tp.logsumexp(logits) - tp.label_logits(logits, labels)).mean())
+        groups = self.cfg.num_codebooks if logits.ndim == labels.ndim else 1  # flat (B, S, K V)
+        nll = tp.reduced((tp.logsumexp(logits, groups)
+                          - tp.label_logits(logits, labels, groups)).mean())
         aux = tp.reduced(aux)
         return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
@@ -585,8 +595,8 @@ class TransformerLM(nn.Module):
         if c.use_mla:
             c_cache, r_cache = cache
             c_kv = matmul(h, p.attn["w_dkv"])  # (B, C, r)
-            k_rope = apply_rope(matmul(h, p.attn["w_krope"])[:, :, None, :], q_pos,
-                                c.rope_theta)[:, :, 0, :]
+            k_rope = apply_rope(tp.whole(matmul(h, p.attn["w_krope"]), -1)[:, :, None, :],
+                                q_pos, c.rope_theta)[:, :, 0, :]  # rotated whole
             write(c_cache, c_kv)
             write(r_cache, k_rope)
             out = attn_lib.mla_decode(p.attn, h, _mla_dims(c), view(c_cache), view(r_cache),

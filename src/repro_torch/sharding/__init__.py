@@ -16,6 +16,8 @@ from repro_torch.sharding.dtensor import (
     fsdp_gathered,
     full_params,
     shard_batch,
+    shard_caches,
     shard_state,
+    sharded_serving,
     sharded_step,
 )

@@ -10,6 +10,13 @@ reference's step runs unchanged under pjit's ``in_shardings``.
   run = sharded_step(model, step)
   state, metrics = run(state, shard_batch(batch, mesh, axes))
 
+and the serving steps on the same placements:
+
+  shard_state(model, TrainState(dict(model.named_parameters()), (), 0), mesh, axes)
+  caches = shard_caches(cfg, model.init_cache(batch_size, max_seq), mesh, axes)
+  with sharded_serving(model):
+      logits, caches = model.prefill_step(batch, caches, positions, valid)
+
 Every rank builds the same model (the same seed or the same converted
 weights); ``shard_state`` replaces each parameter by a DTensor parameter in
 its rule's placements, so the model's parameters, their gradients, the
@@ -30,9 +37,12 @@ column-parallel products and reduce-scattered after row-parallel ones, the
 vocab-parallel embedding and loss, the MoE's shard-local dispatch). No
 weight is gathered over the model axis. Tensors the forward makes for
 itself (positions, masks) join as replicated (``implicit_replication``).
-The scope is the dense family (``olmo_1b``, ``qwen2_5_14b``,
-``qwen1_5_110b``, ``phi4_mini_3_8b``, ``multitask_lm``) and the MoE
-(``mixtral_8x22b``); any other family raises ``NotImplementedError``.
+The scope is the attention families: dense (``olmo_1b``,
+``qwen2_5_14b``, ``qwen1_5_110b``, ``phi4_mini_3_8b``, ``multitask_lm``),
+the MoE (``mixtral_8x22b``), MLA with its MoE (``deepseek_v2_236b``), the
+VLM (``pixtral_12b``) and the audio model (``musicgen_large``); the
+recurrent families (``zamba2_7b``, ``xlstm_350m``) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,7 +52,13 @@ import torch
 from torch import nn
 
 from repro_torch import tree as tree_lib
-from repro_torch.sharding.rules import MeshAxes, batch_specs, placements, train_state_specs
+from repro_torch.sharding.rules import (
+    MeshAxes,
+    batch_specs,
+    cache_specs,
+    placements,
+    train_state_specs,
+)
 
 
 def _owner(model: nn.Module, name: str) -> tuple[nn.Module, str]:
@@ -83,13 +99,14 @@ def shard_batch(batch: dict, mesh, axes: MeshAxes) -> dict:
 
 def check_tensor_parallel(cfg) -> None:
     """Raises ``NotImplementedError`` unless the model's forward runs
-    tensor-parallel on DTensors: the dense and MoE attention patterns with
-    GQA over token ids."""
-    if not (tuple(cfg.pattern) in (("attn",), ("attn_moe",)) and not cfg.use_mla
-            and cfg.input_mode == "tokens"):
+    tensor-parallel on DTensors: the attention families, dense and MoE,
+    GQA or MLA, over token ids, a VLM's vision inputs or an audio model's
+    codebooks; the recurrent families (Zamba2's hybrid, xLSTM) wait."""
+    if tuple(cfg.pattern) not in (("attn",), ("attn_moe",)):
         raise NotImplementedError(
-            f"{cfg.name}: the tensor-parallel sharded forward covers the dense and MoE "
-            "families (GQA over token ids); this family's waits (ROADMAP §1 item 3)")
+            f"{cfg.name}: the tensor-parallel sharded forward covers the attention families "
+            "(dense and MoE, GQA or MLA, every input mode); the recurrent families' waits "
+            "(ROADMAP §1 item 3)")
 
 
 @contextlib.contextmanager
@@ -135,6 +152,31 @@ def sharded_step(model: nn.Module, step):
                        for k, v in metrics.items()}
 
     return run
+
+
+def shard_caches(cfg, caches: list, mesh, axes: MeshAxes) -> list:
+    """``init_cache``'s caches (one tuple per layer) as DTensors in the
+    cache rules' placements (``cache_specs``: batch on fsdp where it
+    divides, else the sequence; kv heads on model where they divide, else
+    the sequence again; an MLA latent as ``cfg``'s rule says)."""
+    specs = cache_specs(cfg, caches, axes)
+    return [tuple(_distribute(t, sp, mesh) for t, sp in zip(entry, entry_specs))
+            for entry, entry_specs in zip(caches, specs)]
+
+
+@contextlib.contextmanager
+def sharded_serving(model: nn.Module):
+    """Inside, the serving steps (``decode_step`` / ``prefill_step``) of a
+    model whose parameters ``shard_state`` placed run tensor-parallel on
+    caches of ``shard_caches``: each weight gathered over fsdp only
+    (``fsdp_gathered``), the steps' own tensors replicated. Raises
+    ``NotImplementedError`` for a family ``check_tensor_parallel``
+    refuses."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    check_tensor_parallel(model.cfg)
+    with fsdp_gathered(model), implicit_replication():
+        yield
 
 
 def full_params(params: dict) -> dict:

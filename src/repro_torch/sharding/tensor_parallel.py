@@ -24,21 +24,37 @@ train step (``repro_torch.sharding.dtensor.sharded_step``) and the dry run
     ``reduced(t)`` — a tensor's partial sums reduced (the loss terms);
     ``settle(y)`` — a row-parallel product's partial sums reduce-scattered;
     ``contiguous_grad(x)`` — a product's gradient made contiguous.
+  * ``whole(x, dim)`` — ``x`` gathered over the mesh dims that split
+    ``dim`` (MLA's rope key before its rotation pairs dims of two ranks);
+    ``match(t, ref)`` — ``t`` in ``ref``'s placements (a VLM's vision
+    rows against the embedding's layout).
+  * ``cat_shared(k, shared)`` — a key shared by every head (MLA's rope
+    key) joined to each head's own: each rank expands it over its heads,
+    and its gradient comes back ``Partial`` over them.
   * ``embedding(ids, table)`` — a lookup of a table whose rows are split
     over model ranks (Megatron's vocab-parallel embedding): each rank looks
     up the ids that fall in its rows, zeroes the others, and the output is
     ``Partial`` over those ranks. DTensor's own ``F.embedding`` takes its
-    ``MaskPartial`` path instead, which fails against data-sharded ids.
-  * ``label_logits(logits, labels)`` — the reference's masked reduction
-    over the vocab, per vocab shard, ``Partial`` over the ranks that split
-    the vocab: the logits are never gathered.
-  * ``logsumexp(logits)`` — over a vocab split across ranks: the max, then
-    the sum of exponentials, each reduced across the ranks (two small
-    all-reduces), never a gather of the logits.
+    ``MaskPartial`` path instead, which fails against data-sharded ids. A
+    (K, V, d) stack of codebook tables (MusicGen) sums the K lookups of
+    (..., K) ids the same way.
+  * ``label_logits(logits, labels, groups)`` — the reference's masked
+    reduction over the vocab, per vocab shard, ``Partial`` over the ranks
+    that split the vocab: the logits are never gathered. With ``groups``
+    K > 1 the vocab is K codebooks of V columns each (MusicGen's flat (...,
+    K V) logits) and each codebook's label picks within its own columns.
+  * ``logsumexp(logits, groups)`` — over a vocab split across ranks: the
+    max, then the sum of exponentials, each reduced across the ranks (two
+    small all-reduces), never a gather of the logits; per codebook with
+    ``groups`` > 1, each rank reducing the codebooks its columns meet.
   * ``cached_attention`` / ``cache_write`` — the serving steps on DTensor
-    caches (the dry run): each rank attends and writes on its own batch
-    rows, sequence rows and kv heads; a sequence-split cache's softmax is
-    combined across the ranks, flash-decode style.
+    caches: each rank attends and writes on its own batch rows, sequence
+    rows and kv heads; a sequence-split cache's softmax is combined across
+    the ranks, flash-decode style (over every mesh dim that splits the
+    sequence: at batch 1 the rules split it over both).
+  * ``mla_cached_attention`` — MLA's absorbed decode on DTensor latent
+    caches, its heads on the model ranks: a latent split over them is
+    all-gathered, a sequence split over them combined flash-decode style.
 
 ``torch.distributed.tensor`` is imported only inside a function that has
 a DTensor in hand, so importing the model imports none of it.
@@ -195,6 +211,48 @@ def split_ready(x, dim: int, lead: int):
     return _to(x, [_dt().Replicate() if i in dims else p for i, p in enumerate(x.placements)])
 
 
+def whole(x, dim: int):
+    """``x`` whole over the mesh dims that split tensor dim ``dim`` (an
+    explicit ``redistribute``, whose backward splits the gradient again);
+    a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    return _to(x, [_dt().Replicate() if is_split(p, dim % x.ndim) else p for p in x.placements])
+
+
+def match(t, ref):
+    """``t`` split as DTensor ``ref`` splits the leading dims they share
+    (whole on a mesh dim where ``ref`` splits a dim ``t`` lacks; a plain
+    ``t`` joins as replicated first): a VLM's vision rows (B, S, d) and
+    mask (B, S) against the embedding's layout. With a plain ``ref``,
+    ``t`` itself."""
+    if not is_dtensor(ref):
+        return t
+    dt = _dt()
+    want = [p if is_split(p) and p.dim < t.ndim else dt.Replicate() for p in ref.placements]
+    return _to(as_dtensor(t, ref.device_mesh), want)
+
+
+def cat_shared(k, shared):
+    """``torch.cat([k, shared.expand(...)], -1)``: each of k's (B, S, H,
+    dn) heads joined by the (B, S, 1, dr) key all heads share (MLA's rope
+    key). On DTensors each rank expands ``shared`` (whole over the head
+    split) over its own heads (``local_map``); its gradient, a sum over the
+    rank's heads, comes back ``Partial`` over the ranks that split them."""
+    if not is_dtensor(k):
+        return torch.cat([k, shared.expand(k.shape[:-1] + shared.shape[-1:])], dim=-1)
+    dt = _dt()
+    mesh = k.device_mesh
+    sh_pl = [p if is_split(p, 0) else dt.Replicate() for p in k.placements]
+    shared = _to(as_dtensor(shared, mesh), sh_pl)
+    grad_pl = [dt.Partial() if is_split(pk, 2) else p for pk, p in zip(k.placements, sh_pl)]
+
+    def local(k_l, s_l):
+        return torch.cat([k_l, s_l.expand(k_l.shape[:-1] + s_l.shape[-1:])], dim=-1)
+
+    return _local_map(local, list(k.placements), mesh, (k.placements, grad_pl))(k, shared)
+
+
 def attention(fn, q, k, v):
     """``fn(q, k, v, q_start)``, an attention over (B, S, H, hd) queries and
     (B, S, KVH, hd) keys and values in which heads and query rows are
@@ -250,34 +308,53 @@ def local_rows(t, dim: int = 0) -> tuple[int, int]:
     return shape[dim], offset[dim]
 
 
+def _lookup(ids, table, first=None):
+    """``F.embedding`` of ``ids`` into ``table``: a (V, d) table, or a (K,
+    V, d) stack of codebook tables with (..., K) ids, whose K lookups are
+    summed in codebook order. ``first``: the table is a block of rows from
+    row ``first`` (a rank's shard), and the ids outside it give zero."""
+
+    def one(i, t):
+        if first is None:
+            return F.embedding(i, t)
+        rows = t.shape[0]
+        local = i - first
+        out = F.embedding(local.clamp(0, rows - 1), t)
+        return torch.where(((local >= 0) & (local < rows))[..., None], out, 0.0)
+
+    if table.ndim == 2:
+        return one(ids, table)
+    x = one(ids[..., 0], table[0])
+    for k in range(1, table.shape[0]):
+        x = x + one(ids[..., k], table[k])
+    return x
+
+
 def embedding(ids, table):
-    """``F.embedding(ids, table)``; on DTensors the vocab-parallel lookup
-    (see the module docstring). On each mesh dim: where the table splits
-    its rows and the ids are whole, each rank looks up its rows and the
-    output is ``Partial``; where the table splits its second dim, so does
-    the output; where the ids are split, the table is whole there (its
-    gradient then comes back ``Partial``). Ids must lie in [0, rows) (the
-    caller clamps, R001)."""
+    """``F.embedding(ids, table)`` (a (K, V, d) stack of codebook tables:
+    the sum of each codebook's lookup of (..., K) ids); on DTensors the
+    vocab-parallel lookup (see the module docstring). On each mesh dim:
+    where the table splits its rows and the ids are whole, each rank looks
+    up its rows and the output is ``Partial``; where the table splits its
+    last dim, so does the output; where the ids are split, the table is
+    whole there (its gradient then comes back ``Partial``). Ids must lie
+    in [0, rows) (the caller clamps, R001)."""
     if not is_dtensor(table):
-        return F.embedding(ids, table)
+        return _lookup(ids, table)
     dt = _dt()
     mesh = table.device_mesh
     ids = as_dtensor(ids, mesh)
+    row, last = table.ndim - 2, table.ndim - 1
+    out_last = ids.ndim - (table.ndim - 2)  # the output's d dim
     tpl = [pt if is_split(pt) and not is_split(pi) else dt.Replicate()
            for pi, pt in zip(ids.placements, table.placements)]
     table = _to(table, tpl)
-    rows, first = local_rows(table)
-    out_pl = [dt.Partial() if is_split(pt, 0) else dt.Shard(ids.ndim) if is_split(pt) else pi
-              for pi, pt in zip(ids.placements, tpl)]
+    _, first = local_rows(table, row)
+    out_pl = [dt.Partial() if is_split(pt, row) else dt.Shard(out_last) if is_split(pt, last)
+              else pi for pi, pt in zip(ids.placements, tpl)]
     grad_pl = [dt.Partial() if is_split(pi) else pt for pi, pt in zip(ids.placements, tpl)]
-
-    def lookup(ids_l, table_l):
-        local = ids_l - first
-        mine = (local >= 0) & (local < rows)
-        out = F.embedding(local.clamp(0, rows - 1), table_l)
-        return torch.where(mine[..., None], out, 0.0)
-
-    return _local_map(lookup, out_pl, mesh, (ids.placements, grad_pl))(ids, table)
+    return _local_map(lambda i, t: _lookup(i, t, first), out_pl, mesh,
+                      (ids.placements, grad_pl))(ids, table)
 
 
 def _vocab_layout(logits, labels):
@@ -299,38 +376,91 @@ def _vocab_split(logits) -> bool:
                for i, p in enumerate(logits.placements))
 
 
-def label_logits(logits, labels):
+def _segments(first: int, n: int, total: int, groups: int):
+    """(group, lo, hi) of the columns [first, first + n) of a vocab of
+    ``total`` columns in ``groups`` equal codebooks: the local slice
+    [lo, hi) of each codebook (empty where the block misses it)."""
+    v = total // groups
+    return [(k, min(max(k * v - first, 0), n), min(max((k + 1) * v - first, 0), n))
+            for k in range(groups)]
+
+
+def _pick(lg, lb, first: int, total: int, groups: int):
+    """The label logits of a block of columns from ``first`` (see
+    ``label_logits``)."""
+    v = total // groups
+    iota = torch.arange(first, first + lg.shape[-1], device=lg.device)
+    if groups == 1:
+        lb = lb[..., None]
+    col = torch.where((lb >= 0) & (lb < v),
+                      lb + v * torch.arange(groups, device=lb.device), -1)  # (..., K)
+    out = torch.stack([
+        torch.where(iota[lo:hi] == col[..., k, None], lg[..., lo:hi], 0.0).sum(-1)
+        for k, lo, hi in _segments(first, lg.shape[-1], total, groups)], dim=-1)
+    return out[..., 0] if groups == 1 else out
+
+
+def label_logits(logits, labels, groups: int = 1):
     """The label's logit, ``sum_v where(v == label, logits[..., v], 0)``
     (the reference's masked reduction over the vocab): a label outside
     [0, V) matches nothing and gives 0. labels: logits' shape without its
-    last dim. On DTensors each rank reduces its vocab shard, and the result
-    is ``Partial`` over the ranks that split the vocab."""
-
-    def pick(lg, lb, first=0):
-        iota = torch.arange(first, first + lg.shape[-1], device=lg.device)
-        return torch.where(iota == lb[..., None], lg, 0.0).sum(-1)
-
+    last dim; with ``groups`` K > 1, logits (..., K V) hold K codebooks of
+    V columns and labels (..., K) one label per codebook, each matched in
+    its codebook's columns. On DTensors each rank reduces its vocab shard,
+    and the result is ``Partial`` over the ranks that split the vocab."""
+    total = logits.shape[-1]
     if not is_dtensor(logits):
-        return pick(logits, labels)
+        return _pick(logits, labels, 0, total, groups)
     dt = _dt()
     logits, labels = _vocab_layout(logits, labels)
     last = logits.ndim - 1
     _, first = local_rows(logits, last)
     out_pl = [dt.Partial() if is_split(p, last) else p for p in logits.placements]
-    return _local_map(lambda lg, lb: pick(lg, lb, first), out_pl, logits.device_mesh,
-                      (logits.placements, labels.placements))(logits, labels)
+    return _local_map(lambda lg, lb: _pick(lg, lb, first, total, groups), out_pl,
+                      logits.device_mesh, (logits.placements, labels.placements))(logits,
+                                                                                   labels)
 
 
-def logsumexp(logits):
-    """``torch.logsumexp(logits, -1)``; where a DTensor's vocab is split
-    over ranks, the max and the sum of exponentials are each all-reduced
-    across them (the max held constant in the backward, as its gradient
-    cancels), so the result is whole over those ranks."""
+def logsumexp(logits, groups: int = 1):
+    """``torch.logsumexp(logits, -1)`` (with ``groups`` K > 1: of each of
+    the K codebooks of (..., K V) logits, (..., K) out); where a DTensor's
+    vocab is split over ranks, the max and the sum of exponentials are each
+    all-reduced across them (the max held constant in the backward, as its
+    gradient cancels), so the result is whole over those ranks: each rank
+    reduces the columns of each codebook its shard meets (a shard may
+    straddle two), and a codebook it does not meet adds -inf to the max
+    and 0 to the sum."""
     if not (is_dtensor(logits) and _vocab_split(logits)):
-        return torch.logsumexp(logits, dim=-1)
+        if groups == 1:
+            return torch.logsumexp(logits, dim=-1)
+        return torch.logsumexp(logits.reshape(logits.shape[:-1] + (groups, -1)), dim=-1)
+    import torch.distributed._functional_collectives as funcol
+
+    dt = _dt()
     logits, _ = _vocab_layout(logits, None)
-    m = reduced(logits.detach().amax(dim=-1, keepdim=True))
-    return reduced((logits - m).exp().sum(dim=-1)).log() + m[..., 0]
+    mesh, last, total = logits.device_mesh, logits.ndim - 1, logits.shape[-1]
+    _, first = local_rows(logits, last)
+    pgs = [mesh.get_group(i) for i, p in enumerate(logits.placements) if is_split(p, last)]
+    whole_pl = [dt.Replicate() if is_split(p, last) else p for p in logits.placements]
+    part_pl = [dt.Partial() if is_split(p, last) else p for p in logits.placements]
+
+    def seg_max(lg):
+        m = torch.stack([lg[..., lo:hi].amax(-1) if hi > lo
+                         else lg.new_full(lg.shape[:-1], float("-inf"))
+                         for _, lo, hi in _segments(first, lg.shape[-1], total, groups)], -1)
+        for pg in pgs:
+            m = funcol.all_reduce(m, "max", pg)
+        return m
+
+    def seg_sum(lg, m):
+        return torch.stack([(lg[..., lo:hi] - m[..., k, None]).exp().sum(-1) if hi > lo
+                            else lg.new_zeros(lg.shape[:-1])
+                            for k, lo, hi in _segments(first, lg.shape[-1], total, groups)], -1)
+
+    m = _local_map(seg_max, whole_pl, mesh, (logits.placements,))(logits.detach())
+    s = _local_map(seg_sum, part_pl, mesh, (logits.placements, whole_pl))(logits, m)
+    out = reduced(s).log() + m
+    return out[..., 0] if groups == 1 else out
 
 
 def cached_attention(q, k_cache, v_cache, pos, scores_fn, sliding_window=None):
@@ -401,3 +531,82 @@ def cache_write(write, cache, new, pos, valid):
     _local_map(lambda c, n, p, v: write(c, n, p - s_first, v), list(cache.placements),
                mesh)(cache, new, pos, valid)
     return cache
+
+
+def mla_cached_attention(parts, q_nope, q_rope, w_uk, w_uv, c_cache, r_cache, pos):
+    """MLA's absorbed-matrix serving attention (``models.attention.
+    mla_decode``) on DTensor caches in the cache rules' layout: c_cache (B,
+    S, r) and r_cache (B, S, dr), queries q_nope (B, C, H, dn) and q_rope
+    (B, C, H, dr) (roped), W_uk (r, H dn) and W_uv (r, H dv) with their
+    heads on the model ranks. ``parts``: the plain pieces
+    (``models.attention.MLAParts``). Each rank computes its own heads for
+    its batch rows. On each mesh dim the cache splits:
+
+      * its latent (the rules' default ``"lora"`` mode): the rank's latent
+        and rope-key columns are all-gathered there before the scores (the
+        whole latent of its batch rows, one layer at a time; why not
+        all-reduce partial scores instead: ROADMAP §3);
+      * its sequence (``mla_cache_seq_shard``): each rank scores its block
+        of keys for every head (the absorbed queries all-gathered over the
+        head split, a (B, C, H, r) tensor) and the softmax and the context
+        are combined across the ranks, flash-decode style; the rank then
+        keeps its own heads' context;
+      * nothing (``mla_replicate_cache``): no collective.
+
+    Returns the (B, C, H, dv) float32 output, heads split as the weights'."""
+    import torch.distributed._functional_collectives as funcol
+
+    dt = _dt()
+    mesh = c_cache.device_mesh
+    pl = c_cache.placements
+    b, h = q_nope.shape[0], q_nope.shape[2]
+    heads = [i for i, p in enumerate(w_uk.placements) if is_split(p, 1)]
+    n = 1
+    for i in heads:
+        n *= mesh.size(i)
+    if h % n or any(is_split(pl[i], 0) for i in heads):
+        raise NotImplementedError(f"MLA serving: {h} heads over the {n} ranks that split "
+                                  "W_uk, or a cache whose batch they split")
+    q_pl = [dt.Shard(2) if i in heads else dt.Shard(0) if is_split(p, 0) else dt.Replicate()
+            for i, p in enumerate(pl)]
+    row_pl = [dt.Shard(0) if is_split(p, 0) else dt.Replicate() for p in pl]
+    w_pl = [dt.Shard(1) if i in heads else dt.Replicate() for i in range(mesh.ndim)]
+    q_nope, q_rope = _to(q_nope, q_pl), _to(q_rope, q_pl)
+    w_uk, w_uv = _to(w_uk, w_pl), _to(w_uv, w_pl)
+    pos = _to(as_dtensor(pos.expand(b) if pos.ndim == 0 else pos, mesh), row_pl)
+    latent = [mesh.get_group(i) for i, p in enumerate(pl) if is_split(p, 2)]
+    seq = [mesh.get_group(i) for i, p in enumerate(pl) if is_split(p, 1)]
+    gather_heads = [mesh.get_group(i) for i in heads if is_split(pl[i], 1)]
+    _, s_first = local_rows(c_cache, 1)
+    h_loc, h_first = local_rows(q_nope, 2)
+
+    def local(qn, qr, wuk, wuv, cc, rc, p):
+        for grp in reversed(latent):  # minor mesh dim first: data-major blocks
+            cc = funcol.all_gather_tensor(cc, 2, grp)
+            rc = funcol.all_gather_tensor(rc, 2, grp)
+        q_c = parts.absorb(qn, wuk)  # (b, c, h_l, r) float32
+        qr = qr.float()
+        for grp in gather_heads:
+            q_c = funcol.all_gather_tensor(q_c, 2, grp)
+            qr = funcol.all_gather_tensor(qr, 2, grp)
+        scores = parts.scores(q_c, qr, cc, rc, p, s_first)  # (b, H, c, s)
+        if not seq:
+            ctx = parts.context(torch.softmax(scores, dim=-1), cc)
+        else:
+            m = scores.amax(dim=-1, keepdim=True)
+            for grp in seq:
+                m = funcol.all_reduce(m, "max", grp)
+            e = torch.exp(scores - m)
+            norm = e.sum(dim=-1, keepdim=True)
+            ctx = parts.context(e, cc)
+            for grp in seq:
+                norm = funcol.all_reduce(norm, "sum", grp)
+                ctx = funcol.all_reduce(ctx, "sum", grp)
+            ctx = ctx / norm.permute(0, 2, 1, 3)
+        if gather_heads:
+            ctx = ctx[:, :, h_first:h_first + h_loc]
+        return parts.values(ctx, wuv)
+
+    return _local_map(local, q_pl, mesh, (q_pl, q_pl, w_pl, w_pl, pl, r_cache.placements,
+                                          row_pl))(q_nope, q_rope, w_uk, w_uv, c_cache,
+                                                   r_cache, pos)

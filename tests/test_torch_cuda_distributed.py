@@ -128,7 +128,7 @@ def test_sharded_train_step_matches_the_plain_step(world, tmp_path):
 
 
 @pytest.mark.parametrize("orientation", ["data", "model"])
-@pytest.mark.parametrize("arch", ["multitask_lm", "mixtral_8x22b"])
+@pytest.mark.parametrize("arch", ["multitask_lm", "mixtral_8x22b", "deepseek_v2_236b"])
 def test_tensor_parallel_step_matches_the_plain_step(world, tmp_path, arch, orientation):
     for r in run_ranks(train_on_the_card, world, tmp_path, arch, ("data", None, "model"),
                        orientation, device="cuda"):

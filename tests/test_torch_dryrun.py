@@ -66,10 +66,11 @@ def _run(arch, shape, multi_pod):
     return _RUNS[key]
 
 
-def _reference_argument_bytes(arch, shape_name, multi_pod) -> int:
+def _reference_argument_bytes(arch, shape_name, multi_pod, **edits) -> int:
     """Per-device bytes of the reference dry run's arguments for one
-    combination (its ``prepare`` and ``run_one`` config edits), without
-    the TrainState's step."""
+    combination (its ``prepare`` and ``run_one`` config edits, and
+    ``edits``: a probe's depth, an MLA cache rule), without the
+    TrainState's step."""
     ax = jax_mesh_axes(multi_pod=multi_pod)
     mesh = AbstractMesh((2, 16, 16) if multi_pod else (16, 16),
                         ("pod", "data", "model") if multi_pod else ("data", "model"))
@@ -78,7 +79,7 @@ def _reference_argument_bytes(arch, shape_name, multi_pod) -> int:
     batch_ax = fsdp if shape.global_batch % ax.fsdp_size == 0 else None
     cfg = dataclasses.replace(jax_get(arch), num_tasks=ax.fsdp_size, moe_groups=ax.fsdp_size,
                               activation_sharding=(batch_ax, None, ax.model),
-                              logits_sharding=(batch_ax, None, ax.model))
+                              logits_sharding=(batch_ax, None, ax.model), **edits)
     model = JaxLM(cfg, dtype=jnp.bfloat16)
     key = jax.random.PRNGKey(0)
     batch = jax_input_specs(cfg, shape)
@@ -158,23 +159,89 @@ def test_remat_lowers_temp_bytes():
     assert 0 < temp[True] < temp[False], temp
 
 
+OUTSIDE = {("zamba2_7b", "train_4k"), ("xlstm_350m", "decode_32k"), ("olmo_1b", "long_500k")}
+
+
 @pytest.mark.parametrize("arch,shape", [
     ("zamba2_7b", "train_4k"), ("deepseek_v2_236b", "train_4k"), ("xlstm_350m", "decode_32k"),
     ("pixtral_12b", "prefill_32k"), ("musicgen_large", "train_4k"),
     ("mixtral_8x22b", "decode_32k"), ("olmo_1b", "long_500k"),
 ])
 def test_outside_the_tensor_parallel_scope_raises(arch, shape):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dryrun.run_one(arch, shape, False, False, None)
+    """The recurrent families, and long_500k of an arch that is not
+    ``long_context_ok``, raise naming the ROADMAP. The attention families'
+    cases (DeepSeek-V2, Pixtral, MusicGen, Mixtral's serving) run, at one
+    period on the 16 x 16 mesh (``probe_cfg``)."""
+    if (arch, shape) in OUTSIDE:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            dryrun.run_one(arch, shape, False, False, None)
+        return
+    assert shape in dryrun.applicable_shapes(arch)
+    mesh = make_fake_mesh(False)
+    sh = INPUT_SHAPES[shape]
+    r = dryrun.account(dryrun.probe_cfg(dryrun.combo_cfg(arch, sh, axes_of(mesh)), 1), sh, mesh)
+    assert r["cost"]["flops"] > 0 and r["memory"]["temp_bytes"] > 0
+    assert r["collectives"]["total_wire_bytes"] > 0
 
 
 def test_tp_archs_and_shapes():
+    """Every arch of the reference's dry run but the recurrent two, each at
+    the reference's shapes (long_500k for a ``long_context_ok`` arch):
+    28 combinations per mesh."""
     assert set(dryrun.TP_ARCHS) == {"olmo_1b", "qwen2_5_14b", "qwen1_5_110b",
-                                    "phi4_mini_3_8b", "multitask_lm", "mixtral_8x22b"}
+                                    "phi4_mini_3_8b", "multitask_lm", "mixtral_8x22b",
+                                    "deepseek_v2_236b", "pixtral_12b", "musicgen_large"}
     for arch in dryrun.TP_ARCHS:
-        want = ["train_4k"] if arch == "mixtral_8x22b" else ["train_4k", "prefill_32k",
-                                                             "decode_32k"]
+        want = ["train_4k", "prefill_32k", "decode_32k"]
+        if jax_get(arch).long_context_ok:  # the reference's applicable_shapes
+            want.append("long_500k")
         assert dryrun.applicable_shapes(arch) == want
+    assert dryrun.applicable_shapes("mixtral_8x22b")[-1] == "long_500k"
+    assert sum(len(dryrun.applicable_shapes(a)) for a in dryrun.TP_ARCHS) == 28
+    for arch in ("zamba2_7b", "xlstm_350m"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            dryrun.applicable_shapes(arch)
+
+
+FAMILY_COMBOS = [("deepseek_v2_236b", "decode_32k", "lora"),
+                 ("deepseek_v2_236b", "decode_32k", "replicate"),
+                 ("deepseek_v2_236b", "decode_32k", "seq"),
+                 ("mixtral_8x22b", "long_500k", "lora"), ("pixtral_12b", "decode_32k", "lora"),
+                 ("musicgen_large", "train_4k", "lora")]
+MLA_EDITS = {"lora": {}, "replicate": {"mla_replicate_cache": True},
+             "seq": {"mla_cache_seq_shard": True}}
+
+
+@pytest.mark.parametrize("arch,shape,mla_cache", FAMILY_COMBOS,
+                         ids=[f"{a}-{s}" + (f"-{m}" if a.startswith("deepseek") else "")
+                              for a, s, m in FAMILY_COMBOS])
+def test_family_argument_bytes_equal_the_reference_rules(arch, shape, mla_cache):
+    """The attention families' new combinations at two periods on 16 x 16:
+    the arguments' per-device bytes equal the reference rules' shard
+    shapes at the same depth (the three MLA cache rules at decode_32k)."""
+    mesh = make_fake_mesh(False)
+    sh = INPUT_SHAPES[shape]
+    cfg = dryrun.probe_cfg(dryrun.combo_cfg(arch, sh, axes_of(mesh), mla_cache=mla_cache), 2)
+    r = dryrun.account(cfg, sh, mesh)
+    assert r["memory"]["argument_bytes"] == _reference_argument_bytes(
+        arch, shape, False, num_layers=cfg.num_layers, **MLA_EDITS[mla_cache])
+    assert r["memory"]["temp_bytes"] > 0 and r["collectives"]["total_wire_bytes"] > 0
+
+
+def test_musicgen_train_never_gathers_its_logits():
+    """MusicGen's train_4k (two periods, 16 x 16): no all-gather as large
+    as a data shard's (B / 16, S, K V) float32 logits, 2 GiB (a rank's
+    vocab shard is a quarter of a codebook; the loss reduces each
+    codebook's columns where they lie)."""
+    mesh = make_fake_mesh(False)
+    sh = INPUT_SHAPES["train_4k"]
+    cfg = dryrun.probe_cfg(dryrun.combo_cfg("musicgen_large", sh, axes_of(mesh)), 2)
+    fn, args = dryrun.prepare(cfg, sh, mesh)
+    _, summary, rec = dryrun.record(fn, args, dryrun.mesh_groups(mesh))
+    logits = sh.global_batch // 16 * sh.seq_len * cfg.vocab_size * cfg.num_codebooks * 4
+    gathers = [c for c in rec.collectives if c["kind"] == "all-gather"]
+    assert gathers and max(c["bytes"] for c in gathers) < logits
+    assert summary["collectives"]["all-reduce"]["count"] > 0  # the loss's small reductions
 
 
 def test_cli_writes_the_reference_keys(tmp_path, capsys):

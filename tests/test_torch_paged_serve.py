@@ -42,6 +42,19 @@ MAX_SEQ = 48
 _CACHE = {}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def reference_cow_cache_cleared():
+    """The JAX package's ``make_cow_copy`` is an lru_cache keyed by the
+    paging spec, and its jitted function keeps the traces of this module's
+    reference runs: cleared after the module, so that a later module in
+    the same process starts from no trace (tests/test_serve_prefix.py
+    counts the traces of this spec's copy)."""
+    yield
+    from repro.serve.step import make_cow_copy
+
+    make_cow_copy.cache_clear()
+
+
 def _models(arch, backend="kernel"):
     """(JAX model, JAX params, port model on the CPU with the same weights)."""
     if arch not in _CACHE:

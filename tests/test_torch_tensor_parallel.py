@@ -211,7 +211,7 @@ def test_tp_decode_matches_the_plain_decode(overrides, split, tmp_path):
     within 1e-5."""
     seq = 1024
     r = run_ranks(tp_decode, 4, tmp_path, overrides, seq)[0]
-    cfg = tp_config("olmo_1b", **(overrides or {}))
+    cfg = tp_config("olmo_1b", attn_backend="plain", **(overrides or {}))
     model = tp_model(cfg)
     caches = tp_caches(model, seq)
     batch, pos = tp_decode_inputs(cfg, seq)
@@ -270,6 +270,26 @@ def test_constraints_are_noops_on_plain_tensors():
 @pytest.mark.parametrize("arch", ["deepseek_v2_236b", "zamba2_7b", "xlstm_350m", "pixtral_12b",
                                   "musicgen_large"])
 def test_other_families_raise(arch):
+    """The recurrent families (Zamba2, xLSTM) raise, naming the ROADMAP.
+    The attention families' cases run: the sharded train step of the
+    smoke model (the 2 x 2 layouts' constraints) on a (1, 1) fake mesh of
+    meta DTensors, through the dry run's accounting (the 2 x 2 gloo runs
+    are tests/test_torch_tensor_parallel_families.py's)."""
     model = TransformerLM(get(arch, smoke=True), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 3"):
-        sharded_step(model, None)
+    if arch in ("zamba2_7b", "xlstm_350m"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 3"):
+            sharded_step(model, None)
+        return
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import account
+    from repro_torch.launch.mesh import make_fake_mesh
+    from repro_torch.launch.specs import InputShape
+
+    assert callable(sharded_step(model, None))
+    try:
+        r = account(tp_config(arch), InputShape("train_2x32", 32, 2, "train"),
+                    make_fake_mesh(shape=(1, 1)), dtype=torch.float32)
+    finally:
+        dist.destroy_process_group()
+    assert r["cost"]["flops"] > 0 and r["memory"]["alias_bytes"] > 0

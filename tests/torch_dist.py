@@ -171,13 +171,21 @@ def tp_config(arch: str, fsdp_gather_moe: bool = False, **overrides):
 
 
 def tp_batch(cfg, seed: int = 0) -> dict:
-    """A (4, 32) batch of the tensor-parallel tests, two rows per task."""
+    """A (4, 32) batch of the tensor-parallel tests, two rows per task:
+    (4, 32, K) tokens and labels for an audio model; a VLM's also carries
+    vision rows (4, 32, d) at a seeded quarter of its positions."""
     import torch
 
     rng = np.random.default_rng(seed)
-    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 32), dtype=np.int64)),
-            "labels": torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 32), dtype=np.int64)),
-            "task_ids": torch.as_tensor(np.asarray([0, 0, 1, 1], np.int64))}
+    lead = (4, 32) + ((cfg.num_codebooks,) if cfg.input_mode == "audio" else ())
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, lead, dtype=np.int64)),
+             "labels": torch.as_tensor(rng.integers(0, cfg.vocab_size, lead, dtype=np.int64)),
+             "task_ids": torch.as_tensor(np.asarray([0, 0, 1, 1], np.int64))}
+    if cfg.input_mode == "vlm":
+        batch["vision_embeds"] = torch.as_tensor(
+            rng.standard_normal((4, 32, cfg.d_model)).astype(np.float32))
+        batch["vision_mask"] = torch.as_tensor(rng.random((4, 32)) < 0.25)
+    return batch
 
 
 def tp_model(cfg, params_path=None):
@@ -241,25 +249,18 @@ def tp_decode(rank, world, overrides, seq):
     fsdp, caches of ``seq`` rows in the cache rules' layout (kv heads on the
     model axis, or the sequence where they do not divide it), filled from a
     seed; the logits and the written caches as full arrays."""
-    import torch
-    from torch.distributed.tensor import distribute_tensor
-    from torch.distributed.tensor.experimental import implicit_replication
-
     from repro_torch.launch.mesh import axes_of, make_smoke_mesh
-    from repro_torch.sharding import cache_specs, fsdp_gathered, placements, shard_state
+    from repro_torch.sharding import shard_caches, shard_state, sharded_serving
     from repro_torch.train.trainer import TrainState
 
-    cfg = tp_config("olmo_1b", **(overrides or {}))
+    cfg = tp_config("olmo_1b", attn_backend="plain", **(overrides or {}))
     model = tp_model(cfg)
     mesh = make_smoke_mesh(device="cpu")
     axes = axes_of(mesh)
-    caches = tp_caches(model, seq)
-    specs = cache_specs(cfg, caches, axes)
     shard_state(model, TrainState(dict(model.named_parameters()), (), 0), mesh, axes)
-    dcaches = [tuple(distribute_tensor(t, mesh, placements(sp, mesh)) for t, sp in zip(e, es))
-               for e, es in zip(caches, specs)]
+    dcaches = shard_caches(cfg, tp_caches(model, seq), mesh, axes)
     batch, pos = tp_decode_inputs(cfg, seq)
-    with fsdp_gathered(model), implicit_replication():
+    with sharded_serving(model):
         logits, _ = model.decode_step(batch, dcaches, pos)
     return {"logits": _np(logits.full_tensor()),
             "caches": [[_np(t.full_tensor()) for t in e] for e in dcaches],
@@ -281,3 +282,109 @@ def tp_decode_inputs(cfg, seq):
     batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 1))),
              "task_ids": torch.as_tensor(np.asarray([0, 1, 1, 0]))}
     return batch, torch.as_tensor(np.asarray([3, seq // 2 + 5, seq - 1, 0], np.int32))
+
+
+# ------------------------------------------- the attention families' programs
+SERVE_TICKS = 8  # greedy decode ticks after the prefill chunk
+
+
+def tp_serve_inputs(cfg, batch_size: int, seq: int, chunk: int = 16, start=None):
+    """The serving run of the tensor-parallel tests: a (B, chunk) prefill
+    chunk from per-slot positions ``start`` (rows of unequal valid length,
+    a VLM's with vision rows at a few positions, an audio model's (B, C, K)
+    codebook tokens) and the task ids; seeded."""
+    import torch
+
+    rng = np.random.default_rng(3)
+    if start is None:
+        start = [3, seq // 2 - 6, seq - chunk - SERVE_TICKS - 1, 0][:batch_size]
+    lens = [chunk, 10, chunk, 5][:batch_size]
+    lead = (batch_size, chunk) + ((cfg.num_codebooks,) if cfg.input_mode == "audio" else ())
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, lead)),
+             "task_ids": torch.as_tensor(np.arange(batch_size) % 2)}
+    if cfg.input_mode == "vlm":
+        batch["vision_embeds"] = torch.as_tensor(
+            rng.standard_normal((batch_size, chunk, cfg.d_model)).astype(np.float32))
+        batch["vision_mask"] = torch.as_tensor(rng.random((batch_size, chunk)) < 0.3)
+    valid = torch.as_tensor(np.arange(chunk)[None, :] < np.asarray(lens)[:, None])
+    return batch, torch.as_tensor(np.asarray(start, np.int32)), valid
+
+
+def tp_serve(model, caches, cfg, batch_size, seq, start=None):
+    """``prefill_step`` of ``tp_serve_inputs``'s chunk, then SERVE_TICKS
+    greedy ``decode_step`` ticks (one lane dead on the third), on
+    ``caches`` (plain, or DTensors under ``sharding.sharded_serving``: the
+    inputs then join replicated). Returns the logits of every step as full (B, 1, K, V) or
+    (B, 1, V) arrays, the greedy tokens and the caches as arrays."""
+    import torch
+
+    def full(t):
+        t = t.full_tensor() if hasattr(t, "full_tensor") else t
+        return _np(t.reshape(t.shape[:2] + ((cfg.num_codebooks, cfg.vocab_size)
+                                            if cfg.num_codebooks > 1 else (cfg.vocab_size,))))
+
+    batch, pos, valid = tp_serve_inputs(cfg, batch_size, seq, start=start)
+    logits, _ = model.prefill_step(batch, caches, pos, valid)
+    out, toks = [full(logits)], []
+    pos = pos + valid.sum(1).to(torch.int32)
+    for tick in range(SERVE_TICKS):
+        tok = torch.as_tensor(out[-1].argmax(-1))  # (B, 1) or (B, 1, K)
+        toks.append(_np(tok))
+        live = torch.ones(batch_size, dtype=torch.bool)
+        if tick == 2:
+            live[-1] = False
+        step = {"tokens": tok, "task_ids": batch["task_ids"]}
+        logits, _ = model.decode_step(step, caches, pos, live=live)
+        out.append(full(logits))
+        pos = pos + live.to(torch.int32)
+    return {"logits": out, "tokens": toks,
+            "caches": [[_np(t.full_tensor() if hasattr(t, "full_tensor") else t) for t in e]
+                       for e in caches]}
+
+
+def tp_serve_caches(model, batch_size, seq):
+    """Seeded caches of ``model`` (B, seq): every row filled, so the rows
+    the chunk and the ticks do not write hold keys too."""
+    import torch
+
+    g = torch.Generator().manual_seed(1)
+    return [tuple(torch.randn(t.shape, generator=g) for t in e)
+            for e in model.init_cache(batch_size, seq)]
+
+
+def tp_family(rank, world, arch, overrides, params_path, serve_cases, seq=1024):
+    """The attention families' program on a 2 x 2 mesh: one SGD and one
+    AdamW step of ``arch``'s smoke model (``overrides`` applied; the JAX
+    weights of ``params_path``) through ``sharding.sharded_step``, the SGD
+    one under the dry run's recorder; then, for each serving case
+    (``{"batch": B, "start": [...] or None, **config overrides}``), the
+    prefill chunk and the greedy ticks of ``tp_serve`` on DTensor caches in
+    the cache rules' layout. Returns the steps' records (as ``tp_step``'s)
+    and the serving runs with their caches' placements."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import axes_of, make_smoke_mesh
+    from repro_torch.sharding import shard_caches, shard_state, sharded_serving
+    from repro_torch.sharding.tensor_parallel import local_rows
+    from repro_torch.train.trainer import TrainState
+
+    out = {"steps": {opt: tp_step(rank, world, arch, opt, False, params_path, overrides)
+                     for opt in ("sgd", "adamw")}}
+    mesh = make_smoke_mesh(device="cpu")
+    axes = axes_of(mesh)
+    out["serve"] = []
+    for case in serve_cases:
+        case = dict(case)
+        b, start = case.pop("batch"), case.pop("start", None)
+        cfg = dataclasses.replace(tp_config(arch, **(overrides or {})), attn_backend="plain",
+                                  **case)
+        model = tp_model(cfg, params_path)
+        shard_state(model, TrainState(dict(model.named_parameters()), (), 0), mesh, axes)
+        dcaches = shard_caches(cfg, tp_serve_caches(model, b, seq), mesh, axes)
+        with sharded_serving(model):
+            run = tp_serve(model, dcaches, cfg, b, seq, start=start)
+        run["cache_placements"] = [repr(tuple(t.placements)) for t in dcaches[0]]
+        run["cache_rows"] = local_rows(dcaches[0][0], 1)  # (rows here, the first's index)
+        run["coordinate"] = list(mesh.get_coordinate())
+        out["serve"].append(run)
+    return out

@@ -408,21 +408,25 @@ Phases; each raises on failure, and then no result line is printed:
                 constrained to DIST_TP_SPEC (tensor-parallel over the model
                 axis; at W = 1 plumbing), and then for each family of
                 DIST_TP_FAMILIES (DeepSeek-V2 one layer, Pixtral and
-                MusicGen two, full width, each at its own phase's SGD
-                steps and batch): the plain step, then the tensor-parallel
+                MusicGen two, Zamba2 one period (6 layers) and xLSTM one
+                period (8 layers, 2 x 64 tokens), full width, each at its
+                own phase's SGD steps and batch): the plain step, then the
+                tensor-parallel
                 one from the same weights, the same limits (CUDA's float
                 atomics made deterministic, so W = 1 compares bit for bit);
                 (e) in a process of its own running beside the ranks (a
                 fake process group on the host, two torch threads): the
                 dry run (repro_torch.launch.dryrun) of
-                DIST_DRYRUN on the 16 x 16 mesh (with Mixtral's long_500k,
-                DeepSeek-V2's, Pixtral's and MusicGen's decode_32k), each
+                DIST_DRYRUN on the 16 x 16 mesh (with Mixtral's and
+                Zamba2's long_500k, DeepSeek-V2's, Pixtral's, MusicGen's
+                and xLSTM's decode_32k), each
                 logged as a {"dryrun": ...} JSON line with its host
                 seconds, and of (c)'s step on a (1, 1) fake mesh, whose
                 argument_bytes + temp_bytes must lie within
                 DIST_MEMORY_RTOL of (c)'s measured peak; (f) for each
                 family of DIST_SERVE (Mixtral two layers, DeepSeek-V2 one,
-                Pixtral and MusicGen two; full width, plain attention): one
+                Pixtral and MusicGen two, Zamba2 six, xLSTM eight; full
+                width, plain attention): one
                 16-token prefill chunk and DIST_SERVE_TICKS greedy decode
                 ticks on 8192-row caches (deterministic, as (d)), served plain and then
                 tensor-parallel on DTensor caches in the cache rules'
@@ -3750,15 +3754,21 @@ DIST_TP_SPEC = ("data", None, "model")  # 19(d): the residual stream and the log
 DIST_MEMORY_RTOL = 0.25  # 19(e): the dry run's step memory against 19(c)'s measured peak
 DIST_DRYRUN = (("olmo_1b", "decode_32k"), ("multitask_lm", "train_4k"),  # at 16 x 16
                ("mixtral_8x22b", "long_500k"), ("deepseek_v2_236b", "decode_32k"),
-               ("pixtral_12b", "decode_32k"), ("musicgen_large", "decode_32k"))
+               ("pixtral_12b", "decode_32k"), ("musicgen_large", "decode_32k"),
+               ("zamba2_7b", "long_500k"), ("xlstm_350m", "decode_32k"))
+# 19(d)'s xLSTM step: short sequences (the sequential cell pays DTensor's
+# host dispatch per op of each token's step)
+DIST_XLSTM_TRAIN = {"batch": 2, "seq": 64, "steps": 2, "lr": 1e-2}
 # 19(d): the other attention families' tensor-parallel train step, each at
 # its own phase's depth and batch (SGD, as there)
 DIST_TP_FAMILIES = (("deepseek_v2_236b", 1, MLA_TRAIN),
                     ("pixtral_12b", VLM_TRAIN_LAYERS, VLM_TRAIN),
-                    ("musicgen_large", 2, AUDIO_TRAIN))
+                    ("musicgen_large", 2, AUDIO_TRAIN),
+                    ("zamba2_7b", 6, HYBRID_TRAIN),  # one period: 5 mamba + the shared block
+                    ("xlstm_350m", 8, DIST_XLSTM_TRAIN))  # one period: 7 mLSTM + 1 sLSTM
 # 19(f): tensor-parallel serving on DTensor caches, full width at these depths
 DIST_SERVE = (("mixtral_8x22b", 2), ("deepseek_v2_236b", 1), ("pixtral_12b", 2),
-              ("musicgen_large", 2))
+              ("musicgen_large", 2), ("zamba2_7b", 6), ("xlstm_350m", 8))
 DIST_SERVE_SEQ = 8192  # cache rows: past Mixtral's 4096-token window
 DIST_SERVE_CHUNK = 16
 DIST_SERVE_START = (3, 4500, DIST_SERVE_SEQ - DIST_SERVE_CHUNK - 9, 0)
@@ -4095,10 +4105,16 @@ def dist_serve_run(torch, np, model, caches, cfg, dev):
 
 def dist_serve_caches(torch, model, dev):
     """Seeded (4, DIST_SERVE_SEQ) caches of ``model``: every row filled, so
-    the rows the run does not write hold keys too."""
+    the rows the run does not write hold keys too, and a recurrent layer's
+    state is one a run could reach (an sLSTM normalizer n >= 1)."""
     g = torch.Generator(device=dev).manual_seed(DIST_SEED)
-    return [tuple(torch.randn(t.shape, generator=g, device=dev, dtype=t.dtype) for t in e)
-            for e in model.init_cache(len(DIST_SERVE_START), DIST_SERVE_SEQ)]
+    out = []
+    for kind, e in zip(model.kinds, model.init_cache(len(DIST_SERVE_START), DIST_SERVE_SEQ)):
+        e = [torch.randn(t.shape, generator=g, device=dev, dtype=t.dtype) for t in e]
+        if kind == "slstm":
+            e[1] = e[1].abs() + 1.0
+        out.append(tuple(e))
+    return out
 
 
 def dist_serve(torch, np, rank, world, dev, smi, arch, layers):

@@ -59,7 +59,11 @@ STEP_FUNCTIONS = {
     "sharding/tensor_parallel.py": {"is_dtensor", "constrain", "tp_input", "split_ready",
                                     "mean_last", "settle", "contiguous_grad", "embedding",
                                     "_lookup", "whole", "match", "cached_attention",
-                                    "cache_write", "mla_cached_attention"},
+                                    "cache_write", "mla_cached_attention", "placed",
+                                    "model_axis", "shard_ranges", "held", "rows_like", "as_rows",
+                                    "weight_grad", "batch_dims", "columns_like", "on_ranks", "_wait",
+                                    "_all_to_all", "_exchange_plan", "_local_at",
+                                    "exchange", "swap_split", "all_gather", "all_reduce"},
     "models/attention.py": {"gqa_project", "masked_scores", "decode_attend", "cached_attend",
                             "_physical",
                             "paged_cache_write", "paged_cache_write_slab", "mla_decode",
@@ -68,11 +72,13 @@ STEP_FUNCTIONS = {
     "models/layers.py": {"matmul", "rms_norm", "layer_norm", "nonparam_layer_norm",
                          "apply_norm", "rope_frequencies", "apply_rope", "silu", "gelu",
                          "apply_mlp", "freeze_dead_slots", "apply_task_lora"},
-    "models/mamba2.py": {"dims", "_split_proj", "_causal_conv", "_softplus", "mamba2_full",
-                         "mamba2_step"},
-    "models/xlstm.py": {"_mlstm_cell", "_mlstm_qkvif", "_scan", "_chunked_scan",
-                        "_mask_if_gates", "mlstm_full", "mlstm_step", "slstm_full",
-                        "slstm_step", "mlstm_init_state", "slstm_init_state"},
+    "models/mamba2.py": {"dims", "_split_proj", "_causal_conv", "_softplus", "_ssd", "_recur",
+                         "_vecs", "mamba2_full", "mamba2_step", "_on_heads"},
+    "models/xlstm.py": {"_mlstm_update", "_mlstm_readout", "_mlstm_cell", "_root",
+                        "_mlstm_qkvif", "_scan", "_chunked_scan", "_mask_if_gates", "_steps",
+                        "_mlstm", "mlstm_full", "mlstm_step", "_value_block", "_key_split",
+                        "_mlstm_tp", "_mlstm_decode_tp", "_slstm_scan", "slstm_full",
+                        "_slstm_tp", "slstm_step", "mlstm_init_state", "slstm_init_state"},
     "models/moe.py": {"_experts", "_moe_groups", "apply_moe"},
     "kernels/runtime.py": {"pos_vector", "gather_pages", "check_kernel_inputs",
                            "check_block_table", "check_launch", "window_arg"},

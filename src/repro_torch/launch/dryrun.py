@@ -48,18 +48,28 @@ shard), ``activation_sharding`` = (batch axis, None, model) (``--act-shard``:
 the model in bfloat16, as the reference's; attention through the plain
 backend (the CUDA kernels run on the card only).
 
-Scope: ``TP_ARCHS`` (the attention families, whose forward runs
-tensor-parallel, ``sharding.check_tensor_parallel``: dense, Mixtral,
-DeepSeek-V2's MLA, Pixtral, MusicGen) at the reference's shapes
-(``applicable_shapes``): train_4k, prefill_32k and decode_32k, and
-long_500k for a ``long_context_ok`` arch (Mixtral). Zamba2 and xLSTM
-raise ``NotImplementedError`` (ROADMAP §1 item 3). prefill_32k runs
-``prefill_step`` over the ``cache_specs`` caches in ``q_chunk``-token
-chunks; decode_32k one ``decode_step`` token against a 32768-token cache,
-long_500k against a 524288-token one (batch 1: the rules split its
-sequence over both mesh dims). ``--mla-cache`` picks an MLA cache's rule
-(``lora``, the default: its latent on the model axis; ``replicate``;
-``seq``: its sequence there).
+Scope: ``TP_ARCHS``, every arch of the reference's dry run (all but
+``multitask_linreg``), whose forward runs tensor-parallel
+(``sharding.check_tensor_parallel``: dense, Mixtral, DeepSeek-V2's MLA,
+Pixtral, MusicGen, Zamba2's Mamba2 hybrid, xLSTM), at the reference's
+shapes (``applicable_shapes``): train_4k, prefill_32k and decode_32k, and
+long_500k for a ``long_context_ok`` arch (Mixtral, Zamba2, xLSTM): 36
+combinations a mesh. prefill_32k runs ``prefill_step`` over the
+``cache_specs`` caches in ``q_chunk``-token chunks; decode_32k one
+``decode_step`` token against a 32768-token cache, long_500k against a
+524288-token one (batch 1: the rules split an attention cache's sequence
+over the data dims, and over the model dim too where its kv heads do not
+divide it). ``--mla-cache`` picks an MLA cache's rule (``lora``, the
+default: its latent on the model axis; ``replicate``; ``seq``: its
+sequence there).
+
+xLSTM's train_4k and prefill_32k are extrapolated in time
+(``account_in_time``): its cells run one step per token, and on ``meta``
+tensors each step's ops cost ~0.3 ms apiece on the host, so the program
+runs at two short lengths (``TIME_PROBES``; prefill also at two calls) and
+every count is carried exactly to the shape's length; the JSON says so
+(``"time_extrapolated": {"from": [8, 16], "to": 4096, ...}``). Zamba2 runs
+directly (its SSD loops once per 128-token chunk).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch olmo_1b --shape decode_32k --out DIR
@@ -103,7 +113,8 @@ from repro_torch.train import init_state, make_train_step
 from repro_torch.train.trainer import TrainState
 
 TP_ARCHS = ("olmo_1b", "qwen2_5_14b", "qwen1_5_110b", "phi4_mini_3_8b", "multitask_lm",
-            "mixtral_8x22b", "deepseek_v2_236b", "pixtral_12b", "musicgen_large")
+            "mixtral_8x22b", "deepseek_v2_236b", "pixtral_12b", "musicgen_large",
+            "zamba2_7b", "xlstm_350m")
 SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 LONG_SHAPE = "long_500k"
 MLA_CACHE = {"lora": {}, "replicate": {"mla_replicate_cache": True},
@@ -114,14 +125,17 @@ _KINDS = {"all_gather_into_tensor": "all-gather", "all_reduce": "all-reduce",
           "reduce_scatter_tensor": "reduce-scatter", "all_to_all_single": "all-to-all"}
 
 
+TIME_PROBES = (8, 16)  # the short lengths of an xLSTM sequence shape's time extrapolation
+
+
 def applicable_shapes(arch: str) -> list[str]:
     """The input shapes the dry run covers for ``arch``, the reference's:
     every shape but long_500k, which only a ``long_context_ok`` arch runs;
-    raises ``NotImplementedError`` outside ``TP_ARCHS``."""
+    raises ``NotImplementedError`` outside ``TP_ARCHS`` (every arch of the
+    reference's dry run)."""
     if arch not in TP_ARCHS:
-        raise NotImplementedError(f"{arch}: the dry run covers {TP_ARCHS}, whose forward "
-                                  "runs tensor-parallel; the recurrent families wait "
-                                  "(ROADMAP §1 item 3)")
+        raise NotImplementedError(f"{arch}: the dry run covers {TP_ARCHS}, the reference "
+                                  "dry run's archs")
     return list(SHAPES) + ([LONG_SHAPE] if get(arch).long_context_ok else [])
 
 
@@ -319,10 +333,97 @@ def prepare(cfg: ArchConfig, shape: InputShape, mesh, dtype=torch.bfloat16):
 
 def account(cfg: ArchConfig, shape: InputShape, mesh, dtype=torch.bfloat16) -> dict:
     """The dry run's record of one combination on ``mesh`` (see the module
-    docstring)."""
+    docstring); an xLSTM sequence shape's through ``account_in_time``."""
+    if time_extrapolated(cfg, shape):
+        return account_in_time(cfg, shape, mesh, dtype)
     fn, args = prepare(cfg, shape, mesh, dtype)
     _, summary, _ = record(fn, args, mesh_groups(mesh))
     return summary
+
+
+def time_extrapolated(cfg: ArchConfig, shape: InputShape) -> bool:
+    """Whether the combination's record is extrapolated in time: a
+    sequence shape (train, prefill) of a model of xLSTM layers only, whose
+    cells run one step per token as Python loops (on ``meta`` tensors a
+    step's ops cost ~0.3 ms each on the host: train_4k directly would take
+    hours)."""
+    return shape.kind != "decode" and all(k in ("mlstm", "slstm") for k in cfg.layer_kinds())
+
+
+def _nums(f, *records):
+    """``f`` applied to the numbers at each place of same-shaped records
+    (nested dicts; a key one lacks counts as zero there)."""
+    if any(isinstance(r, dict) for r in records):
+        keys = set().union(*(r for r in records if isinstance(r, dict)))
+        sub = next(r for r in records if isinstance(r, dict))
+        zero = {} if isinstance(next(iter(sub.values()), 0), dict) else 0
+        return {k: _nums(f, *(r.get(k, zero) if isinstance(r, dict) else r for r in records))
+                for k in keys}
+    return f(*records)
+
+
+def _exact(num: int, den: int) -> int:
+    if num % den:
+        raise ValueError(f"time extrapolation: {num} / {den} is not exact")
+    return num // den
+
+
+def account_in_time(cfg: ArchConfig, shape: InputShape, mesh, dtype=torch.bfloat16,
+                    probes: tuple[int, int] = TIME_PROBES) -> dict:
+    """``account`` of an xLSTM sequence shape from runs at the short
+    lengths ``probes`` = (c1, c2), extrapolated exactly to the shape: every
+    op of an xLSTM layer is per token or per call, so a call's FLOPs,
+    bytes accessed and collectives (counts and bytes) are a + b tokens —
+    the port's counterpart of the reference's probe1 + (P - 1) (probe2 -
+    probe1) over depth.
+
+      * Train (one call of seq_len tokens): runs A (c1 tokens) and C (c2),
+        every number on the line through them at seq_len.
+      * Prefill (seq_len / q_chunk calls of q_chunk tokens inside one
+        ``sharded_serving``, whose fsdp gathers happen once a run): A (one
+        call of c1), B (two calls of c1) and C (one call of c2). A call of
+        c tokens costs (B - A) + (c - c1) (C - A) / (c2 - c1), the run's
+        own part is 2 A - B, and cost and collectives are that part plus
+        the calls'; temp bytes are a call's peak on the A-C line plus what
+        a later call holds of the one before (B - A); output and alias
+        bytes a call's.
+
+    Argument bytes (the batch holds every token) lie on the A-C line at
+    seq_len. The record says so (``time_extrapolated``); ``run_s`` is the
+    runs' host seconds."""
+    c1, c2 = probes
+    prefill = shape.kind == "prefill"
+    chunk = min(cfg.q_chunk, shape.seq_len) if prefill else shape.seq_len
+    calls = shape.seq_len // chunk
+
+    def run(seq, per_call):
+        fn, args = prepare(dataclasses.replace(cfg, q_chunk=per_call),
+                           dataclasses.replace(shape, seq_len=seq), mesh, dtype)
+        return record(fn, args, mesh_groups(mesh))[1]
+
+    def line(x):  # A-C line at x
+        return lambda a, c: a + _exact((x - c1) * (c - a), c2 - c1)
+
+    ra, rc = run(c1, c1), run(c2, c2)
+    out = {"run_s": ra["run_s"] + rc["run_s"],
+           "time_extrapolated": {"from": list(probes), "to": shape.seq_len, "calls": calls,
+                                 "tokens_a_call": chunk}}
+    if not prefill:
+        out.update({k: _nums(line(chunk), ra[k], rc[k])
+                    for k in ("memory", "cost", "collectives")})
+        return out
+    rb = run(2 * c1, c1)
+    out["run_s"] += rb["run_s"]
+    for k in ("cost", "collectives"):
+        out[k] = _nums(lambda a, b, c: 2 * a - b + calls * (b - a + line(chunk)(0, c - a)),
+                       ra[k], rb[k], rc[k])
+    mem = _nums(line(chunk), ra["memory"], rc["memory"])
+    if calls > 1:
+        mem["temp_bytes"] += rb["memory"]["temp_bytes"] - ra["memory"]["temp_bytes"]
+    mem["argument_bytes"] = line(shape.seq_len)(ra["memory"]["argument_bytes"],
+                                                rc["memory"]["argument_bytes"])
+    out["memory"] = mem
+    return out
 
 
 def probe_cfg(cfg: ArchConfig, periods: int) -> ArchConfig:
@@ -352,7 +453,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, probes: bool, out_dir: 
     for another MLA cache rule) unless ``out_dir`` is None."""
     if shape_name not in applicable_shapes(arch):
         raise NotImplementedError(f"{arch} {shape_name}: the dry run covers "
-                                  f"{applicable_shapes(arch)} (ROADMAP §1 item 3)")
+                                  f"{applicable_shapes(arch)} (long_500k: a long_context_ok "
+                                  "arch only, as the reference's)")
     shape = INPUT_SHAPES[shape_name]
     mesh = make_fake_mesh(multi_pod)
     cfg = combo_cfg(arch, shape, axes_of(mesh), activation_sharding, mla_cache)

@@ -13,7 +13,15 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.tensor_parallel import contiguous_grad, mean_last, settle, tp_input
+from repro_torch.sharding.tensor_parallel import (
+    as_rows,
+    contiguous_grad,
+    is_dtensor,
+    mean_last,
+    placed,
+    settle,
+    tp_input,
+)
 
 
 def dense_init(shape, generator: torch.Generator, in_axis: int = 0,
@@ -172,12 +180,18 @@ def freeze_dead_slots(new_state, state, live):
     The JAX model returns the masked state; here it is written into the
     old storage (a masked ``copy_``, never a rebinding), because a captured
     CUDA graph keeps reading and writing the tensors it was captured with.
-    Returns ``state``."""
+    Returns ``state``. DTensor states (the tensor-parallel serving steps)
+    are written on each rank's own shard, ``new_state`` in their
+    placements."""
     for old, new in zip(state, new_state):
-        if live is None:
+        rows = live
+        if is_dtensor(old):
+            rows = None if live is None else as_rows(live, old).to_local()
+            old, new = old.to_local(), placed(new, old.placements).to_local()
+        if rows is None:
             old.copy_(new)
         else:
-            mask = live.reshape((-1,) + (1,) * (old.ndim - 1))
+            mask = rows.reshape((-1,) + (1,) * (old.ndim - 1))
             old.copy_(torch.where(mask, new.to(old.dtype), old))
     return state
 

@@ -97,6 +97,7 @@ from repro_torch.models.layers import (
     apply_rope,
     apply_task_lora,
     dense_init,
+    freeze_dead_slots,
     init_mlp,
     init_norm,
     matmul,
@@ -736,8 +737,7 @@ class TransformerLM(nn.Module):
                 full = xlstm_lib.mlstm_full if kind == "mlstm" else xlstm_lib.slstm_full
                 out, state = full(p, h, n_heads=c.num_heads, chunk=c.xlstm_chunk,
                                   state=cache, valid=valid)
-            for t, new in zip(cache, state):
-                t.copy_(new)
+            freeze_dead_slots(state, cache, None)
             return out
 
         x, task_ad = self._run_layers(x, caches, pos, write, self._view(block_tables),

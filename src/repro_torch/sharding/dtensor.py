@@ -35,14 +35,18 @@ the model's in-forward constraints (``cfg.activation_sharding``,
 pieces (``repro_torch.sharding.tensor_parallel``: activations gathered for
 column-parallel products and reduce-scattered after row-parallel ones, the
 vocab-parallel embedding and loss, the MoE's shard-local dispatch). No
-weight is gathered over the model axis. Tensors the forward makes for
+weight is gathered over the model axis but Mamba2's depthwise conv weight
+(K, conv_dim), 58 KB a layer at Zamba2-7B in bfloat16. Tensors the forward makes for
 itself (positions, masks) join as replicated (``implicit_replication``).
-The scope is the attention families: dense (``olmo_1b``,
-``qwen2_5_14b``, ``qwen1_5_110b``, ``phi4_mini_3_8b``, ``multitask_lm``),
-the MoE (``mixtral_8x22b``), MLA with its MoE (``deepseek_v2_236b``), the
-VLM (``pixtral_12b``) and the audio model (``musicgen_large``); the
-recurrent families (``zamba2_7b``, ``xlstm_350m``) raise
-``NotImplementedError``.
+The scope is every family: dense (``olmo_1b``, ``qwen2_5_14b``,
+``qwen1_5_110b``, ``phi4_mini_3_8b``, ``multitask_lm``), the MoE
+(``mixtral_8x22b``), MLA with its MoE (``deepseek_v2_236b``), the VLM
+(``pixtral_12b``), the audio model (``musicgen_large``), Zamba2's Mamba2
+hybrid (``zamba2_7b``: the SSD over each model rank's heads, its columns
+moved by an all-to-all of the activation, ``models/mamba2._on_heads``) and
+xLSTM (``xlstm_350m``: the mLSTM split over the value dim, or over the
+key dim in a decode step on the cache rules' layout; the sLSTM
+recurrence replicated over the model ranks; ``models/xlstm.py``).
 """
 from __future__ import annotations
 
@@ -99,14 +103,18 @@ def shard_batch(batch: dict, mesh, axes: MeshAxes) -> dict:
 
 def check_tensor_parallel(cfg) -> None:
     """Raises ``NotImplementedError`` unless the model's forward runs
-    tensor-parallel on DTensors: the attention families, dense and MoE,
+    tensor-parallel on DTensors: the attention families (dense and MoE,
     GQA or MLA, over token ids, a VLM's vision inputs or an audio model's
-    codebooks; the recurrent families (Zamba2's hybrid, xLSTM) wait."""
-    if tuple(cfg.pattern) not in (("attn",), ("attn_moe",)):
+    codebooks), the Mamba2 hybrid (mamba layers closed by the shared
+    attention block) and xLSTM (mlstm / slstm layers)."""
+    pattern = tuple(cfg.pattern)
+    hybrid = (len(pattern) >= 2 and pattern[-1] == "shared_attn"
+              and all(k == "mamba" for k in pattern[:-1]))
+    xlstm = all(k in ("mlstm", "slstm") for k in pattern)
+    if not (pattern in (("attn",), ("attn_moe",)) or hybrid or xlstm):
         raise NotImplementedError(
-            f"{cfg.name}: the tensor-parallel sharded forward covers the attention families "
-            "(dense and MoE, GQA or MLA, every input mode); the recurrent families' waits "
-            "(ROADMAP §1 item 3)")
+            f"{cfg.name}: block pattern {pattern} has no tensor-parallel forward (the "
+            "attention families, the Mamba2 hybrid and xLSTM have)")
 
 
 @contextlib.contextmanager

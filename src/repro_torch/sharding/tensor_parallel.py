@@ -56,12 +56,27 @@ train step (``repro_torch.sharding.dtensor.sharded_step``) and the dry run
     caches, its heads on the model ranks: a latent split over them is
     all-gathered, a sequence split over them combined flash-decode style.
 
+The recurrent families' layers (``models/mamba2.py``, ``models/xlstm.py``)
+run their cells inside ``on_ranks`` regions (``local_map`` on the plain
+tensors of each rank) and move activations between layouts with:
+
+  * ``exchange(x, dim, have, want, axis)`` — the columns of a tensor dim
+    regrouped across the ranks of a mesh dim: each rank holds the global
+    column ranges ``have[r]`` and ends up with ``want[r]``, in one
+    all-to-all (a column held by several ranks is sent by one, the
+    receiver itself when it can; its gradient sums every reader's);
+  * ``swap_split(x, src, dst, axis)`` — a tensor split evenly over ``src``
+    re-split over ``dst`` (one all-to-all);
+  * ``all_gather`` / ``all_reduce`` on an axis (the serving steps').
+
 ``torch.distributed.tensor`` is imported only inside a function that has
 a DTensor in hand, so importing the model imports none of it.
 """
 from __future__ import annotations
 
+import functools
 import sys
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -101,6 +116,12 @@ def as_dtensor(x, mesh):
 def _to(x, want):
     want = tuple(want)
     return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
+
+
+def placed(x, want):
+    """DTensor ``x`` in placements ``want`` (a ``redistribute`` when they
+    differ)."""
+    return _to(x, want)
 
 
 def is_split(p, dim=None) -> bool:
@@ -610,3 +631,202 @@ def mla_cached_attention(parts, q_nope, q_rope, w_uk, w_uv, c_cache, r_cache, po
     return _local_map(local, q_pl, mesh, (q_pl, q_pl, w_pl, w_pl, pl, r_cache.placements,
                                           row_pl))(q_nope, q_rope, w_uk, w_uv, c_cache,
                                                    r_cache, pos)
+
+
+# ------------------------------------------------- the recurrent families' pieces
+class Axis(NamedTuple):
+    """One mesh dim seen from this rank."""
+
+    dim: int  # its index in the mesh
+    size: int
+    rank: int  # this rank's coordinate on it
+    group: object  # its process group
+
+
+def model_axis(mesh) -> Axis:
+    """The "model" dim of ``mesh``."""
+    d = tuple(mesh.mesh_dim_names).index("model")
+    return Axis(d, mesh.size(d), mesh.get_local_rank(d), mesh.get_group(d))
+
+
+def shard_ranges(size: int, n: int) -> tuple:
+    """The (lo, hi) rows of each of ``n`` ranks that ``Shard`` gives a dim
+    of ``size`` (``torch.chunk``'s split: ceil(size / n) a rank, the last
+    ones short or empty)."""
+    c = -(-size // n)
+    return tuple((min(i * c, size), min((i + 1) * c, size)) for i in range(n))
+
+
+def held(t, dim: int, ax: Axis) -> tuple:
+    """Per rank of ``ax``, the global ranges of tensor dim ``dim`` that
+    DTensor ``t``'s local tensor holds there: its ``Shard`` split, or the
+    whole dim on each rank."""
+    size = t.shape[dim]
+    if is_split(t.placements[ax.dim], dim % t.ndim):
+        return tuple(((lo, hi),) for lo, hi in shard_ranges(size, ax.size))
+    return (((0, size),),) * ax.size
+
+
+def rows_like(ref) -> list:
+    """Placements of a (B, ...) tensor split as DTensor ``ref`` splits its
+    batch dim, whole elsewhere."""
+    dt = _dt()
+    return [dt.Shard(0) if is_split(p, 0) else dt.Replicate() for p in ref.placements]
+
+
+def columns_like(ref, ax: Axis) -> list:
+    """Placements of a (B, T, n) tensor split as DTensor ``ref`` splits its
+    batch dim, and over n on the mesh dim of ``ax``."""
+    out = rows_like(ref)
+    out[ax.dim] = _dt().Shard(2)
+    return out
+
+
+def as_rows(x, ref):
+    """A plain or DTensor (B, ...) mask or id vector as a DTensor split as
+    ``ref`` splits its batch (``rows_like``)."""
+    return _to(as_dtensor(x, ref.device_mesh), rows_like(ref))
+
+
+def weight_grad(w, varying) -> list:
+    """The gradient placements of weight DTensor ``w`` read inside a
+    ``local_map`` region: its own split where it is split; ``Partial`` on
+    the mesh dims in ``varying`` (those over which the ranks compute
+    different things with it: another batch shard, other heads);
+    ``Replicate`` where every rank computes the same."""
+    dt = _dt()
+    return [p if is_split(p) else dt.Partial() if i in varying else dt.Replicate()
+            for i, p in enumerate(w.placements)]
+
+
+def batch_dims(t) -> set:
+    """The mesh dims over which DTensor ``t``'s batch dim is split."""
+    return {i for i, p in enumerate(t.placements) if is_split(p, 0)}
+
+
+def on_ranks(fn, args, outs, grad_placements):
+    """``fn`` on each rank's local tensors of the DTensors ``args``
+    (``local_map``; ``grad_placements``: each input's gradient's), its
+    outputs (a tuple of tensors) DTensors in ``outs`` (one placements
+    sequence each). Returns the tuple of them."""
+    mesh = next(a.device_mesh for a in args if is_dtensor(a))
+    out = _local_map(fn, tuple(tuple(o) for o in outs), mesh, grad_placements)(*args)
+    return tuple(out)
+
+
+def _wait(t):
+    import torch.distributed._functional_collectives as funcol
+
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+def _all_to_all(x, out_splits, in_splits, group):
+    import torch.distributed._functional_collectives as funcol
+
+    return _wait(funcol.all_to_all_single(x.contiguous(), list(out_splits), list(in_splits),
+                                          group))
+
+
+class _AllToAll(torch.autograd.Function):
+    """An all-to-all over dim 0 (``in_splits`` rows to each rank,
+    ``out_splits`` from each); its backward is the reverse one."""
+
+    @staticmethod
+    def forward(ctx, x, out_splits, in_splits, group):
+        ctx.args = (in_splits, out_splits, group)
+        return _all_to_all(x, out_splits, in_splits, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, *ctx.args), None, None, None
+
+
+@functools.lru_cache(maxsize=256)
+def _exchange_plan(have: tuple, want: tuple) -> dict:
+    """(source rank, destination rank) -> the (global lo, hi, offset in the
+    destination's output) pieces the destination takes from the source,
+    in output order. Each wanted column comes from the destination
+    itself when it holds it, else from the lowest rank that does."""
+    m = len(have)
+    pieces: dict = {}
+    for j in range(m):
+        got, off = [], 0
+        for lo, hi in want[j]:
+            todo = [(lo, hi)]
+            for i in [j] + [i for i in range(m) if i != j]:
+                for a, b in have[i]:
+                    rest = []
+                    for u, v in todo:
+                        s, e = max(a, u), min(b, v)
+                        if s >= e:
+                            rest.append((u, v))
+                            continue
+                        got.append((off + s - lo, i, s, e))
+                        rest += [r for r in ((u, s), (e, v)) if r[0] < r[1]]
+                    todo = rest
+            if todo:
+                raise ValueError(f"exchange: no rank holds columns {todo}")
+            off += hi - lo
+        for o, i, s, e in sorted(got):
+            pieces.setdefault((i, j), []).append((s, e, o))
+    return pieces
+
+
+def _local_at(ranges, col: int) -> int:
+    """The local index of global column ``col`` in a tensor holding the
+    global ``ranges`` one after another."""
+    off = 0
+    for a, b in ranges:
+        if a <= col < b:
+            return off + col - a
+        off += b - a
+    raise ValueError(f"column {col} not in {ranges}")
+
+
+def exchange(x, dim: int, have: tuple, want: tuple, ax: Axis):
+    """Plain tensor ``x`` (this rank's columns ``have[ax.rank]`` of a tensor
+    dim, one range after another) regrouped across the ranks of ``ax`` so
+    that each rank r holds ``want[r]``, in one all-to-all (see the module
+    docstring). Differentiable: the gradient of a column several ranks
+    read sums theirs."""
+    dim %= x.ndim
+    pieces = _exchange_plan(tuple(map(tuple, have)), tuple(map(tuple, want)))
+    me, m = ax.rank, ax.size
+    send = [x.narrow(dim, _local_at(have[me], s), e - s)
+            for j in range(m) for s, e, _ in pieces.get((me, j), ())]
+    in_splits = [sum(e - s for s, e, _ in pieces.get((me, j), ())) for j in range(m)]
+    out_splits = [sum(e - s for s, e, _ in pieces.get((i, me), ())) for i in range(m)]
+    buf = torch.cat(send or [x.narrow(dim, 0, 0)], dim).movedim(dim, 0)
+    recv = _AllToAll.apply(buf, out_splits, in_splits, ax.group).movedim(0, dim)
+    parts, at = [], 0
+    for i in range(m):
+        for s, e, o in pieces.get((i, me), ()):
+            parts.append((o, at, e - s))
+            at += e - s
+    return torch.cat([recv.narrow(dim, p, n) for _, p, n in sorted(parts)], dim)
+
+
+def swap_split(x, src: int, dst: int, ax: Axis):
+    """Plain tensor ``x``, this rank's block of a dim ``src`` split evenly
+    over ``ax``, as its block of dim ``dst`` split evenly instead, dim
+    ``src`` whole (one all-to-all; differentiable)."""
+    m = ax.size
+    buf = torch.stack(x.tensor_split(m, dim=dst), 0)
+    recv = _AllToAll.apply(buf, [1] * m, [1] * m, ax.group)
+    return torch.cat(recv.unbind(0), dim=src)
+
+
+def all_gather(x, dim: int, ax: Axis):
+    """The blocks of plain tensor ``x`` on the ranks of ``ax``, joined along
+    ``dim`` in rank order (serving: no gradient)."""
+    import torch.distributed._functional_collectives as funcol
+
+    return _wait(funcol.all_gather_tensor(x.contiguous(), dim % x.ndim, ax.group))
+
+
+def all_reduce(x, ax: Axis):
+    """The sum of plain tensor ``x`` over the ranks of ``ax`` (serving: no
+    gradient)."""
+    import torch.distributed._functional_collectives as funcol
+
+    return _wait(funcol.all_reduce(x, "sum", ax.group))

@@ -159,7 +159,19 @@ def test_remat_lowers_temp_bytes():
     assert 0 < temp[True] < temp[False], temp
 
 
-OUTSIDE = {("zamba2_7b", "train_4k"), ("xlstm_350m", "decode_32k"), ("olmo_1b", "long_500k")}
+OUTSIDE = {("olmo_1b", "long_500k")}
+_ONE_PERIOD: dict = {}
+
+
+def _one_period(arch, shape):
+    """``account`` of (arch, shape) at one period on the 16 x 16 mesh, and
+    the config, once per module."""
+    if (arch, shape) not in _ONE_PERIOD:
+        mesh = make_fake_mesh(False)
+        sh = INPUT_SHAPES[shape]
+        cfg = dryrun.probe_cfg(dryrun.combo_cfg(arch, sh, axes_of(mesh)), 1)
+        _ONE_PERIOD[arch, shape] = (cfg, dryrun.account(cfg, sh, mesh))
+    return _ONE_PERIOD[arch, shape]
 
 
 @pytest.mark.parametrize("arch,shape", [
@@ -168,39 +180,38 @@ OUTSIDE = {("zamba2_7b", "train_4k"), ("xlstm_350m", "decode_32k"), ("olmo_1b", 
     ("mixtral_8x22b", "decode_32k"), ("olmo_1b", "long_500k"),
 ])
 def test_outside_the_tensor_parallel_scope_raises(arch, shape):
-    """The recurrent families, and long_500k of an arch that is not
-    ``long_context_ok``, raise naming the ROADMAP. The attention families'
-    cases (DeepSeek-V2, Pixtral, MusicGen, Mixtral's serving) run, at one
-    period on the 16 x 16 mesh (``probe_cfg``)."""
+    """long_500k of an arch that is not ``long_context_ok`` raises, as the
+    reference's scope says. Every family's case runs (the recurrent ones
+    since the port's tensor-parallel Mamba2 and xLSTM), at one period on
+    the 16 x 16 mesh (``probe_cfg``)."""
     if (arch, shape) in OUTSIDE:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="long_context_ok"):
             dryrun.run_one(arch, shape, False, False, None)
         return
     assert shape in dryrun.applicable_shapes(arch)
-    mesh = make_fake_mesh(False)
-    sh = INPUT_SHAPES[shape]
-    r = dryrun.account(dryrun.probe_cfg(dryrun.combo_cfg(arch, sh, axes_of(mesh)), 1), sh, mesh)
+    _, r = _one_period(arch, shape)
     assert r["cost"]["flops"] > 0 and r["memory"]["temp_bytes"] > 0
     assert r["collectives"]["total_wire_bytes"] > 0
 
 
 def test_tp_archs_and_shapes():
-    """Every arch of the reference's dry run but the recurrent two, each at
-    the reference's shapes (long_500k for a ``long_context_ok`` arch):
-    28 combinations per mesh."""
+    """Every arch of the reference's dry run, each at the reference's
+    shapes (long_500k for a ``long_context_ok`` arch): 36 combinations per
+    mesh, Zamba2 and xLSTM with their long_500k."""
     assert set(dryrun.TP_ARCHS) == {"olmo_1b", "qwen2_5_14b", "qwen1_5_110b",
                                     "phi4_mini_3_8b", "multitask_lm", "mixtral_8x22b",
-                                    "deepseek_v2_236b", "pixtral_12b", "musicgen_large"}
+                                    "deepseek_v2_236b", "pixtral_12b", "musicgen_large",
+                                    "zamba2_7b", "xlstm_350m"}
     for arch in dryrun.TP_ARCHS:
         want = ["train_4k", "prefill_32k", "decode_32k"]
         if jax_get(arch).long_context_ok:  # the reference's applicable_shapes
             want.append("long_500k")
         assert dryrun.applicable_shapes(arch) == want
-    assert dryrun.applicable_shapes("mixtral_8x22b")[-1] == "long_500k"
-    assert sum(len(dryrun.applicable_shapes(a)) for a in dryrun.TP_ARCHS) == 28
-    for arch in ("zamba2_7b", "xlstm_350m"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dryrun.applicable_shapes(arch)
+    for arch in ("mixtral_8x22b", "zamba2_7b", "xlstm_350m"):
+        assert dryrun.applicable_shapes(arch)[-1] == "long_500k"
+    assert sum(len(dryrun.applicable_shapes(a)) for a in dryrun.TP_ARCHS) == 36
+    with pytest.raises(NotImplementedError, match="reference dry run's archs"):
+        dryrun.applicable_shapes("multitask_linreg")
 
 
 FAMILY_COMBOS = [("deepseek_v2_236b", "decode_32k", "lora"),
@@ -228,6 +239,50 @@ def test_family_argument_bytes_equal_the_reference_rules(arch, shape, mla_cache)
     assert r["memory"]["temp_bytes"] > 0 and r["collectives"]["total_wire_bytes"] > 0
 
 
+RECURRENT_COMBOS = [(a, s) for a in ("zamba2_7b", "xlstm_350m")
+                    for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
+
+
+@pytest.mark.parametrize("arch,shape", RECURRENT_COMBOS,
+                         ids=[f"{a}-{s}" for a, s in RECURRENT_COMBOS])
+def test_recurrent_argument_bytes_equal_the_reference_rules(arch, shape):
+    """The recurrent families' eight combinations at one period on 16 x 16
+    (Zamba2: 5 mamba layers and the shared block; xLSTM: 7 mLSTM, 1
+    sLSTM): the arguments' per-device bytes equal the reference rules'
+    shard shapes at the same depth — for xLSTM's train_4k and prefill_32k
+    the time extrapolation's, which says so."""
+    cfg, r = _one_period(arch, shape)
+    assert r["memory"]["argument_bytes"] == _reference_argument_bytes(
+        arch, shape, False, num_layers=cfg.num_layers)
+    assert r["memory"]["temp_bytes"] > 0 and r["collectives"]["total_wire_bytes"] > 0
+    extrapolated = arch == "xlstm_350m" and shape in ("train_4k", "prefill_32k")
+    assert ("time_extrapolated" in r) == extrapolated
+    if extrapolated:
+        assert r["time_extrapolated"]["to"] == INPUT_SHAPES[shape].seq_len
+        assert r["time_extrapolated"]["calls"] == (32 if shape == "prefill_32k" else 1)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_time_extrapolation_equals_a_direct_run(kind):
+    """xLSTM (one mLSTM and one sLSTM layer, full width, 16 x 16):
+    ``account_in_time`` from runs at 4 and 6 tokens equals a direct run at
+    a third length exactly, in every number: train at 10 tokens; prefill
+    at 16 tokens in two calls of 8 (``q_chunk`` 8)."""
+    mesh = make_fake_mesh(False)
+    sh = INPUT_SHAPES["train_4k" if kind == "train" else "prefill_32k"]
+    cfg = dataclasses.replace(dryrun.combo_cfg("xlstm_350m", sh, axes_of(mesh)),
+                              pattern=("mlstm", "slstm"), num_layers=2, q_chunk=8)
+    third = dataclasses.replace(sh, seq_len=10 if kind == "train" else 16)
+    got = dryrun.account_in_time(cfg, third, mesh, probes=(4, 6))
+    fn, args = dryrun.prepare(cfg, third, mesh)
+    _, want, _ = dryrun.record(fn, args, dryrun.mesh_groups(mesh))
+    assert got["time_extrapolated"] == {"from": [4, 6], "to": third.seq_len,
+                                        "calls": 1 if kind == "train" else 2,
+                                        "tokens_a_call": 10 if kind == "train" else 8}
+    for part in ("memory", "cost", "collectives"):
+        assert got[part] == want[part], part
+
+
 def test_musicgen_train_never_gathers_its_logits():
     """MusicGen's train_4k (two periods, 16 x 16): no all-gather as large
     as a data shard's (B / 16, S, K V) float32 logits, 2 GiB (a rank's
@@ -246,8 +301,9 @@ def test_musicgen_train_never_gathers_its_logits():
 
 def test_cli_writes_the_reference_keys(tmp_path, capsys):
     """``--arch olmo_1b --shape decode_32k --out DIR`` exits 0 and writes
-    DIR/singlepod/olmo_1b__decode_32k.json with the reference's keys; an
-    arch outside the scope makes the CLI exit 1."""
+    DIR/singlepod/olmo_1b__decode_32k.json with the reference's keys; a
+    shape outside the arch's scope (olmo_1b's long_500k) makes the CLI
+    exit 1."""
     assert dryrun.main(["--arch", "olmo_1b", "--shape", "decode_32k",
                         "--out", str(tmp_path)]) == 0
     with open(tmp_path / "singlepod" / "olmo_1b__decode_32k.json") as f:
@@ -257,7 +313,7 @@ def test_cli_writes_the_reference_keys(tmp_path, capsys):
     assert set(r["scanned"]["memory"]) == MEMORY_KEYS
     assert r["scanned"]["cost"]["flops"] > 0
     assert "OK   olmo_1b" in capsys.readouterr().out
-    assert dryrun.main(["--arch", "zamba2_7b", "--shape", "train_4k",
+    assert dryrun.main(["--arch", "olmo_1b", "--shape", "long_500k",
                         "--out", str(tmp_path)]) == 1
 
 

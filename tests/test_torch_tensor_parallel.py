@@ -270,23 +270,24 @@ def test_constraints_are_noops_on_plain_tensors():
 @pytest.mark.parametrize("arch", ["deepseek_v2_236b", "zamba2_7b", "xlstm_350m", "pixtral_12b",
                                   "musicgen_large"])
 def test_other_families_raise(arch):
-    """The recurrent families (Zamba2, xLSTM) raise, naming the ROADMAP.
-    The attention families' cases run: the sharded train step of the
-    smoke model (the 2 x 2 layouts' constraints) on a (1, 1) fake mesh of
-    meta DTensors, through the dry run's accounting (the 2 x 2 gloo runs
-    are tests/test_torch_tensor_parallel_families.py's)."""
-    model = TransformerLM(get(arch, smoke=True), device="cpu")
-    if arch in ("zamba2_7b", "xlstm_350m"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 3"):
-            sharded_step(model, None)
-        return
+    """No family raises any more: every family's case runs, the recurrent
+    ones (Zamba2, xLSTM) too — the sharded train step of the smoke model
+    (the 2 x 2 layouts' constraints) on a (1, 1) fake mesh of meta
+    DTensors, through the dry run's accounting (the gloo runs are
+    tests/test_torch_tensor_parallel_families.py's and
+    tests/test_torch_tensor_parallel_recurrent.py's); a block pattern with
+    no tensor-parallel forward still raises."""
     import torch.distributed as dist
 
     from repro_torch.launch.dryrun import account
     from repro_torch.launch.mesh import make_fake_mesh
     from repro_torch.launch.specs import InputShape
+    from repro_torch.sharding import check_tensor_parallel
 
+    model = TransformerLM(get(arch, smoke=True), device="cpu")
     assert callable(sharded_step(model, None))
+    with pytest.raises(NotImplementedError, match="no tensor-parallel forward"):
+        check_tensor_parallel(dataclasses.replace(model.cfg, pattern=("attn", "mamba")))
     try:
         r = account(tp_config(arch), InputShape("train_2x32", 32, 2, "train"),
                     make_fake_mesh(shape=(1, 1)), dtype=torch.float32)

@@ -170,21 +170,21 @@ def tp_config(arch: str, fsdp_gather_moe: bool = False, **overrides):
                                logits_sharding=TP_SPEC, **overrides)
 
 
-def tp_batch(cfg, seed: int = 0) -> dict:
-    """A (4, 32) batch of the tensor-parallel tests, two rows per task:
-    (4, 32, K) tokens and labels for an audio model; a VLM's also carries
-    vision rows (4, 32, d) at a seeded quarter of its positions."""
+def tp_batch(cfg, seed: int = 0, seq: int = 32) -> dict:
+    """A (4, seq) batch of the tensor-parallel tests, two rows per task:
+    (4, seq, K) tokens and labels for an audio model; a VLM's also carries
+    vision rows (4, seq, d) at a seeded quarter of its positions."""
     import torch
 
     rng = np.random.default_rng(seed)
-    lead = (4, 32) + ((cfg.num_codebooks,) if cfg.input_mode == "audio" else ())
+    lead = (4, seq) + ((cfg.num_codebooks,) if cfg.input_mode == "audio" else ())
     batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, lead, dtype=np.int64)),
              "labels": torch.as_tensor(rng.integers(0, cfg.vocab_size, lead, dtype=np.int64)),
              "task_ids": torch.as_tensor(np.asarray([0, 0, 1, 1], np.int64))}
     if cfg.input_mode == "vlm":
         batch["vision_embeds"] = torch.as_tensor(
-            rng.standard_normal((4, 32, cfg.d_model)).astype(np.float32))
-        batch["vision_mask"] = torch.as_tensor(rng.random((4, 32)) < 0.25)
+            rng.standard_normal((4, seq, cfg.d_model)).astype(np.float32))
+        batch["vision_mask"] = torch.as_tensor(rng.random((4, seq)) < 0.25)
     return batch
 
 
@@ -207,12 +207,14 @@ def tp_optimizer(name: str):
     return sgd(1e-2) if name == "sgd" else adamw(3e-4)
 
 
-def tp_step(rank, world, arch, opt_name, fsdp_gather_moe, params_path, overrides=None):
+def tp_step(rank, world, arch, opt_name, fsdp_gather_moe, params_path, overrides=None,
+            mesh_shape=(2, 2), seq=32):
     """One step of ``arch``'s smoke model through ``sharding.sharded_step``
-    on a 2 x 2 mesh (tensor-parallel), under the dry run's recorder: the
-    loss, the updated parameters as full tensors, this rank's product
-    FLOPs and collectives, and each parameter's fsdp-gathered local shape
-    with the model axis' size."""
+    on a ``mesh_shape`` (data, model) mesh (tensor-parallel) over a (4,
+    ``seq``) batch, under the dry run's recorder: the loss, the updated
+    parameters as full tensors, this rank's product FLOPs and
+    collectives, and each parameter's fsdp-gathered local shape with the
+    model axis' size."""
     from repro_torch.core import GraphMultiTask, band_graph
     from repro_torch.launch.dryrun import mesh_groups, record
     from repro_torch.launch.mesh import axes_of, make_smoke_mesh
@@ -223,10 +225,10 @@ def tp_step(rank, world, arch, opt_name, fsdp_gather_moe, params_path, overrides
     model = tp_model(cfg, params_path)
     opt = tp_optimizer(opt_name)
     step = make_train_step(model, opt, GraphMultiTask(band_graph(2, 1), eta=0.1, tau=1.0))
-    mesh = make_smoke_mesh(device="cpu")
+    mesh = make_smoke_mesh(*mesh_shape, device="cpu")
     axes = axes_of(mesh)
     state = shard_state(model, init_state(model, opt), mesh, axes)
-    batch = shard_batch(tp_batch(cfg), mesh, axes)
+    batch = shard_batch(tp_batch(cfg, seq=seq), mesh, axes)
     run = sharded_step(model, step)
     (state, metrics), _, rec = record(lambda: run(state, batch), (state, batch),
                                       mesh_groups(mesh))
@@ -288,17 +290,17 @@ def tp_decode_inputs(cfg, seq):
 SERVE_TICKS = 8  # greedy decode ticks after the prefill chunk
 
 
-def tp_serve_inputs(cfg, batch_size: int, seq: int, chunk: int = 16, start=None):
+def tp_serve_inputs(cfg, batch_size: int, seq: int, chunk: int = 16, start=None, lens=None):
     """The serving run of the tensor-parallel tests: a (B, chunk) prefill
     chunk from per-slot positions ``start`` (rows of unequal valid length,
-    a VLM's with vision rows at a few positions, an audio model's (B, C, K)
-    codebook tokens) and the task ids; seeded."""
+    ``lens``, a VLM's with vision rows at a few positions, an audio
+    model's (B, C, K) codebook tokens) and the task ids; seeded."""
     import torch
 
     rng = np.random.default_rng(3)
     if start is None:
         start = [3, seq // 2 - 6, seq - chunk - SERVE_TICKS - 1, 0][:batch_size]
-    lens = [chunk, 10, chunk, 5][:batch_size]
+    lens = list(lens or [chunk, 10, chunk, 5])[:batch_size]
     lead = (batch_size, chunk) + ((cfg.num_codebooks,) if cfg.input_mode == "audio" else ())
     batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, lead)),
              "task_ids": torch.as_tensor(np.arange(batch_size) % 2)}
@@ -310,12 +312,13 @@ def tp_serve_inputs(cfg, batch_size: int, seq: int, chunk: int = 16, start=None)
     return batch, torch.as_tensor(np.asarray(start, np.int32)), valid
 
 
-def tp_serve(model, caches, cfg, batch_size, seq, start=None):
+def tp_serve(model, caches, cfg, batch_size, seq, start=None, lens=None):
     """``prefill_step`` of ``tp_serve_inputs``'s chunk, then SERVE_TICKS
     greedy ``decode_step`` ticks (one lane dead on the third), on
     ``caches`` (plain, or DTensors under ``sharding.sharded_serving``: the
-    inputs then join replicated). Returns the logits of every step as full (B, 1, K, V) or
-    (B, 1, V) arrays, the greedy tokens and the caches as arrays."""
+    inputs then join replicated). Returns the logits of every step as full
+    (B, 1, K, V) or (B, 1, V) arrays, the greedy tokens, and the caches as
+    arrays, after the prefill and at the end."""
     import torch
 
     def full(t):
@@ -323,9 +326,13 @@ def tp_serve(model, caches, cfg, batch_size, seq, start=None):
         return _np(t.reshape(t.shape[:2] + ((cfg.num_codebooks, cfg.vocab_size)
                                             if cfg.num_codebooks > 1 else (cfg.vocab_size,))))
 
-    batch, pos, valid = tp_serve_inputs(cfg, batch_size, seq, start=start)
+    def arrays():  # copies: a CPU tensor's numpy() (or a full_tensor()) can alias the cache
+        return [[_np(t.full_tensor() if hasattr(t, "full_tensor") else t).copy() for t in e]
+                for e in caches]
+
+    batch, pos, valid = tp_serve_inputs(cfg, batch_size, seq, start=start, lens=lens)
     logits, _ = model.prefill_step(batch, caches, pos, valid)
-    out, toks = [full(logits)], []
+    out, toks, prefilled = [full(logits)], [], arrays()
     pos = pos + valid.sum(1).to(torch.int32)
     for tick in range(SERVE_TICKS):
         tok = torch.as_tensor(out[-1].argmax(-1))  # (B, 1) or (B, 1, K)
@@ -337,19 +344,24 @@ def tp_serve(model, caches, cfg, batch_size, seq, start=None):
         logits, _ = model.decode_step(step, caches, pos, live=live)
         out.append(full(logits))
         pos = pos + live.to(torch.int32)
-    return {"logits": out, "tokens": toks,
-            "caches": [[_np(t.full_tensor() if hasattr(t, "full_tensor") else t) for t in e]
-                       for e in caches]}
+    return {"logits": out, "tokens": toks, "prefill_caches": prefilled, "caches": arrays()}
 
 
 def tp_serve_caches(model, batch_size, seq):
     """Seeded caches of ``model`` (B, seq): every row filled, so the rows
-    the chunk and the ticks do not write hold keys too."""
+    the chunk and the ticks do not write hold keys too, and a recurrent
+    layer's state is a state a run could reach (an sLSTM normalizer n >=
+    1, the mamba conv tail in the model's dtype)."""
     import torch
 
     g = torch.Generator().manual_seed(1)
-    return [tuple(torch.randn(t.shape, generator=g) for t in e)
-            for e in model.init_cache(batch_size, seq)]
+    out = []
+    for kind, e in zip(model.kinds, model.init_cache(batch_size, seq)):
+        e = [torch.randn(t.shape, generator=g).to(t.dtype) for t in e]
+        if kind == "slstm":
+            e[1] = e[1].abs() + 1.0
+        out.append(tuple(e))
+    return out
 
 
 def tp_family(rank, world, arch, overrides, params_path, serve_cases, seq=1024):
@@ -386,5 +398,49 @@ def tp_family(rank, world, arch, overrides, params_path, serve_cases, seq=1024):
         run["cache_placements"] = [repr(tuple(t.placements)) for t in dcaches[0]]
         run["cache_rows"] = local_rows(dcaches[0][0], 1)  # (rows here, the first's index)
         run["coordinate"] = list(mesh.get_coordinate())
+        out["serve"].append(run)
+    return out
+
+
+# -------------------------------------------- the recurrent families' programs
+def tp_recurrent(rank, world, arch, overrides, params_path, mesh_shape, serve_cases, seq=1024,
+                 counted=(16, 32)):
+    """The recurrent families' program on a ``mesh_shape`` (data, model)
+    mesh: an SGD and an AdamW step of ``arch``'s smoke model (``overrides``
+    applied; the JAX weights of ``params_path``) through
+    ``sharding.sharded_step`` (and, for xLSTM, an SGD step under
+    ``xlstm_parallel``), each under the dry run's recorder; the
+    collectives of an SGD step at each sequence length of ``counted``;
+    then, for each serving case (``{"batch": B, "lens": [...] or None,
+    **config overrides}``), ``tp_serve``'s prefill and greedy ticks on
+    DTensor caches in the cache rules' layout."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import axes_of, make_smoke_mesh
+    from repro_torch.sharding import shard_caches, shard_state, sharded_serving
+    from repro_torch.train.trainer import TrainState
+
+    ov = dict(overrides or {})
+    steps = {opt: tp_step(rank, world, arch, opt, False, params_path, ov, mesh_shape)
+             for opt in ("sgd", "adamw")}
+    if arch == "xlstm_350m":
+        steps["sgd_parallel"] = tp_step(rank, world, arch, "sgd", False, params_path,
+                                        dict(ov, xlstm_parallel=True), mesh_shape)
+    out = {"steps": steps, "counted": {
+        t: tp_step(rank, world, arch, "sgd", False, params_path, ov, mesh_shape,
+                   seq=t)["collectives"] for t in counted}}
+    mesh = make_smoke_mesh(*mesh_shape, device="cpu")
+    axes = axes_of(mesh)
+    out["serve"] = []
+    for case in serve_cases:
+        case = dict(case)
+        b, lens = case.pop("batch"), case.pop("lens", None)
+        cfg = dataclasses.replace(tp_config(arch, **ov), attn_backend="plain", **case)
+        model = tp_model(cfg, params_path)
+        shard_state(model, TrainState(dict(model.named_parameters()), (), 0), mesh, axes)
+        dcaches = shard_caches(cfg, tp_serve_caches(model, b, seq), mesh, axes)
+        with sharded_serving(model):
+            run = tp_serve(model, dcaches, cfg, b, seq, lens=lens)
+        run["cache_placements"] = [[repr(tuple(t.placements)) for t in e] for e in dcaches]
         out["serve"].append(run)
     return out

@@ -421,7 +421,8 @@ Phases; each raises on failure, and then no result line is printed:
                 Zamba2's long_500k, DeepSeek-V2's, Pixtral's, MusicGen's
                 and xLSTM's decode_32k), each
                 logged as a {"dryrun": ...} JSON line with its host
-                seconds, and of (c)'s step on a (1, 1) fake mesh, whose
+                seconds, their H100 roofline (repro_torch.launch.roofline)
+                logged as a table, and of (c)'s step on a (1, 1) fake mesh, whose
                 argument_bytes + temp_bytes must lie within
                 DIST_MEMORY_RTOL of (c)'s measured peak; (f) for each
                 family of DIST_SERVE (Mixtral two layers, DeepSeek-V2 one,
@@ -433,12 +434,29 @@ Phases; each raises on failure, and then no result line is printed:
                 layout on a (1, W) mesh: every step's logits and the caches
                 within DIST_TOL, the same greedy tokens. Logs one
                 {"distributed": ...} JSON line.
+ 20. mixed    — run after phase 16, every earlier model freed: the block
+                stacks of MIXED at full width and MIXED_LAYERS (4) layers,
+                random weights from seed 0, f32: (a) Mixtral-8x22B's width
+                with ("attn", "attn_moe") alternating (~24.8 GB), (b)
+                Zamba2-7B's with ("mamba", "attn") alternating (no shared
+                block). Each serves MIXED_LENS (5 requests over 4 slots,
+                16 new tokens, max_seq 1024) dense and paged through
+                ServeEngine with CUDA graphs and eagerly (graph tokens ==
+                eager tokens, the step logits within GRAPH_TOL, one
+                attention-kernel launch per attention layer per dispatch),
+                the dense run's tokens against the plain path's and the
+                paged run's against the dense run's (the margin rule), its
+                tok/s, TTFT and serving peak logged; then one SGD step (the
+                graph-mixed update) of the stack at MIXED_HOST_LAYERS (2)
+                layers on the card and on the host CPU from the same
+                weights and batch: first-step losses within
+                MIXED_HOST_RTOL. Logs one {"mixed": ...} JSON line.
 
 Output: the card's name and power limit first, per-phase lines, the
 {"paper": ...}, {"experiments": ...}, {"distributed": ...}, {"serve_rates": ...},
 {"train": ...}, {"moe": ...},
 {"hybrid": ...}, {"mla": ...}, {"xlstm": ...}, {"vlm": ...},
-{"audio": ...} and {"analysis": ...} JSON lines, then one
+{"audio": ...}, {"mixed": ...} and {"analysis": ...} JSON lines, then one
 {"kernels": [...]} JSON line with the five kernels, and last
 {"ok": true, "device": {...}}.
 Exits non-zero without a result when there is no CUDA device or no
@@ -3644,6 +3662,107 @@ def phase_audio(torch, np, tr, get, TransformerLM, ServeEngine, ContinuousBatche
     return out, launches
 
 
+# ------------------------------------------------ phase 20: mixed block patterns
+MIXED_LAYERS = 4
+MIXED_MAX_SEQ = 1024
+MIXED_LENS = [64, 150, 350, 128, 295]  # five requests over four slots: one reused
+MIXED_HOST_LAYERS = 2  # (a) one attention + MLP and one attention + MoE layer; (b) mamba + attn
+MIXED_TRAIN = {"batch": 2, "seq": 64, "lr": 1e-2}
+MIXED_HOST_RTOL = 1e-4
+# (tag, arch, pattern, what the stack is)
+MIXED = (("a", "mixtral_8x22b", ("attn", "attn_moe"),
+          "Mixtral-8x22B width, dense and MoE layers alternating (Llama 4 Maverick's layout)"),
+         ("b", "zamba2_7b", ("mamba", "attn"),
+          "Zamba2-7B width, mamba and attention layers alternating, no shared block "
+          "(Jamba's layout)"))
+
+
+def mixed_host_check(torch, tr, cfg, dev):
+    """One SGD step with the graph-mixed update of ``cfg`` on the card and
+    on the host CPU, from the same weights (the card's seeded init, copied
+    to a host model built on ``meta``) and the same batch: the first-step
+    losses within MIXED_HOST_RTOL. Returns the record."""
+    card = tr["TransformerLM"](cfg, device=dev, seed=0)
+    host = tr["TransformerLM"](cfg, device="meta")
+    host.load_state_dict({k: v.detach().to("cpu", copy=True)
+                          for k, v in card.state_dict().items()}, assign=True)
+    host.device = torch.device("cpu")
+    batch = train_batches(tr, cfg, MIXED_TRAIN["batch"], MIXED_TRAIN["seq"], 1)[0]
+    rec = {"layers": cfg.num_layers, "kinds": list(cfg.layer_kinds())}
+    for where, model in (("card", card), ("host", host)):
+        opt = tr["sgd"](MIXED_TRAIN["lr"])
+        gmt = tr["GraphMultiTask"](tr["band_graph"](cfg.num_tasks, 1), eta=TRAIN_ETA,
+                                   tau=TRAIN_TAU)
+        state = tr["init_state"](model, opt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, met = tr["make_train_step"](model, opt, gmt)(
+            state, tr["batch_to_device"](batch, model.device))
+        rec[where] = float(met["loss"])
+        rec[f"{where}_aux"] = float(met["aux"])
+        torch.cuda.synchronize()
+        rec[f"{where}_s"] = time.perf_counter() - t0
+    rec["rel_diff"] = abs(rec["card"] - rec["host"]) / abs(rec["host"])
+    del card, host
+    return rec
+
+
+def phase_mixed(torch, np, tr, get, TransformerLM, ServeEngine, ContinuousBatcher, Request,
+                PagingSpec, ops, smi, dev="cuda"):
+    """Phase 20: the mixed block stacks of MIXED at full width and
+    MIXED_LAYERS layers, each served dense and paged through ServeEngine
+    (CUDA graphs and eager, the kernels, the plain path's tokens:
+    ``serve_family``), then trained one SGD step at MIXED_HOST_LAYERS layers
+    on the card and on the host CPU (``mixed_host_check``). ``dev`` "cpu"
+    rehearses it off the card (smoke configs through ``get``, the card's
+    calls patched). Returns (record, kernel launches)."""
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    for tag, arch, pattern, what in MIXED:
+        free_card(torch)
+        name = f"mixed ({tag})"
+        cfg = dataclasses.replace(get(arch), pattern=pattern, num_layers=MIXED_LAYERS)
+        t1 = time.perf_counter()
+        model = TransformerLM(cfg, device=dev, seed=0)
+        torch.cuda.synchronize()
+        rec = {"arch": arch, "pattern": list(pattern), "layers": cfg.num_layers,
+               "params": sum(p.numel() for p in model.parameters())}
+        attn_layers = sum(k in ("attn", "attn_moe", "shared_attn") for k in model.kinds)
+        log(f"{name}: {what}: {cfg.num_layers} layers {list(model.kinds)} ({rec['params']} "
+            f"params, f32, {torch.cuda.memory_allocated() / 1e9:.2f} GB) initialised in "
+            f"{time.perf_counter() - t1:.1f} s")
+        torch.cuda.reset_peak_memory_stats()
+        layouts = (("dense", {}), ("paged", {"paging": PagingSpec.sized(
+            16, MIXED_MAX_SEQ, 4 * MIXED_MAX_SEQ)}))
+        rec["serve"], got, _ = serve_family(torch, np, name, model, ServeEngine,
+                                            ContinuousBatcher, Request, ops, MIXED_MAX_SEQ,
+                                            MIXED_LENS, layouts, layers=attn_layers)
+        rec["serve_peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+        log(f"{name}: serving peak torch.cuda.max_memory_allocated "
+            f"{rec['serve_peak_mb']:.1f} MB; {smi}")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        del model
+        free_card(torch)
+        host = mixed_host_check(torch, tr, dataclasses.replace(cfg, num_layers=MIXED_HOST_LAYERS),
+                                dev)
+        rec["train"] = host
+        log(f"{name} train: {MIXED_HOST_LAYERS} layers {host['kinds']} at full width, SGD lr "
+            f"{MIXED_TRAIN['lr']} + the graph-mixed update, batch {MIXED_TRAIN['batch']} x "
+            f"{MIXED_TRAIN['seq']}: first-step loss on the card {host['card']:.7f} (aux "
+            f"{host['card_aux']:.3e}, {host['card_s']:.2f} s), on the host CPU "
+            f"{host['host']:.7f} ({host['host_s']:.2f} s): relative difference "
+            f"{host['rel_diff']:.2e} (limit {MIXED_HOST_RTOL}); {smi}")
+        if not (np.isfinite([host["card"], host["host"]]).all()
+                and host["rel_diff"] <= MIXED_HOST_RTOL):
+            raise AssertionError(f"{name} train: card vs host {host}")
+        free_card(torch)
+        out[tag] = rec
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"mixed: phase passed in {out['seconds']:.1f} s")
+    return out, launches
+
+
 # ------------------------------------------------- phase 17: the analysis
 def phase_analysis(torch, ops, smi, dev="cuda"):
     """Phase 17: the port's own analysis on the card (see the docstring):
@@ -4188,7 +4307,7 @@ def dist_dryrun(tmp, smi):
     import torch
 
     from repro_torch.configs import get
-    from repro_torch.launch import dryrun
+    from repro_torch.launch import dryrun, roofline
     from repro_torch.launch.mesh import make_fake_mesh
     from repro_torch.launch.specs import InputShape
 
@@ -4201,6 +4320,10 @@ def dist_dryrun(tmp, smi):
         r["host_s"] = time.perf_counter() - t1
         out["combos"][f"{arch}__{shape}"] = r
         log(json.dumps({"dryrun": r}))
+    rows = [roofline.analyse_record(r) for r in out["combos"].values()]
+    out["roofline"] = [row.as_dict() for row in rows]
+    log(f"distributed (e): the dry run's roofline on {roofline.H100.name} "
+        "(repro_torch.launch.roofline; per device at 16 x 16)\n" + roofline.table(rows))
     sp = DIST_TRAIN
     shape = InputShape(f"train_{sp['batch']}x{sp['seq']}", sp["seq"], sp["batch"], "train")
     step = dryrun.account(get("multitask_lm"), shape, make_fake_mesh(shape=(1, 1)),
@@ -4462,6 +4585,8 @@ def main() -> int:
                                   ContinuousBatcher, Request, PagingSpec, ops, smi)
     audio, audio_launches = phase_audio(torch, np, train_lib, get, TransformerLM, ServeEngine,
                                         ContinuousBatcher, Request, PagingSpec, ops, smi)
+    mixed, mixed_launches = phase_mixed(torch, np, train_lib, get, TransformerLM, ServeEngine,
+                                        ContinuousBatcher, Request, PagingSpec, ops, smi)
     phase_breakdown(torch, breakdown)
     del breakdown  # its closures hold the phase-2 inputs
     analysis, analysis_launches = phase_analysis_spawned(torch, smi)
@@ -4479,11 +4604,12 @@ def main() -> int:
     log(json.dumps({"xlstm": {"device": smi, **xlstm}}))
     log(json.dumps({"vlm": {"device": smi, **vlm}}))
     log(json.dumps({"audio": {"device": smi, **audio}}))
+    log(json.dumps({"mixed": {"device": smi, **mixed}}))
     log(f"smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     # launches of each kernel on the main paths, each counted from zero:
     # the dense, adapters and train (serving after training) phases for the
     # dense kernels, the paged and prefix phases for the paged ones, the
-    # faults, moe, hybrid, vlm, audio and analysis phases for both (and the
+    # faults, moe, hybrid, vlm, audio, mixed and analysis phases for both (and the
     # experiments phase's serve_batched for the dense ones), the
     # adapters, xlstm and analysis phases for the graph mix (the mla phase
     # launches none: MLA is plain, as in the reference)
@@ -4492,7 +4618,8 @@ def main() -> int:
                   for ph in (dense, paged, prefix, faults, adapters, train["serve"]))
         + sum(ph.get(name, 0) for ph in (moe_launches, hybrid_launches, mla_launches,
                                          xlstm_launches, vlm_launches, audio_launches,
-                                         analysis_launches, exps["launches"]))
+                                         mixed_launches, analysis_launches,
+                                         exps["launches"]))
         for name in COUNTED
     }
     meta = {

@@ -32,7 +32,14 @@ carry through the whole program; what rank 0 ran gives, per device:
   * ``collectives`` — every ``_c10d_functional`` op of the call: per kind,
     ``count``, ``result_bytes`` and ``wire_bytes`` with the reference's
     ring formulas (``wire_bytes``), over the op's own group size, and
-    ``total_wire_bytes``.
+    ``total_wire_bytes``; beside them, ``wire_bytes_by_group``: the ring
+    wire bytes by the size of the group they cross (``launch.roofline``
+    prices groups of up to 8 ranks over NVLink, larger ones over the
+    network).
+  * ``replicated`` — the mixers that ran replicated over the model ranks
+    because their split does not divide them (Mamba2 heads, an mLSTM head
+    width, MLA serving heads: ``sharding.tensor_parallel.note_replicated``),
+    counted per call; empty on the reference's meshes.
 
 Probes (``--probes``) run the same combination at ``num_layers = period *
 n`` for n = 1, 2 (``probe_cfg``). The eager step has no scan that counts a
@@ -101,6 +108,7 @@ from repro_torch.launch.mesh import axes_of, make_fake_mesh
 from repro_torch.launch.specs import INPUT_SHAPES, InputShape, input_specs
 from repro_torch.models import TransformerLM
 from repro_torch.optim import adamw
+from repro_torch.sharding import tensor_parallel as tp
 from repro_torch.sharding import (
     check_tensor_parallel,
     shard_batch,
@@ -153,9 +161,20 @@ def wire_bytes(kind: str, size: int, g: int) -> int:
     return size  # collective-permute
 
 
+def wire_by_group(records) -> dict:
+    """The ring wire bytes of a ``Recorder``'s collective records by the
+    size of their group: {str(group size): bytes}."""
+    out: dict = {}
+    for rec in records:
+        key = str(rec["group_size"])
+        out[key] = out.get(key, 0) + wire_bytes(rec["kind"], rec["bytes"], rec["group_size"])
+    return out
+
+
 def summarize(records) -> dict:
     """Per-kind ``count`` / ``result_bytes`` / ``wire_bytes`` and
-    ``total_wire_bytes`` of a ``Recorder``'s collective records."""
+    ``total_wire_bytes`` of a ``Recorder``'s collective records (their
+    split by group size: ``wire_by_group``)."""
     stats: dict = {}
     for rec in records:
         s = stats.setdefault(rec["kind"], {"count": 0, "result_bytes": 0, "wire_bytes": 0})
@@ -199,6 +218,18 @@ class Recorder(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self._held: set[int] = set()
+        self.replicated: dict[str, int] = {}
+
+    def _note(self, what: str):
+        self.replicated[what] = self.replicated.get(what, 0) + 1
+
+    def __enter__(self):
+        tp.REPLICATED_LISTENERS.append(self._note)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        tp.REPLICATED_LISTENERS.remove(self._note)
+        return super().__exit__(*exc)
 
     def _free(self, key: int, n: int):
         self._held.discard(key)
@@ -283,13 +314,18 @@ def record(fn, args, groups) -> tuple[object, dict, Recorder]:
                    "alias_bytes": sum(n for k, n in out.items() if k in arg)},
         "cost": {"flops": rec.flops, "bytes_accessed": rec.bytes_accessed},
         "collectives": summarize(rec.collectives),
+        "wire_bytes_by_group": wire_by_group(rec.collectives),
+        "replicated": dict(rec.replicated),
     }
     return result, summary, rec
 
 
-def prepare(cfg: ArchConfig, shape: InputShape, mesh, dtype=torch.bfloat16):
+def prepare(cfg: ArchConfig, shape: InputShape, mesh, dtype=torch.bfloat16,
+            microbatches: int = 1):
     """(fn, args) of one combination on ``mesh``: ``fn()`` runs the sharded
-    program; ``args`` are its arguments (for the byte counts)."""
+    program; ``args`` are its arguments (for the byte counts). A train
+    step accumulates its gradient over ``microbatches`` slices of the batch
+    (``make_train_step``'s; the reference's hill-climb lever)."""
     check_tensor_parallel(cfg)
     axes = axes_of(mesh)
     model = TransformerLM(cfg, device="meta", dtype=dtype)
@@ -297,7 +333,8 @@ def prepare(cfg: ArchConfig, shape: InputShape, mesh, dtype=torch.bfloat16):
     if shape.kind == "train":
         opt = adamw(3e-4)
         step = make_train_step(model, opt, GraphMultiTask(band_graph(cfg.num_tasks, 1),
-                                                          eta=0.1, tau=1.0))
+                                                          eta=0.1, tau=1.0),
+                               microbatches=microbatches)
         state = shard_state(model, init_state(model, opt), mesh, axes)
         run = sharded_step(model, step)
         return (lambda: run(state, batch)), (state.params, state.opt_state, batch)
@@ -331,12 +368,13 @@ def prepare(cfg: ArchConfig, shape: InputShape, mesh, dtype=torch.bfloat16):
     return fn, (params, batch, caches, pos)
 
 
-def account(cfg: ArchConfig, shape: InputShape, mesh, dtype=torch.bfloat16) -> dict:
+def account(cfg: ArchConfig, shape: InputShape, mesh, dtype=torch.bfloat16,
+            microbatches: int = 1) -> dict:
     """The dry run's record of one combination on ``mesh`` (see the module
     docstring); an xLSTM sequence shape's through ``account_in_time``."""
     if time_extrapolated(cfg, shape):
-        return account_in_time(cfg, shape, mesh, dtype)
-    fn, args = prepare(cfg, shape, mesh, dtype)
+        return account_in_time(cfg, shape, mesh, dtype, microbatches=microbatches)
+    fn, args = prepare(cfg, shape, mesh, dtype, microbatches)
     _, summary, _ = record(fn, args, mesh_groups(mesh))
     return summary
 
@@ -369,7 +407,7 @@ def _exact(num: int, den: int) -> int:
 
 
 def account_in_time(cfg: ArchConfig, shape: InputShape, mesh, dtype=torch.bfloat16,
-                    probes: tuple[int, int] = TIME_PROBES) -> dict:
+                    probes: tuple[int, int] = TIME_PROBES, microbatches: int = 1) -> dict:
     """``account`` of an xLSTM sequence shape from runs at the short
     lengths ``probes`` = (c1, c2), extrapolated exactly to the shape: every
     op of an xLSTM layer is per token or per call, so a call's FLOPs,
@@ -398,7 +436,7 @@ def account_in_time(cfg: ArchConfig, shape: InputShape, mesh, dtype=torch.bfloat
 
     def run(seq, per_call):
         fn, args = prepare(dataclasses.replace(cfg, q_chunk=per_call),
-                           dataclasses.replace(shape, seq_len=seq), mesh, dtype)
+                           dataclasses.replace(shape, seq_len=seq), mesh, dtype, microbatches)
         return record(fn, args, mesh_groups(mesh))[1]
 
     def line(x):  # A-C line at x
@@ -409,12 +447,12 @@ def account_in_time(cfg: ArchConfig, shape: InputShape, mesh, dtype=torch.bfloat
            "time_extrapolated": {"from": list(probes), "to": shape.seq_len, "calls": calls,
                                  "tokens_a_call": chunk}}
     if not prefill:
-        out.update({k: _nums(line(chunk), ra[k], rc[k])
-                    for k in ("memory", "cost", "collectives")})
+        out.update({k: _nums(line(chunk), ra[k], rc[k]) for k in
+                    ("memory", "cost", "collectives", "wire_bytes_by_group", "replicated")})
         return out
     rb = run(2 * c1, c1)
     out["run_s"] += rb["run_s"]
-    for k in ("cost", "collectives"):
+    for k in ("cost", "collectives", "wire_bytes_by_group", "replicated"):
         out[k] = _nums(lambda a, b, c: 2 * a - b + calls * (b - a + line(chunk)(0, c - a)),
                        ra[k], rb[k], rc[k])
     mem = _nums(line(chunk), ra["memory"], rc["memory"])

@@ -26,12 +26,14 @@ from repro_torch.sharding.tensor_parallel import (
 
 def dense_init(shape, generator: torch.Generator, in_axis: int = 0,
                dtype=torch.float32) -> torch.Tensor:
-    """normal * 1/sqrt(fan_in), drawn in float32 on the generator's device."""
+    """normal * 1/sqrt(fan_in), drawn in float32 on the generator's device
+    (a fan_in of 0 is an empty tensor: an MLP of d_ff 0 in xLSTM's config
+    serving a mixed stack's attention layer, as the reference's)."""
     fan_in = shape[in_axis]
     x = torch.randn(
         shape, generator=generator, dtype=torch.float32, device=generator.device
     )
-    return (x * (1.0 / fan_in**0.5)).to(dtype)
+    return (x * (1.0 / fan_in**0.5) if fan_in else x).to(dtype)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,8 @@ the new state INTO the given state tensors (``layers.freeze_dead_slots``),
 since the serving steps are captured as CUDA graphs over the cache storage.
 
 On DTensors (the tensor-parallel steps of ``repro_torch.sharding``) both
-run the same SSD over each model rank's heads (``_on_heads``).
+run the same SSD over each model rank's heads (``_on_heads``), or replicated
+over the model ranks where they do not divide the heads.
 """
 from __future__ import annotations
 
@@ -260,13 +261,14 @@ def _on_heads(core, proj, params, state, valid, kw):
     the heads take 448, is moved to the heads' channels at entry and back
     at exit (``tp.exchange``; (B, 3, 7296) at decode). Returns (y * silu(z)
     split over the model ranks by head, as ``w_out``'s rows are, and the
-    new state in the caches' placements, or None without a state)."""
+    new state in the caches' placements, or None without a state). Heads
+    that the model ranks do not divide run replicated (``_replicated``)."""
     mesh = proj.device_mesh
     ax = tp.model_axis(mesh)
     a_log = params["a_log"]
     nh, hd, ds = a_log.shape[0], kw["head_dim"], kw["d_state"]
     if nh % ax.size:
-        raise NotImplementedError(f"mamba2: {nh} heads over {ax.size} model ranks")
+        return _replicated(core, proj, params, state, valid, kw, ax)
     hpr, d_inner = nh // ax.size, nh * hd
     heads = [(r * hpr * hd, (r + 1) * hpr * hd) for r in range(ax.size)]
     bc = (d_inner, d_inner + 2 * ds)
@@ -308,3 +310,39 @@ def _on_heads(core, proj, params, state, valid, kw):
     outs = [y_pl] + ([t.placements for t in state] if state is not None else [])
     y, *new = tp.on_ranks(local, args, outs, grads)
     return y, (tuple(new) if state is not None else None)
+
+
+def _replicated(core, proj, params, state, valid, kw, ax):
+    """``_on_heads``'s layer where the model ranks do not divide the heads
+    (Zamba2's smoke size on 3 ranks: 8 heads), REPLICATED over them: the
+    projection's columns and a carried state are gathered whole over the
+    model ranks (``tp.unsplit``), every model rank runs the whole SSD on
+    its batch shard, and y comes out whole there (the row-parallel
+    ``w_out`` then takes each rank's rows of it with no communication); the
+    new state returns in the caches' placements. The layer's SSD FLOPs run
+    M times; ``tp.note_replicated`` tells the dry run's recorder. Returns
+    as ``_on_heads``."""
+    tp.note_replicated("mamba2")
+    proj = tp.unsplit(proj, ax)
+    args = [proj, tp.unsplit(params["conv_w"], ax), *(tp.unsplit(v, ax) for v in _vecs(params))]
+    grads = [proj.placements] + [tp.weight_grad(w, tp.batch_dims(proj)) for w in args[1:]]
+    if valid is not None:
+        args.append(tp.as_rows(valid, proj))
+        grads.append(args[-1].placements)
+    if state is not None:
+        whole = [tp.unsplit(t, ax) for t in state]
+        args += whole
+        grads += [t.placements for t in whole]
+
+    def local(p_l, w_l, *rest):
+        v_l = rest[3] if valid is not None else None
+        st = tuple(rest[-2:]) if state is not None else None
+        y, new = core(p_l, w_l, list(rest[:3]), st,
+                      **(kw if v_l is None else dict(kw, valid=v_l)))
+        return (y,) if st is None else (y, *new)
+
+    outs = [tp.rows_like(proj)] + ([t.placements for t in whole] if state is not None else [])
+    y, *new = tp.on_ranks(local, args, outs, grads)
+    if state is None:
+        return y, None
+    return y, tuple(tp.placed(t, old.placements) for t, old in zip(new, state))

@@ -1,8 +1,14 @@
-"""Decoder LM for training and serving: the ``pattern == ("attn",)``
-(dense), ``("attn_moe",)`` (mixture of experts; either with GQA or with
-DeepSeek-V2's MLA, ``cfg.use_mla``), Mamba2 hybrid (``("mamba", ...,
-"shared_attn")``, Zamba2) and xLSTM (``"mlstm"`` / ``"slstm"`` kinds)
-parts of ``repro.models.model.TransformerLM``, over every input mode.
+"""Decoder LM for training and serving: ``repro.models.model.TransformerLM``
+over any block pattern of its six kinds (``cfg.pattern``, cycled over the
+depth: ``cfg.layer_kinds()``), over every input mode. A kind is a layer:
+"attn" (attention + MLP), "attn_moe" (attention + mixture of experts), the
+attention GQA or, with ``cfg.use_mla``, DeepSeek-V2's MLA; "shared_attn"
+(the model's ONE shared attention + MLP block, Zamba2's); "mamba"
+(Mamba2), "mlstm" and "slstm" (xLSTM). The shipped configs are dense
+(``("attn",)``), MoE (``("attn_moe",)``), the Mamba2 hybrid (mamba layers
+closed by "shared_attn") and xLSTM; a mixed stack (``("attn",
+"attn_moe")``, ``("mamba", "attn", "shared_attn")``, ...) runs the same
+per-kind blocks layer by layer.
 
 Input modes (``cfg.input_mode``), as the reference's:
   * ``"tokens"`` — ``batch["tokens"]`` (B, S) ids.
@@ -106,20 +112,8 @@ from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.sharding import tensor_parallel as tp
 
 
-_PATTERNS = (("attn",), ("attn_moe",))
 ATTN_KINDS = ("attn", "attn_moe", "shared_attn")
 RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
-
-
-def _ported(pattern) -> bool:
-    """The block patterns the port serves and trains: one attention kind
-    (GQA or MLA), the hybrid's mamba layers closed by one shared-attention
-    layer, or xLSTM's mlstm / slstm layers."""
-    pattern = tuple(pattern)
-    hybrid = (len(pattern) >= 2 and pattern[-1] == "shared_attn"
-              and all(k == "mamba" for k in pattern[:-1]))
-    xlstm = all(k in ("mlstm", "slstm") for k in pattern)
-    return pattern in _PATTERNS or hybrid or xlstm
 
 
 def _params(tensors: dict) -> nn.ParameterDict:
@@ -134,12 +128,14 @@ def _mla_dims(cfg: ArchConfig) -> attn_lib.MLADims:
 
 
 class _Block(nn.Module):
-    """One attention + MLP layer (the JAX model's "attn" block), or
-    attention + MoE (its "attn_moe" block); the attention is GQA, or MLA
-    with ``cfg.use_mla``."""
+    """One attention layer of ``kind``, as the reference's ``_init_block``
+    builds it: attention + MoE for "attn_moe", attention + MLP for "attn"
+    and "shared_attn" (the shared block has an MLP in an MoE model too);
+    the attention is GQA, or MLA with ``cfg.use_mla``."""
 
-    def __init__(self, cfg: ArchConfig, dtype, generator: torch.Generator):
+    def __init__(self, cfg: ArchConfig, kind: str, dtype, generator: torch.Generator):
         super().__init__()
+        self.kind = kind
         dev = generator.device
         self.norm1 = _params(init_norm(cfg.norm_kind, cfg.d_model, dtype, dev))
         if cfg.use_mla:
@@ -149,7 +145,7 @@ class _Block(nn.Module):
                                      cfg.head_dim, cfg.qkv_bias, dtype, generator)
         self.attn = _params(attn)
         self.norm2 = _params(init_norm(cfg.norm_kind, cfg.d_model, dtype, dev))
-        if cfg.uses_moe:
+        if kind == "attn_moe":
             self.moe = _params(init_moe(cfg.d_model, cfg.d_ff, cfg.num_experts,
                                         cfg.num_shared_experts, dtype, generator))
         else:
@@ -196,12 +192,6 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device=None, dtype=torch.float32,
                  seed: int = 0):
         super().__init__()
-        if not _ported(cfg.pattern):
-            raise NotImplementedError(
-                f"{cfg.name}: block pattern {cfg.pattern} is not ported yet; the port "
-                f"trains and serves the patterns {_PATTERNS}, the hybrid ('mamba', ..., "
-                "'shared_attn') and patterns of 'mlstm' / 'slstm' layers"
-            )
         cfg.validate()
         self.cfg = cfg
         self.dtype = dtype
@@ -225,11 +215,11 @@ class TransformerLM(nn.Module):
         def block(kind):
             if kind in RECURRENT_KINDS:
                 return _RecurrentBlock(c, kind, dtype, gen)
-            return _Shared() if kind == "shared_attn" else _Block(c, dtype, gen)
+            return _Shared() if kind == "shared_attn" else _Block(c, kind, dtype, gen)
 
         self.layers = nn.ModuleList(block(kind) for kind in self.kinds)
         if "shared_attn" in self.kinds:
-            self.shared_attn = _Block(c, dtype, gen)
+            self.shared_attn = _Block(c, "shared_attn", dtype, gen)
         self.final_norm = _params(init_norm(c.norm_kind, c.d_model, dtype, self.device))
         if not c.tie_embeddings:
             self.head = nn.Parameter(dense_init((c.d_model, v_total), gen, dtype=dtype))
@@ -283,10 +273,11 @@ class TransformerLM(nn.Module):
         return bias[:, None, :].expand(bias.shape[0], seq, bias.shape[1])
 
     def _ffn(self, p: _Block, h, router_bias, live=None):
-        """The layer's feed-forward branch: (out, aux) — the MoE with its
-        load-balance loss, or the MLP and a zero aux."""
+        """The layer's feed-forward branch by its kind: (out, aux) — an
+        "attn_moe" layer's MoE with its load-balance loss (the router bias
+        and the live mask go to it alone), or the MLP and a zero aux."""
         c = self.cfg
-        if c.uses_moe:
+        if p.kind == "attn_moe":
             return apply_moe(p.moe, h, top_k=c.top_k, capacity_factor=c.capacity_factor,
                              router_bias=router_bias, groups=c.moe_groups,
                              fsdp_gather=c.fsdp_gather_moe, live=live)

@@ -306,8 +306,9 @@ def _mlstm_tp(params, up, n_heads, state, valid, recur, chunk, dtype):
     collective inside the time loop. n, m and q . n (and the chunkwise's q
     . k and n update) are computed whole for the rank's heads on each of
     the M / nh ranks sharing them, and the gate product for those heads'
-    two columns of ``w_if`` (whole: 8 does not divide 16): the stated
-    replicated work. A carried state (prefill) moves from the cache rules'
+    two columns of ``w_if`` (whole: 8 does not divide 16; a split ``w_if``
+    gives each rank its columns' gates, regrouped by one exchange): the
+    stated replicated work. A carried state (prefill) moves from the cache rules'
     key split to the value split at entry and back at exit
     (``tp.swap_split``: one all-to-all each way; n and m all-gathered);
     a fresh one moves nothing. Returns (h (B, T, d_inner) in x's dtype and
@@ -322,8 +323,8 @@ def _mlstm_tp(params, up, n_heads, state, valid, recur, chunk, dtype):
     if d_inner % m or (hd % w and w % hd) or any(
             tp.held(t, 1, ax) != tuple(((r * w, (r + 1) * w),) for r in range(m))
             for t in (wq, wk, wv)):
-        raise NotImplementedError(f"mLSTM: {n_heads} heads of {hd} over {m} model ranks")
-    h0, nh_r, _, e_r = _value_block(me, w, hd)
+        return _mlstm_replicated(params, up, n_heads, state, valid, recur, chunk, dtype, ax)
+    h0, nh_r, e0, e_r = _value_block(me, w, hd)
     up_want = tuple(((0, d_inner), (d_inner + r * w, d_inner + (r + 1) * w))
                     for r in range(m))
     qk_have = tuple(((r * w, (r + 1) * w), (d_inner + r * w, d_inner + (r + 1) * w))
@@ -332,6 +333,8 @@ def _mlstm_tp(params, up, n_heads, state, valid, recur, chunk, dtype):
     qk_want = tuple(((a * hd, (a + n) * hd), (d_inner + a * hd, d_inner + (a + n) * hd))
                     for a, n in heads)
     up_have = tp.held(up, -1, ax)
+    if_have = tp.held(w_if, 1, ax) if tp.is_split(w_if.placements[ax.dim], 1) else None
+    if_want = tuple(((a, a + n), (n_heads + a, n_heads + a + n)) for a, n in heads)
     root = _root(hd, dtype)
     varying = tp.batch_dims(up) | {ax.dim}
     args = [up, wq, wk, wv, w_if]
@@ -340,29 +343,37 @@ def _mlstm_tp(params, up, n_heads, state, valid, recur, chunk, dtype):
         args.append(tp.as_rows(valid, up))
         grads.append(args[-1].placements)
     if state is not None:
-        c_pl = state[0].placements[ax.dim]
-        if m > 1 and not (_key_split(state[0]) or tp.held(state[0], 1, ax) == tuple(
-                ((a, a + n),) for a, n in heads)):
-            raise NotImplementedError(f"mLSTM: a C cache in {state[0].placements}")
-        args += list(state)
-        grads += [t.placements for t in state]
+        # C's layout: split over its key dim (the cache rules' where hd
+        # divides the ranks), over the heads in the value split's blocks
+        # (nh divides them), or any other, read whole ("own": each rank
+        # slices its block, and the blocks are gathered back at exit)
+        c_mode = ("key" if _key_split(state[0]) else "heads" if m == 1 or tp.held(
+            state[0], 1, ax) == tuple(((a, a + n),) for a, n in heads) else "own")
+        c_in = tp.unsplit(state[0], ax) if c_mode == "own" else state[0]
+        args += [c_in, *state[1:]]
+        grads += [c_in.placements] + [t.placements for t in state[1:]]
         n_split = tp.is_split(state[1].placements[ax.dim], 2)
     out_pl = tp.columns_like(up, ax)
 
     def _to_value_split(c, n, mm):
-        if tp.is_split(c_pl, 2) and m > 1:  # (B, nh, hd / M, hd) -> (B, nh_r, hd, e_r)
-            b = c.shape[0]
+        b = c.shape[0]
+        if c_mode == "key":  # (B, nh, hd / M, hd) -> (B, nh_r, hd, e_r)
             c = tp.swap_split(c.permute(0, 2, 1, 3).reshape(b, c.shape[2], -1), 1, 2, ax)
             c = c.reshape(b, hd, nh_r, e_r).permute(0, 2, 1, 3)
+        elif c_mode == "own":
+            c = c[:, h0:h0 + nh_r, :, e0:e0 + e_r]
         if n_split:
             n = tp.all_gather(n, 2, ax)
         return c, n[:, h0:h0 + nh_r], mm[:, h0:h0 + nh_r]
 
     def _from_value_split(c, n, mm):
-        if tp.is_split(c_pl, 2) and m > 1:
-            b = c.shape[0]
+        b = c.shape[0]
+        if c_mode == "key":
             c = tp.swap_split(c.permute(0, 2, 1, 3).reshape(b, hd, w), 2, 1, ax)
             c = c.reshape(b, -1, n_heads, hd).permute(0, 2, 1, 3)
+        elif c_mode == "own":  # the (head, value) blocks of every rank, in rank order
+            c = tp.all_gather(c.permute(0, 2, 1, 3).reshape(b, hd, w), 2, ax)
+            c = c.reshape(b, hd, n_heads, hd).permute(0, 2, 1, 3)
         # n and m of every head, from the first rank holding it
         pick = [h * hd // w * nh_r + h - heads[h * hd // w][0] for h in range(n_heads)]
         n = tp.all_gather(n, 1, ax)[:, pick]
@@ -381,8 +392,12 @@ def _mlstm_tp(params, up, n_heads, state, valid, recur, chunk, dtype):
         q = qk[..., :nh_r * hd].reshape(b, t, nh_r, hd)
         k = qk[..., nh_r * hd:].reshape(b, t, nh_r, hd)
         v = matmul(x_in, wv_l).reshape(b, t, nh_r, e_r)
-        wif = torch.cat([wif_l[:, h0:h0 + nh_r], wif_l[:, n_heads + h0:n_heads + h0 + nh_r]], 1)
-        gates = matmul(x_in, wif).float()
+        if if_have is None:  # w_if whole here: the product of the heads' columns
+            wif = torch.cat([wif_l[:, h0:h0 + nh_r], wif_l[:, n_heads + h0:n_heads + h0 + nh_r]],
+                            1)
+            gates = matmul(x_in, wif).float()
+        else:  # split: each rank's columns, the heads' gates regrouped
+            gates = tp.exchange(matmul(x_in, wif_l), -1, if_have, if_want, ax).float()
         v_l = rest[0] if valid is not None else None
         i_pre, f_pre = _mask_if_gates(gates[..., :nh_r], gates[..., nh_r:], v_l)
         if state is None:
@@ -397,9 +412,61 @@ def _mlstm_tp(params, up, n_heads, state, valid, recur, chunk, dtype):
             return h, z
         return (h, z) + _from_value_split(*st)
 
-    outs = [out_pl, out_pl] + ([t.placements for t in state] if state is not None else [])
+    outs = [out_pl, out_pl]
+    if state is not None:
+        outs += [c_in.placements] + [t.placements for t in state[1:]]
     h, z, *st = tp.on_ranks(local, args, outs, grads)
-    return h, z, (tuple(st) if state is not None else None)
+    if state is None:
+        return h, z, None
+    return h, z, (tp.placed(st[0], state[0].placements), *st[1:])
+
+
+def _mlstm_replicated(params, up, n_heads, state, valid, recur, chunk, dtype, ax):
+    """The mLSTM of ``_mlstm_tp`` where its head width fits neither the
+    value split's column blocks nor their multiples (d_inner / M neither
+    divides nor is divided by the head width, or d_inner not a multiple of
+    M: xLSTM's smoke size on 3 ranks), REPLICATED over the model ranks:
+    ``up`` is gathered whole over them (x_in and z), the column-parallel
+    q, k, v and gate products run on each rank's weight columns and their
+    outputs are gathered whole (the activations move, never the weights),
+    and every model rank runs the whole recurrence on its batch shard; a
+    carried state is read whole and returns in the caches' placements.
+    The recurrence's FLOPs run M times; ``tp.note_replicated`` tells the
+    dry run's recorder. Returns (h and z whole over the model ranks, the
+    state or None)."""
+    tp.note_replicated("mlstm")
+    up = tp.unsplit(up, ax)
+    d_inner = up.shape[-1] // 2
+    hd = d_inner // n_heads
+    root = _root(hd, dtype)
+    x_in, z = up[..., :d_inner], up[..., d_inner:]
+    args = [tp.unsplit(matmul(x_in, params[k]), ax) for k in ("wq", "wk", "wv", "w_if")]
+    grads = [t.placements for t in args]
+    if valid is not None:
+        args.append(tp.as_rows(valid, up))
+        grads.append(args[-1].placements)
+    whole = [tp.unsplit(t, ax) for t in state] if state is not None else []
+    args += whole
+    grads += [t.placements for t in whole]
+
+    def local(q, k, v, gates, *rest):
+        b, t = q.shape[:2]
+        heads = (b, t, n_heads, hd)
+        gates = gates.float()
+        i_pre, f_pre = _mask_if_gates(gates[..., :n_heads], gates[..., n_heads:],
+                                      rest[0] if valid is not None else None)
+        st = tuple(rest[-3:]) if state is not None else mlstm_init_state(b, n_heads, hd,
+                                                                           q.device)
+        hs, st = recur(q.reshape(heads).float(), (k.reshape(heads) / root).float(),
+                       v.reshape(heads).float(), i_pre, f_pre, st, chunk)
+        h = hs.reshape(b, t, d_inner).to(dtype)
+        return (h, *st) if state is not None else (h,)
+
+    outs = [tp.rows_like(up)] + [t.placements for t in whole]
+    h, *st = tp.on_ranks(local, args, outs, grads)
+    if state is None:
+        return h, z, None
+    return h, z, tuple(tp.placed(s, old.placements) for s, old in zip(st, state))
 
 
 def _mlstm_decode_tp(params, x, state, n_heads, live):

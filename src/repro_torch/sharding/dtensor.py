@@ -46,7 +46,11 @@ hybrid (``zamba2_7b``: the SSD over each model rank's heads, its columns
 moved by an all-to-all of the activation, ``models/mamba2._on_heads``) and
 xLSTM (``xlstm_350m``: the mLSTM split over the value dim, or over the
 key dim in a decode step on the cache rules' layout; the sLSTM
-recurrence replicated over the model ranks; ``models/xlstm.py``).
+recurrence replicated over the model ranks; ``models/xlstm.py``), and any
+mixed stack of those kinds, layer by layer. Where a mixer's split does not
+divide the model ranks (Mamba2 heads, an mLSTM head width, MLA serving
+heads) that mixer runs replicated over them, a stated layout
+(``tensor_parallel.note_replicated``).
 """
 from __future__ import annotations
 
@@ -101,20 +105,22 @@ def shard_batch(batch: dict, mesh, axes: MeshAxes) -> dict:
     return {k: _distribute(v, specs[k], mesh) for k, v in batch.items()}
 
 
+TP_KINDS = ("attn", "attn_moe", "shared_attn", "mamba", "mlstm", "slstm")
+
+
 def check_tensor_parallel(cfg) -> None:
-    """Raises ``NotImplementedError`` unless the model's forward runs
-    tensor-parallel on DTensors: the attention families (dense and MoE,
-    GQA or MLA, over token ids, a VLM's vision inputs or an audio model's
-    codebooks), the Mamba2 hybrid (mamba layers closed by the shared
-    attention block) and xLSTM (mlstm / slstm layers)."""
-    pattern = tuple(cfg.pattern)
-    hybrid = (len(pattern) >= 2 and pattern[-1] == "shared_attn"
-              and all(k == "mamba" for k in pattern[:-1]))
-    xlstm = all(k in ("mlstm", "slstm") for k in pattern)
-    if not (pattern in (("attn",), ("attn_moe",)) or hybrid or xlstm):
+    """Raises ``NotImplementedError`` unless every block kind of the
+    model's pattern has a tensor-parallel forward on DTensors: all six
+    kinds have (``TP_KINDS``), so any pattern the config admits runs, a
+    mixed stack layer by layer, each layer on its kind's schedule (the
+    attention families, GQA or MLA, dense or MoE, over token ids, a VLM's
+    vision inputs or an audio model's codebooks; Mamba2; the mLSTM and the
+    sLSTM)."""
+    missing = sorted(set(cfg.pattern) - set(TP_KINDS))
+    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: block pattern {pattern} has no tensor-parallel forward (the "
-            "attention families, the Mamba2 hybrid and xLSTM have)")
+            f"{cfg.name}: block kinds {missing} have no tensor-parallel forward (these "
+            f"have: {TP_KINDS})")
 
 
 @contextlib.contextmanager

@@ -67,7 +67,12 @@ tensors of each rank) and move activations between layouts with:
     receiver itself when it can; its gradient sums every reader's);
   * ``swap_split(x, src, dst, axis)`` — a tensor split evenly over ``src``
     re-split over ``dst`` (one all-to-all);
-  * ``all_gather`` / ``all_reduce`` on an axis (the serving steps').
+  * ``all_gather`` / ``all_reduce`` on an axis (the serving steps');
+  * ``unsplit(x, axis)`` — ``x`` whole over one mesh dim, and
+    ``note_replicated(what)`` — a mixer run REPLICATED over the model
+    ranks where its split does not divide them (Mamba2 heads, an mLSTM
+    head width, MLA serving heads), told to the listeners in
+    ``REPLICATED_LISTENERS`` (the dry run's ``Recorder`` counts them).
 
 ``torch.distributed.tensor`` is imported only inside a function that has
 a DTensor in hand, so importing the model imports none of it.
@@ -280,8 +285,9 @@ def attention(fn, q, k, v):
     independent (the training forward's ``causal_attend``; ``q_start``: the
     position of the first query row it is given). On DTensors each rank
     attends with its own batch rows and its own query heads, or, where the
-    heads do not divide the ranks, its own block of query positions
-    (``local_map``): keys and values split by head the same way where their
+    heads do not divide the ranks, its own block of query positions (all
+    of them where the ranks do not divide the positions either: replicated,
+    ``note_replicated``) (``local_map``): keys and values split by head the same way where their
     heads divide the ranks, else whole there, each rank then taking the kv
     head of each of its query heads (their gradients come back
     ``Partial``). DTensor's own propagation of the products and the softmax
@@ -293,8 +299,16 @@ def attention(fn, q, k, v):
     h, kvh = q.shape[2], k.shape[2]
     g = h // kvh
     # heads split where the model split of H*hd left them; the rest of the
-    # model split goes to the query positions
-    q_pl = [p if is_split(p, 0) or is_split(p, 2) else dt.Shard(1) for p in q.placements]
+    # model split goes to the query positions where they divide them, else
+    # every rank there attends with all of them (replicated)
+    pos_dims = [i for i, p in enumerate(q.placements) if not (is_split(p, 0) or is_split(p, 2))]
+    n_pos = 1
+    for i in pos_dims:
+        n_pos *= mesh.size(i)
+    if q.shape[1] % n_pos:
+        note_replicated("attention")
+    pos_pl = dt.Shard(1) if q.shape[1] % n_pos == 0 else dt.Replicate()
+    q_pl = [pos_pl if i in pos_dims else p for i, p in enumerate(q.placements)]
     q = _to(q, q_pl)
     head_dims = [i for i, p in enumerate(q_pl) if is_split(p, 2)]
     n = 1
@@ -574,7 +588,13 @@ def mla_cached_attention(parts, q_nope, q_rope, w_uk, w_uv, c_cache, r_cache, po
         keeps its own heads' context;
       * nothing (``mla_replicate_cache``): no collective.
 
-    Returns the (B, C, H, dv) float32 output, heads split as the weights'."""
+    Where the ranks that split the weights' heads do not divide H, or split
+    the cache's batch as well, the attention runs REPLICATED over them:
+    W_uk and W_uv are gathered whole there and each rank computes every
+    head of its batch rows (``note_replicated``).
+
+    Returns the (B, C, H, dv) float32 output, heads split as the weights'
+    (whole where replicated)."""
     import torch.distributed._functional_collectives as funcol
 
     dt = _dt()
@@ -586,8 +606,10 @@ def mla_cached_attention(parts, q_nope, q_rope, w_uk, w_uv, c_cache, r_cache, po
     for i in heads:
         n *= mesh.size(i)
     if h % n or any(is_split(pl[i], 0) for i in heads):
-        raise NotImplementedError(f"MLA serving: {h} heads over the {n} ranks that split "
-                                  "W_uk, or a cache whose batch they split")
+        # heads the ranks do not divide, or ranks that split the cache's
+        # batch too: W_uk / W_uv whole over them, every head on every rank
+        note_replicated("mla")
+        heads = []
     q_pl = [dt.Shard(2) if i in heads else dt.Shard(0) if is_split(p, 0) else dt.Replicate()
             for i, p in enumerate(pl)]
     row_pl = [dt.Shard(0) if is_split(p, 0) else dt.Replicate() for p in pl]
@@ -822,6 +844,29 @@ def all_gather(x, dim: int, ax: Axis):
     import torch.distributed._functional_collectives as funcol
 
     return _wait(funcol.all_gather_tensor(x.contiguous(), dim % x.ndim, ax.group))
+
+
+def unsplit(x, ax: Axis):
+    """DTensor ``x`` whole over the mesh dim of ``ax`` (an explicit
+    ``redistribute``: an all-gather of whichever tensor dim it splits
+    there; its backward splits the gradient again), its other placements
+    kept."""
+    dt = _dt()
+    want = list(x.placements)
+    want[ax.dim] = dt.Replicate()
+    return _to(x, want)
+
+
+REPLICATED_LISTENERS: list = []  # callables taking the name of a replicated layout
+
+
+def note_replicated(what: str) -> None:
+    """Tell every listener (``REPLICATED_LISTENERS``) that ``what`` runs
+    replicated over the model ranks in this call: a layout the caller
+    chose because its split does not divide them, stated in its docstring,
+    never a fallback from an error."""
+    for listen in REPLICATED_LISTENERS:
+        listen(what)
 
 
 def all_reduce(x, ax: Axis):

@@ -63,10 +63,12 @@ def solvers_on_the_card(rank, world):
     return out
 
 
-def train_on_the_card(rank, world, arch="multitask_lm", spec=None, orientation="data"):
+def train_on_the_card(rank, world, arch="multitask_lm", spec=None, orientation="data",
+                      overrides=None):
     """The plain step and the sharded one on a (W, 1) mesh (``orientation``
     "data") or a (1, W) mesh ("model"), with ``spec`` as the residual
-    stream's and the logits' constraint."""
+    stream's and the logits' constraint; ``overrides``: other config fields
+    (a block pattern)."""
     import dataclasses
 
     from torch.distributed.tensor import DTensor
@@ -83,7 +85,7 @@ def train_on_the_card(rank, world, arch="multitask_lm", spec=None, orientation="
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", rank)
     cfg = dataclasses.replace(get(arch, smoke=True), activation_sharding=spec,
-                              logits_sharding=spec)
+                              logits_sharding=spec, **(overrides or {}))
     if cfg.uses_moe:  # one dispatch group per data rank, on both sides
         cfg = dataclasses.replace(cfg, moe_groups=world if orientation == "data" else 1)
     pipe = TokenPipeline(cfg.vocab_size, seq_len=32, global_batch=8, num_tasks=cfg.num_tasks,

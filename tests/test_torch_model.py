@@ -172,9 +172,14 @@ def test_entry_point_raises_without_cuda(monkeypatch):
 
 
 def test_unported_block_patterns_and_backends_raise():
+    """Every block pattern the reference admits builds (a mixed stack runs
+    each kind's block, tests/test_torch_mixed_patterns.py); an unknown kind,
+    backend or arch raises."""
     cfg = get("olmo_1b", smoke=True)
-    with pytest.raises(NotImplementedError, match="pattern"):
-        TransformerLM(dataclasses.replace(cfg, pattern=("attn", "mamba")), device="cpu")
+    model = TransformerLM(dataclasses.replace(cfg, pattern=("attn", "mamba")), device="cpu")
+    assert model.kinds == ("attn", "mamba")
+    with pytest.raises(ValueError, match="block kind"):
+        dataclasses.replace(cfg, pattern=("attn", "rnn")).validate()
     with pytest.raises(ValueError, match="attn_backend"):
         dataclasses.replace(cfg, attn_backend="pallas").validate()
     with pytest.raises(ValueError, match="unknown arch"):

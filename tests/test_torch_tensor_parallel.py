@@ -275,8 +275,9 @@ def test_other_families_raise(arch):
     (the 2 x 2 layouts' constraints) on a (1, 1) fake mesh of meta
     DTensors, through the dry run's accounting (the gloo runs are
     tests/test_torch_tensor_parallel_families.py's and
-    tests/test_torch_tensor_parallel_recurrent.py's); a block pattern with
-    no tensor-parallel forward still raises."""
+    tests/test_torch_tensor_parallel_recurrent.py's); a mixed block
+    pattern passes ``check_tensor_parallel`` too (every kind has a
+    tensor-parallel forward; tests/test_torch_tensor_parallel_mixed.py)."""
     import torch.distributed as dist
 
     from repro_torch.launch.dryrun import account
@@ -286,8 +287,7 @@ def test_other_families_raise(arch):
 
     model = TransformerLM(get(arch, smoke=True), device="cpu")
     assert callable(sharded_step(model, None))
-    with pytest.raises(NotImplementedError, match="no tensor-parallel forward"):
-        check_tensor_parallel(dataclasses.replace(model.cfg, pattern=("attn", "mamba")))
+    check_tensor_parallel(dataclasses.replace(model.cfg, pattern=("attn", "mamba")))
     try:
         r = account(tp_config(arch), InputShape("train_2x32", 32, 2, "train"),
                     make_fake_mesh(shape=(1, 1)), dtype=torch.float32)

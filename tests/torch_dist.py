@@ -241,7 +241,7 @@ def tp_step(rank, world, arch, opt_name, fsdp_gather_moe, params_path, overrides
         gathered[k] = (tuple(p.shape), tuple(shape))
     return {"loss": float(metrics["loss"]), "flops": rec.flops,
             "collectives": [(c["kind"], c["axis"], c["shape"]) for c in rec.collectives],
-            "gathered": gathered,
+            "replicated": dict(rec.replicated), "gathered": gathered,
             "params": {k: _np(v) for k, v in full_params(state.params).items()}}
 
 
@@ -443,4 +443,53 @@ def tp_recurrent(rank, world, arch, overrides, params_path, mesh_shape, serve_ca
             run = tp_serve(model, dcaches, cfg, b, seq, lens=lens)
         run["cache_placements"] = [[repr(tuple(t.placements)) for t in e] for e in dcaches]
         out["serve"].append(run)
+    return out
+
+
+# ------------------------------------ mixed stacks and the uneven layouts
+def tp_cases(rank, world, cases, mesh_shape, seq=1024):
+    """Each case (``{"arch", "overrides", "params_path" or None, "serve":
+    [B, lens] or None[, "replicated_caches": True]}``) on a ``mesh_shape``
+    (data, model) mesh: an SGD step through ``sharding.sharded_step`` under
+    the dry run's recorder (``tp_step``'s record: loss, parameters, the
+    replicated layouts the recorder was told of), and, with ``serve``,
+    ``tp_serve``'s prefill and greedy ticks on DTensor caches in the cache
+    rules' layout (or replicated) under a recorder too."""
+    import dataclasses
+
+    from repro_torch.launch.dryrun import mesh_groups, record
+    from repro_torch.launch.mesh import axes_of, make_smoke_mesh
+    from repro_torch.sharding import shard_caches, shard_state, sharded_serving
+    from repro_torch.train.trainer import TrainState
+
+    mesh = make_smoke_mesh(*mesh_shape, device="cpu")
+    axes = axes_of(mesh)
+    out = []
+    for case in cases:
+        ov = dict(case["overrides"])
+        rec = {"step": tp_step(rank, world, case["arch"], "sgd", False, case["params_path"],
+                               ov, mesh_shape)}
+        if case["serve"] is not None:
+            b, lens = case["serve"]
+            cfg = dataclasses.replace(tp_config(case["arch"], **ov), attn_backend="plain")
+            model = tp_model(cfg, case["params_path"])
+            shard_state(model, TrainState(dict(model.named_parameters()), (), 0), mesh, axes)
+            caches = tp_serve_caches(model, b, seq)
+            if case.get("replicated_caches"):  # every cache whole on every rank
+                from torch.distributed.tensor import Replicate, distribute_tensor
+
+                dcaches = [tuple(distribute_tensor(t, mesh, [Replicate()] * mesh.ndim)
+                                 for t in e) for e in caches]
+            else:
+                dcaches = shard_caches(cfg, caches, mesh, axes)
+
+            def serve():
+                with sharded_serving(model):
+                    return tp_serve(model, dcaches, cfg, b, seq, lens=lens)
+
+            run, _, r = record(serve, (), mesh_groups(mesh))
+            run["replicated"] = dict(r.replicated)
+            run["cache_placements"] = [[repr(tuple(t.placements)) for t in e] for e in dcaches]
+            rec["serve"] = run
+        out.append(rec)
     return out

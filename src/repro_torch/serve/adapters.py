@@ -39,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch import tree as tree_lib
 from repro_torch.core.delayed import per_source_stale
 from repro_torch.core.graph import TaskGraph
@@ -255,24 +256,32 @@ class TaskAdapterStore:
         where ``stale`` picks each SOURCE task's iterate from the history
         ring at a bounded delay <= min(max_delay, len(hist) - 1) —
         resampled per update, or pinned to the bound with fixed_delay."""
-        m = self.num_tasks
-        bound = min(self.max_delay, len(self._hist) - 1)
-        if self.fixed_delay:
-            delays = np.full(m, bound, np.int32)
-        else:
-            delays = self._rng.integers(0, bound + 1, size=m).astype(np.int32)
-        if bound == 0:
-            stale = self._hist[0]
-        else:
-            d = torch.as_tensor(delays, device=self.device)
-            stale = tree_lib.map_(
-                lambda *hs: per_source_stale(torch.stack(hs), d), *self._hist
-            )
-        new = tree_lib.map_(
-            lambda t, g: t - self.lr * g.to(t.dtype), self._mix(stale), self._grads
-        )
-        self._grads = tree_lib.map_(torch.zeros_like, self._grads)
-        self.raw = new
-        self._hist = [new] + self._hist[: self.max_delay]
-        self.updates += 1
-        self.refresh()
+        with tracing.span("store.update"):
+            m = self.num_tasks
+            bound = min(self.max_delay, len(self._hist) - 1)
+            with tracing.span("store.delays"):
+                if self.fixed_delay:
+                    delays = np.full(m, bound, np.int32)
+                else:
+                    delays = self._rng.integers(0, bound + 1, size=m).astype(np.int32)
+                if bound > 0:
+                    # from pageable memory: the copy waits for the stream
+                    with tracing.span(".wait"):
+                        d = torch.as_tensor(delays, device=self.device)
+            if bound == 0:
+                stale = self._hist[0]
+            else:
+                with tracing.span("store.stale"):
+                    stale = tree_lib.map_(
+                        lambda *hs: per_source_stale(torch.stack(hs), d), *self._hist
+                    )
+            with tracing.span("store.mix"):
+                mixed = self._mix(stale)
+            with tracing.span("store.step"):
+                new = tree_lib.map_(lambda t, g: t - self.lr * g.to(t.dtype), mixed, self._grads)
+                self._grads = tree_lib.map_(torch.zeros_like, self._grads)
+            self.raw = new
+            self._hist = [new] + self._hist[: self.max_delay]
+            self.updates += 1
+            with tracing.span("store.refresh"):
+                self.refresh()

@@ -111,6 +111,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.models.model import ATTN_KINDS
 from repro_torch.serve.faults import FaultError
 from repro_torch.serve.paging import BlockAllocator, RadixPrefixCache
@@ -647,6 +648,8 @@ class ContinuousBatcher:
         tok = self.sample_fn(req, row) if self.sample_fn is not None else greedy
         tok = int(tok) if np.ndim(tok) == 0 else np.asarray(tok, np.int32)
         req.out.append(tok)
+        if len(req.out) == 1:
+            tracing.first_token(req.uid)
         if self.on_token is not None:
             self.on_token(req, tok)
 
@@ -657,7 +660,8 @@ class ContinuousBatcher:
         overwrites them."""
         if self.sample_fn is None and not self.quarantine:
             return None
-        return logits.cpu().numpy()
+        with tracing.span(".wait"):
+            return logits.cpu().numpy()
 
     def _slab(self, c: int):
         """Zeroed host inputs of one (num_slots, c) prefill dispatch: tokens
@@ -685,13 +689,16 @@ class ContinuousBatcher:
             vision[1][s, :n] = np.asarray(req.extras["vision_mask"], bool)[d : d + n]
 
     def _finish_ready(self):
-        for s, req in self.slots.live_items():
-            # pos is the NEXT write position: the slot is exhausted only
-            # when pos == capacity
-            if len(req.out) >= req.max_new or self.pos[s] >= self.slot_capacity:
+        with tracing.span("serve.finish"):
+            for s, req in self.slots.live_items():
+                # pos is the NEXT write position: the slot is exhausted only
+                # when pos == capacity
+                if len(req.out) < req.max_new and self.pos[s] < self.slot_capacity:
+                    continue
                 req.done = True
                 req.truncated = len(req.out) < req.max_new
                 self.finished.append(req)
+                tracing.finished(req.uid)
                 # blocks before the binding: an unbound slot must never
                 # still hold blocks
                 self._free_slot_blocks(s)
@@ -758,15 +765,16 @@ class ContinuousBatcher:
         prefill ALL newly admitted prompts together in chunked dispatches.
         Paged mode reserves each request's blocks here; when they cannot
         be had, admission stops until finishing requests release blocks."""
-        self._just_restored = set()
-        admitted = self.scheduler.admit(self.slots.free_slots(), self._try_bind)
-        newly = [s for s, _ in admitted]
-        # restored (swapped-in) slots must not be reset: their rows were
-        # just written back
-        self._needs_reset |= set(newly) - self._just_restored
-        # slots whose gulp a dispatch fault interrupted resume here
-        resumed = sorted(self._pending_prefill)
-        self._pending_prefill = set()
+        with tracing.span("serve.admit"):
+            self._just_restored = set()
+            admitted = self.scheduler.admit(self.slots.free_slots(), self._try_bind)
+            newly = [s for s, _ in admitted]
+            # restored (swapped-in) slots must not be reset: their rows were
+            # just written back
+            self._needs_reset |= set(newly) - self._just_restored
+            # slots whose gulp a dispatch fault interrupted resume here
+            resumed = sorted(self._pending_prefill)
+            self._pending_prefill = set()
         if self.scheduler.chunk_budget is None and (newly or resumed):
             self._prefill_full(sorted(set(newly) | set(resumed)))
         return newly
@@ -783,7 +791,6 @@ class ContinuousBatcher:
         from their cursors."""
         task_ids = self.slots.task_ids(self._null_task)
         tree = self._adapter_tree()
-        c = self.prefill_chunk
         while True:
             pending = [
                 s for s in targets
@@ -795,22 +802,31 @@ class ContinuousBatcher:
             if self.faults is not None and self.faults.fires("dispatch", where="prefill"):
                 self._pending_prefill = set(pending)
                 raise FaultError("injected prefill dispatch failure")
+            with tracing.span("serve.prefill"):
+                self._prefill_dispatch(pending, task_ids, tree)
+
+    def _prefill_dispatch(self, pending: list[int], task_ids, tree) -> None:
+        """One (num_slots, C) dispatch of ``_prefill_full`` over the slots
+        in ``pending``."""
+        c = self.prefill_chunk
+        with tracing.span(".pack"):
             tokens, valid, reset, vision = self._slab(c)
             for s in pending:
                 req = self.slots.reqs[s]
                 reset[s] = s in self._needs_reset
                 self._fill_row(tokens, valid, vision, s, req, min(c, req.prefill_remaining))
-            self._steps.prepare("prefill", tree)  # capture_s, not prefill_s
-            t0 = time.perf_counter()
-            greedy, last, positions = self._steps.prefill(
-                tokens, task_ids, self.pos, valid, reset, self._block_tables(), tree, vision,
-            )
-            rows = self._rows(last)
-            self.prefill_s += time.perf_counter() - t0
-            self.prefill_dispatches += 1
-            self.prefill_tokens += int(valid.sum())
-            self._consec_dispatch_faults = 0
-            self._needs_reset -= set(pending)
+        self._steps.prepare("prefill", tree)  # capture_s, not prefill_s
+        t0 = time.perf_counter()
+        greedy, last, positions = self._steps.prefill(
+            tokens, task_ids, self.pos, valid, reset, self._block_tables(), tree, vision,
+        )
+        rows = self._rows(last)
+        self.prefill_s += time.perf_counter() - t0
+        self.prefill_dispatches += 1
+        self.prefill_tokens += int(valid.sum())
+        self._consec_dispatch_faults = 0
+        self._needs_reset -= set(pending)
+        with tracing.span(".emit"):
             self.slots.set_positions(positions)
             completed = []
             for s in pending:
@@ -872,28 +888,31 @@ class ContinuousBatcher:
             return
         if self.faults is not None and self.faults.fires("dispatch", where="decode"):
             raise FaultError("injected decode dispatch failure")
-        k = self.model.cfg.num_codebooks
-        tokens = np.zeros((self.num_slots,) + ((k,) if k > 1 else ()), np.int32)
-        for s, req in self.slots.live_items():
-            tokens[s] = req.out[-1] if req.out else np.asarray(req.tokens)[-1]
-        tree = self._adapter_tree()
-        self._steps.prepare("decode", tree)  # capture_s, not decode_s
-        t0 = time.perf_counter()
-        greedy, step_logits = self._steps.decode(
-            tokens, self.slots.task_ids(self._null_task), self.pos, live,
-            self._block_tables(), tree,
-        )
-        rows = self._rows(step_logits)
-        self.decode_s += time.perf_counter() - t0
-        self.ticks += 1
-        self.decode_dispatches += 1
-        self._consec_dispatch_faults = 0
-        self.slots.advance_live()
-        if self.quarantine:
-            items = self.slots.live_items()
-            self._quarantine_scan({s: rows[s] for s, _ in items}, items)
-        for s, req in self.slots.live_items():
-            self._emit(req, row=None if rows is None else rows[s], greedy=greedy[s])
+        with tracing.span("serve.decode"):
+            with tracing.span(".pack"):
+                k = self.model.cfg.num_codebooks
+                tokens = np.zeros((self.num_slots,) + ((k,) if k > 1 else ()), np.int32)
+                for s, req in self.slots.live_items():
+                    tokens[s] = req.out[-1] if req.out else np.asarray(req.tokens)[-1]
+            tree = self._adapter_tree()
+            self._steps.prepare("decode", tree)  # capture_s, not decode_s
+            t0 = time.perf_counter()
+            greedy, step_logits = self._steps.decode(
+                tokens, self.slots.task_ids(self._null_task), self.pos, live,
+                self._block_tables(), tree,
+            )
+            rows = self._rows(step_logits)
+            self.decode_s += time.perf_counter() - t0
+            self.ticks += 1
+            self.decode_dispatches += 1
+            self._consec_dispatch_faults = 0
+            with tracing.span(".emit"):
+                self.slots.advance_live()
+                if self.quarantine:
+                    items = self.slots.live_items()
+                    self._quarantine_scan({s: rows[s] for s, _ in items}, items)
+                for s, req in self.slots.live_items():
+                    self._emit(req, row=None if rows is None else rows[s], greedy=greedy[s])
 
     # ------------------------------------- SLA mode: fused prefill + decode
     def _interleaved_tick(self):
@@ -912,16 +931,22 @@ class ContinuousBatcher:
             return
         if self.faults is not None and self.faults.fires("dispatch", where="mixed"):
             raise FaultError("injected mixed dispatch failure")
+        with tracing.span("serve.mixed"):
+            self._mixed_dispatch(prefilling, decoding)
+
+    def _mixed_dispatch(self, prefilling: list, decoding: list) -> None:
+        """The fused dispatch of ``_interleaved_tick``."""
         c = self.prefill_chunk
-        plan = self.scheduler.plan_prefill(prefilling, c)
-        tokens, valid, reset, vision = self._slab(c)
-        for s, n in plan:
-            req = self.slots.reqs[s]
-            self._fill_row(tokens, valid, vision, s, req, n)
-            reset[s] = req.prompt_done == 0
-        for s, req in decoding:
-            tokens[s, 0] = req.out[-1] if req.out else np.asarray(req.tokens)[-1]
-            valid[s, 0] = True
+        with tracing.span(".pack"):
+            plan = self.scheduler.plan_prefill(prefilling, c)
+            tokens, valid, reset, vision = self._slab(c)
+            for s, n in plan:
+                req = self.slots.reqs[s]
+                self._fill_row(tokens, valid, vision, s, req, n)
+                reset[s] = req.prompt_done == 0
+            for s, req in decoding:
+                tokens[s, 0] = req.out[-1] if req.out else np.asarray(req.tokens)[-1]
+                valid[s, 0] = True
         greedy, last, positions = self._steps.prefill(
             tokens, self.slots.task_ids(self._null_task), self.pos, valid, reset,
             self._block_tables(), self._adapter_tree(), vision,
@@ -931,24 +956,25 @@ class ContinuousBatcher:
         self.mixed_dispatches += 1
         self.prefill_tokens += sum(n for _, n in plan)
         self._consec_dispatch_faults = 0
-        self.slots.set_positions(positions)
-        completed = []
-        for s, n in plan:
-            req = self.slots.reqs[s]
-            if req is None:  # cancelled from a streaming callback mid-round
-                continue
-            req.prompt_done += n
-            if req.prefill_remaining == 0:
-                completed.append((s, req))
-        if self.quarantine:
-            items = completed + [(s, r) for s, r in decoding if self.slots.reqs[s] is r]
-            self._quarantine_scan({s: rows[s] for s, _ in items}, items)
-        for s, req in completed:
-            if self.slots.reqs[s] is req:  # not quarantined/cancelled
-                self._register_prefix(s, req)
-        for s, req in completed + decoding:
-            if self.slots.reqs[s] is req:  # not quarantined/cancelled
-                self._emit(req, row=None if rows is None else rows[s], greedy=greedy[s])
+        with tracing.span(".emit"):
+            self.slots.set_positions(positions)
+            completed = []
+            for s, n in plan:
+                req = self.slots.reqs[s]
+                if req is None:  # cancelled from a streaming callback mid-round
+                    continue
+                req.prompt_done += n
+                if req.prefill_remaining == 0:
+                    completed.append((s, req))
+            if self.quarantine:
+                items = completed + [(s, r) for s, r in decoding if self.slots.reqs[s] is r]
+                self._quarantine_scan({s: rows[s] for s, _ in items}, items)
+            for s, req in completed:
+                if self.slots.reqs[s] is req:  # not quarantined/cancelled
+                    self._register_prefix(s, req)
+            for s, req in completed + decoding:
+                if self.slots.reqs[s] is req:  # not quarantined/cancelled
+                    self._emit(req, row=None if rows is None else rows[s], greedy=greedy[s])
 
     # ------------------------------------------------------------ driving
     def capture(self) -> None:
@@ -972,20 +998,22 @@ class ContinuousBatcher:
         dispatch, so no state was mutated) aborts the round; the next round
         retries the same work. ``max_retries`` consecutive failed rounds
         fail every in-flight request terminally instead of spinning."""
-        if self.faults is not None:
-            self.faults.set_tick(self.ticks)
-        self._retire_expired()
-        try:
-            self._admit()
-            if self.scheduler.chunk_budget is None:
-                self._finish_ready()  # prefill alone may satisfy max_new
-                if self.slots.any_live():
-                    self.tick()
-            else:
-                self._interleaved_tick()
-        except FaultError as e:
-            self._note_dispatch_fault(e)
-        self._finish_ready()
+        with tracing.span("serve.round"):
+            if self.faults is not None:
+                self.faults.set_tick(self.ticks)
+            with tracing.span("serve.admit"):
+                self._retire_expired()
+            try:
+                self._admit()
+                if self.scheduler.chunk_budget is None:
+                    self._finish_ready()  # prefill alone may satisfy max_new
+                    if self.slots.any_live():
+                        self.tick()
+                else:
+                    self._interleaved_tick()
+            except FaultError as e:
+                self._note_dispatch_fault(e)
+            self._finish_ready()
 
     def _note_dispatch_fault(self, e: FaultError) -> None:
         """Count an injected dispatch fault, and once ``max_retries``

@@ -40,6 +40,8 @@ from __future__ import annotations
 import itertools
 import time
 
+from repro_torch import tracing
+
 POLICIES = ("fifo", "sjf", "priority")
 
 
@@ -75,6 +77,7 @@ class Scheduler:
         req._arrival = next(self._arrivals)
         req.submit_time = self.now()
         self.queue.append(req)
+        tracing.submitted(req.uid)
 
     def cancel(self, uid):
         """Remove and return a QUEUED request by uid (None if not queued —
@@ -152,6 +155,7 @@ class Scheduler:
             slot = free.pop(0)
             self.queue.remove(req)
             admitted.append((slot, req))
+            tracing.bound(req.uid)
         return admitted
 
     def plan_prefill(self, prefilling: list, chunk: int) -> list:

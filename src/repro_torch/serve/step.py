@@ -77,6 +77,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch import tree as tree_lib
 from repro_torch.kernels.decode_attention.ops import decode_attention, paged_decode_attention
 from repro_torch.kernels.prefill_attention.ops import (
@@ -366,9 +367,12 @@ class StepExecutor:
         numpy int32, step logits (B, V) ((B, K, V)) f32 on the device — a
         graph output, overwritten by the next tick)."""
         self.prepare("decode", adapters)
-        self._steps["decode"].fill(tokens, task_ids, positions, live, block_tables)
-        ints, logits = self._dispatch("decode", adapters)
-        return ints.cpu().numpy(), logits
+        with tracing.span(".pack"):
+            self._steps["decode"].fill(tokens, task_ids, positions, live, block_tables)
+        with tracing.span(".launch"):
+            ints, logits = self._dispatch("decode", adapters)
+        with tracing.span(".wait"):
+            return ints.cpu().numpy(), logits
 
     def prefill(self, tokens, task_ids, positions, valid, reset, block_tables=None,
                 adapters=None, vision=None):
@@ -380,12 +384,15 @@ class StepExecutor:
         V)) on the device, overwritten by the next chunk, new positions (B,)
         int32)."""
         self.prepare("prefill", adapters)
-        reset = np.asarray(reset, bool)
-        if reset.any():
-            self.model.reset_slot_state(self.caches, reset, self.paging)
-        self._steps["prefill"].fill(tokens, task_ids, positions, valid, block_tables, vision)
-        ints, last = self._dispatch("prefill", adapters)
-        out = ints.cpu().numpy()
+        with tracing.span(".pack"):
+            reset = np.asarray(reset, bool)
+            if reset.any():
+                self.model.reset_slot_state(self.caches, reset, self.paging)
+            self._steps["prefill"].fill(tokens, task_ids, positions, valid, block_tables, vision)
+        with tracing.span(".launch"):
+            ints, last = self._dispatch("prefill", adapters)
+        with tracing.span(".wait"):
+            out = ints.cpu().numpy()
         b = self.num_slots
         return out[:-b].reshape((b,) + last.shape[1:-1]), last, out[-b:]
 

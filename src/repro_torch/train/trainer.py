@@ -24,6 +24,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch import tree as tree_lib
 from repro_torch.core.distributed import GraphMultiTask
 from repro_torch.models.model import TransformerLM
@@ -44,11 +45,12 @@ def batch_to_device(batch: dict, device) -> dict:
     host sync."""
     device = torch.device(device)
     out = {}
-    for k, v in batch.items():
-        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
-        if device.type == "cuda" and t.device.type == "cpu":
-            t = t.contiguous().pin_memory().to(device, non_blocking=True)
-        out[k] = t.to(device)
+    with tracing.span("train.upload"):
+        for k, v in batch.items():
+            t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
+            if device.type == "cuda" and t.device.type == "cpu":
+                t = t.contiguous().pin_memory().to(device, non_blocking=True)
+            out[k] = t.to(device)
     return out
 
 
@@ -68,12 +70,13 @@ def make_train_step(
     mix = None if multitask is None else multitask.mix_tensor(model.device)
 
     def grads_of(params, batch):
-        loss, metrics = model.loss_fn(batch, aux_weight=aux_weight)
-        if multitask is not None and graph_penalty_weight > 0.0:
-            loss = loss + graph_penalty_weight * multitask.graph_penalty(params)
-        grads = torch.autograd.grad(loss, tree_lib.leaves(params), allow_unused=True,
-                                    materialize_grads=True)
-        return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), list(grads)
+        with tracing.span("train.grads"):
+            loss, metrics = model.loss_fn(batch, aux_weight=aux_weight)
+            if multitask is not None and graph_penalty_weight > 0.0:
+                loss = loss + graph_penalty_weight * multitask.graph_penalty(params)
+            grads = torch.autograd.grad(loss, tree_lib.leaves(params), allow_unused=True,
+                                        materialize_grads=True)
+            return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), list(grads)
 
     def accumulate(params, batch):
         b = tree_lib.leaves(batch)[0].shape[0]
@@ -97,20 +100,22 @@ def make_train_step(
         return (loss * inv, metrics), grads
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        (loss, metrics), grads = accumulate(state.params, batch)
-        params = state.params
-        if multitask is not None:
-            # the paper's communication round: theta <- mu^T theta, in place
-            with torch.no_grad():
-                mixed = multitask.mix_task_params(params, mix)
-                for p, new in zip(tree_lib.leaves(params), tree_lib.leaves(mixed)):
-                    if new is not p:
-                        p.copy_(new)
-        params, opt_state = optimizer.update(
-            tree_lib.unflatten(params, grads), state.opt_state, params, state.step
-        )
-        metrics = dict(metrics, loss=loss)
-        return TrainState(params, opt_state, state.step + 1), metrics
+        with tracing.span("train.step"):
+            (loss, metrics), grads = accumulate(state.params, batch)
+            params = state.params
+            if multitask is not None:
+                # the paper's communication round: theta <- mu^T theta, in place
+                with tracing.span("train.mix"), torch.no_grad():
+                    mixed = multitask.mix_task_params(params, mix)
+                    for p, new in zip(tree_lib.leaves(params), tree_lib.leaves(mixed)):
+                        if new is not p:
+                            p.copy_(new)
+            with tracing.span("train.optimizer"):
+                params, opt_state = optimizer.update(
+                    tree_lib.unflatten(params, grads), state.opt_state, params, state.step
+                )
+            metrics = dict(metrics, loss=loss)
+            return TrainState(params, opt_state, state.step + 1), metrics
 
     return train_step
 
